@@ -6,17 +6,29 @@
 
 Phases, one JSON line each:
 
-1. ``build``    — ``nvcc`` builds every kernel of the path from ``src/repro_torch``.
-2. ``kernel``   — each kernel on the card against its plain PyTorch version on
-                  the same inputs (bit-identical on repeat, within tolerance),
-                  timed with CUDA events beside the plain version and its bound.
-3. ``multiply`` — the paper's Table 1 first row (banded A, N = 100,000,
-                  half-bandwidth 3000, bs 128): ``multiply(A, A)``, with 64
-                  sampled output blocks held against float64 host products.
-4. ``sp2``      — the ``examples/purification.py`` pipeline at N = 8192,
-                  bs 128: S -> inv_chol -> Z^T F Z -> sp2_purify -> D, held
-                  against a float64 eigendecomposition.
-5. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``.
+1. ``build``        — ``nvcc`` builds every kernel of the path from
+                      ``src/repro_torch``, one process per source, all at once.
+2. ``kernel``       — the ``block_spmm`` kernel on the card against its plain
+                      PyTorch version on the same inputs (bit-identical on
+                      repeat, within tolerance), timed with CUDA events beside
+                      the plain version and its bound.
+3. ``fused_kernel`` — the fused leaf kernel the same way, on the N = 8192 band
+                      planned for 8 workers (fp32, bf16 stores, adaptive,
+                      masked tasks), bs 24, no exchange rounds and empty runs;
+                      fp32 fused is bit-identical to the staged path
+                      (concatenated buffers + ``block_spmm``).
+4. ``multiply``     — the paper's Table 1 first row (banded A, N = 100,000,
+                      half-bandwidth 3000, bs 128): ``multiply(A, A)``, with 64
+                      sampled output blocks held against float64 host products.
+5. ``sp2``          — the ``examples/purification.py`` pipeline at N = 8192,
+                      bs 128: S -> inv_chol -> Z^T F Z -> sp2_purify -> D, held
+                      against a float64 eigendecomposition.
+6. ``dist_multiply`` — the paper's Table 1 second row (N = 200,000, 4 workers):
+                      ``scatter`` -> ``dist_multiply`` (cold and warm plan
+                      cache) -> ``gather``, bit-identical to ``multiply(A, A)``.
+7. ``dist_spamm``   — delta-plan SpAMM at N = 8192 on 8 workers, two ``tau``
+                      and three precisions, each within its returned bound.
+8. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
 Without ``--rehearse`` it needs a CUDA card and exits non-zero without one.
@@ -41,10 +53,17 @@ HBM_BYTES_PER_S = 3.35e12
 # because the kernel and the plain version sum each element in another order
 REL = 1e-5
 
+# bf16 rounding of both operands of a task: |fl(A)fl(B) - AB|_F <= (2u + u^2) |A|_F |B|_F
+ROUND2_BOUND = 2.0 * 2.0**-8 + 2.0**-16
+
 FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
-            sp2_n=8192, sp2_bs=128, sp2_nocc=2560)
+            sp2_n=8192, sp2_bs=128, sp2_nocc=2560,
+            fused_p=8, r24_n=4800, r24_hw=600, small_n=2048,
+            dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8)
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
-                 sp2_n=512, sp2_bs=32, sp2_nocc=160)
+                 sp2_n=512, sp2_bs=32, sp2_nocc=160,
+                 fused_p=8, r24_n=480, r24_hw=60, small_n=256,
+                 dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8)
 
 
 def emit(obj: dict) -> None:
@@ -155,12 +174,15 @@ def phase_build(ctx) -> dict:
         return out
     from repro_torch.kernels import build
 
+    names = ["block_spmm", "fused_block_spmm"]
     t0 = time.perf_counter()
-    build.load_library("block_spmm")
+    build.build_all(names)
+    for name in names:
+        build.load_library(name)
     secs = time.perf_counter() - t0
-    log = build.build_logs.get("block_spmm", "")
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    out = dict(phase="build", seconds=secs, kernels=["block_spmm"], ptxas=ptxas[:6])
+    ptxas = {name: [ln.strip() for ln in build.build_logs.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln][:6] for name in names}
+    out = dict(phase="build", seconds=secs, kernels=names, ptxas=ptxas)
     emit(out)
     return out
 
@@ -415,6 +437,392 @@ def phase_sp2(ctx, sizes) -> dict:
     return out
 
 
+def fused_args(ctx, plan, a_data, b_data, dtype=None):
+    """The fused kernel's arguments for a plan: worker stores, the exchange's
+    stacked receive buffers, the (src, off) task arrays and the CSR runs."""
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.core.distributed import _exchange_stack, shard_stores
+    from repro_torch.kernels.fused_leaf import fused_task_runs
+
+    a_store, b_store = shard_stores(plan, a_data, b_data)
+    if dtype is not None:
+        a_store, b_store = a_store.to(dtype), b_store.to(dtype)
+    up = lambda x: torch.from_numpy(np.asarray(x, np.int64)).to(ctx.dev)  # noqa: E731
+    a_recv = _exchange_stack(a_store, plan.a_offsets, [up(plan.a_send[d]) for d in plan.a_offsets])
+    b_recv = _exchange_stack(b_store, plan.b_offsets, [up(plan.b_send[d]) for d in plan.b_offsets])
+    return (a_store, a_recv, b_store, b_recv, up(plan.task_a_src), up(plan.task_a_off),
+            up(plan.task_b_src), up(plan.task_b_off), up(fused_task_runs(plan.task_c, plan.c_cap)),
+            plan.c_cap)
+
+
+def fused_task_norms(args):
+    """||A_t||_F ||B_t||_F of every task slot [P, T] (float64, on the device)."""
+    import torch as th
+
+    a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off = args[:8]
+    P = a_src.shape[0]
+
+    def norms(store, recv, src, off):
+        ns = th.linalg.matrix_norm(store.double())
+        nr = th.linalg.matrix_norm(recv.double())
+        p = th.arange(P, device=src.device)[:, None].expand_as(src)
+        return th.where(src == 0, ns[p, off.clamp(max=ns.shape[1] - 1)],
+                        nr[p, (src - 1).clamp(min=0), off.clamp(max=nr.shape[2] - 1)])
+
+    return norms(a_store, a_recv, a_src, a_off) * norms(b_store, b_recv, b_src, b_off)
+
+
+def fused_tolerance(args, on=None, low=None):
+    """Per output block: REL * sum_t ||A_t|| ||B_t|| over its tasks that are on,
+    plus ROUND2_BOUND * the same sum over its low tasks (adaptive mode)."""
+    import torch as th
+
+    run_ptr = args[8]
+    per = fused_task_norms(args)
+    tol = REL * per
+    if low is not None:
+        tol = tol + ROUND2_BOUND * per * low
+    if on is not None:
+        tol = tol * on
+    csum = th.cat([tol.new_zeros(tol.shape[0], 1), tol.cumsum(1)], 1)
+    return csum.gather(1, run_ptr[:, 1:]) - csum.gather(1, run_ptr[:, :-1])
+
+
+def fused_bound(args, on=None):
+    """Least time for the fused kernel on an H100: operations or bytes.
+
+    Operations: 2*T*bm*bn*bk over the tasks that run, at the fp32 FFMA rate.
+    Bytes: every distinct operand block the tasks reference (own store or
+    receive buffer) read once, the four int64 task arrays and the runs, the
+    on flags when given, and every output block written once in fp32.
+    """
+    import numpy as np
+
+    a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, run_ptr, num_out = args
+    P, T = a_src.shape
+    bm, bk, bn = a_store.shape[2], a_store.shape[3], b_store.shape[3]
+    rp = run_ptr.cpu().numpy()
+    live = np.arange(T)[None] < rp[:, -1:]
+    if on is not None:
+        live &= on.cpu().numpy()
+    n_tasks = int(live.sum())
+    p = np.nonzero(live)[0]
+
+    def distinct(src, off):
+        s, o = src.cpu().numpy()[live], off.cpu().numpy()[live]
+        return np.unique(np.stack([p, s, o], 1), axis=0).shape[0]
+
+    isz = a_store.element_size()
+    nbytes = ((distinct(a_src, a_off) * bm * bk + distinct(b_src, b_off) * bk * bn) * isz
+              + 8 * (4 * P * T + P * (num_out + 1)) + (P * T if on is not None else 0)
+              + 4 * P * num_out * bm * bn)
+    ops = 2.0 * n_tasks * bm * bn * bk
+    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return dict(tasks=n_tasks, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_arithmetic=(f"max({ops:.6g} op / 67e12 op/s = {t_ops * 1e3:.4f} ms, "
+                                  f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
+
+
+def phase_fused_kernel(ctx, sizes) -> dict:
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.core.distributed import (MaskedSpgemmExecutable, SpgemmExecutable,
+                                              WorkerMesh)
+    from repro_torch.core.schedule import make_spgemm_plan
+    from repro_torch.kernels import fused_leaf as fl
+
+    kernel = fl.fused_block_spmm_ref if ctx.rehearse else fl.fused_block_spmm_cuda
+    staged_impl = "ref" if ctx.rehearse else "kernel"
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=ctx.dev).manual_seed(3)
+    mbs, P = sizes["mul_bs"], sizes["fused_p"]
+
+    def band_plan(n, hw, bs, nparts):
+        coords = band_coords(-(-n // bs), (hw + bs - 1) // bs)
+        plan = make_spgemm_plan(coords, coords, nparts, bs)
+        data = torch.randn((coords.shape[0], bs, bs), generator=gen, device=ctx.dev)
+        return plan, data
+
+    t0 = time.perf_counter()
+    plan, data = band_plan(sizes["time_n"], sizes["mul_hw"], mbs, P)
+    plan_s = time.perf_counter() - t0
+    valid = np.arange(plan.t_cap)[None] < plan.task_count[:, None]
+    f32 = fused_args(ctx, plan, data, data)
+    low = torch.from_numpy(rng.random(valid.shape) < 0.5).to(ctx.dev)
+    on_np = (rng.random(valid.shape) >= 0.3) & valid
+    on = torch.from_numpy(on_np).to(ctx.dev)
+    plan24, data24 = band_plan(sizes["r24_n"], sizes["r24_hw"], 24, 4)
+    plan1, data1 = band_plan(sizes["small_n"], sizes["mul_hw"], mbs, 1)
+
+    # runs with empty rows (3, 17 and the last) on 3 workers, random operands
+    def empty_runs_case():
+        num_out, T, cap, R, cu = 64, 400, 40, 2, 30
+        rows = np.setdiff1d(np.arange(num_out), (3, 17, num_out - 1))
+        c = np.sort(rng.choice(rows, (3, T)), axis=1)
+        src = [rng.integers(0, R + 1, (3, T)) for _ in range(2)]
+        off = [np.where(s == 0, rng.integers(0, cap, (3, T)), rng.integers(0, cu, (3, T))) for s in src]
+        up = lambda x: torch.from_numpy(np.asarray(x, np.int64)).to(ctx.dev)  # noqa: E731
+        r = lambda *sh: torch.randn(sh, generator=gen, device=ctx.dev)  # noqa: E731
+        from repro_torch.kernels.fused_leaf import fused_task_runs
+        return (r(3, cap, mbs, mbs), r(3, R, cu, mbs, mbs), r(3, cap, mbs, mbs), r(3, R, cu, mbs, mbs),
+                up(src[0]), up(off[0]), up(src[1]), up(off[1]), up(fused_task_runs(c, num_out)), num_out)
+
+    cases = [
+        (f"band_p{P}_bs{mbs}_f32", f32, {}),
+        (f"band_p{P}_bs{mbs}_bf16", fused_args(ctx, plan, data, data, torch.bfloat16), {}),
+        (f"band_p{P}_bs{mbs}_adaptive", f32, dict(low=low, adaptive=True)),
+        (f"band_p{P}_bs{mbs}_masked30", f32, dict(on=on)),
+        ("band_p4_bs24_f32", fused_args(ctx, plan24, data24, data24), {}),
+        (f"band_p1_bs{mbs}_no_rounds", fused_args(ctx, plan1, data1, data1), {}),
+        (f"random_p3_bs{mbs}_empty_runs", empty_runs_case(), {}),
+    ]
+    results, outs = [], {}
+    for name, args, kw in cases:
+        got = kernel(*args, **kw)
+        again = kernel(*args, **kw)
+        want = fl.fused_block_spmm_ref(*args, **kw)
+        ctx.sync()
+        identical = bool(torch.equal(got, again))
+        err = (got - want).abs().flatten(2).amax(dim=2).double()
+        tol = fused_tolerance(args, kw.get("on"), kw.get("low") if kw.get("adaptive") else None)
+        rp = args[8].cpu().numpy()
+        empty = torch.from_numpy(np.diff(rp, axis=1) == 0).to(ctx.dev)
+        empty_rows_zero = bool(not got[empty].any())
+        row = dict(case=name, dtype=str(args[0].dtype).replace("torch.", ""), bs=args[0].shape[2],
+                   workers=args[0].shape[0], rounds=(args[1].shape[1] if args[1].shape[2] > 1 else 0),
+                   task_slots=int(args[4].numel()), num_out=args[9],
+                   max_abs_err=float(err.max()),
+                   max_err_over_tol=float((err / tol.clamp_min(1e-300)).max()),
+                   bit_identical_on_repeat=identical, empty_rows_zero=empty_rows_zero,
+                   empty_rows=int(empty.sum()))
+        check(identical, f"{name}: fused kernel output differs between two launches")
+        check(bool((err <= tol).all()), f"{name}: fused kernel disagrees with the plain version")
+        check(empty_rows_zero, f"{name}: rows without tasks are not zero")
+        results.append(row)
+        outs[name] = got
+
+    # fp32 fused == staged path (concatenated buffers + block_spmm), bit for bit;
+    # masked with every task on == unmasked; masked == staged with off tasks dropped
+    mesh = WorkerMesh(P, ctx.dev)
+    a_store, b_store = f32[0], f32[2]
+    staged = SpgemmExecutable(plan, mesh, impl=staged_impl)(a_store, b_store)
+    staged_masked = MaskedSpgemmExecutable(plan, mesh, impl=staged_impl)(a_store, b_store, on_np)
+    all_on = kernel(*f32, on=torch.from_numpy(valid).to(ctx.dev))
+    ctx.sync()
+    fused_eq_staged = bool(torch.equal(outs[cases[0][0]], staged))
+    masked_eq_staged = bool(torch.equal(outs[cases[3][0]], staged_masked))
+    all_on_eq = bool(torch.equal(all_on, outs[cases[0][0]]))
+    check(fused_eq_staged, "fp32 fused kernel is not bit-identical to the staged path")
+    check(masked_eq_staged, "masked fused kernel is not bit-identical to the staged path without the off tasks")
+    check(all_on_eq, "masked fused kernel with every task on differs from the unmasked kernel")
+    del staged, staged_masked, all_on, outs
+
+    # timing: the fp32 case, the plain version, and torch.bmm on pre-gathered operands
+    ms = ctx.time_ms(lambda: kernel(*f32), reps=10)
+    plain_ms = ctx.time_ms(lambda: fl.fused_block_spmm_ref(*f32), reps=3)
+    p_idx, t_idx = torch.nonzero(torch.from_numpy(valid).to(ctx.dev), as_tuple=True)
+    lhs = fl._gather(f32[0], f32[1], p_idx, f32[4][p_idx, t_idx], f32[5][p_idx, t_idx])
+    rhs = fl._gather(f32[2], f32[3], p_idx, f32[6][p_idx, t_idx], f32[7][p_idx, t_idx])
+    bmm_ms = ctx.time_ms(lambda: torch.bmm(lhs, rhs), reps=10)
+    del lhs, rhs
+    bound = fused_bound(f32)
+    tpw = plan.task_count
+    timing = dict(case=cases[0][0], ms=ms, plain_ms=plain_ms, bmm_yardstick_ms=bmm_ms,
+                  bmm_yardstick="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
+                  tflops=2.0 * bound["tasks"] * mbs**3 / (ms * 1e-3) / 1e12, **bound)
+    out = dict(phase="fused_kernel", plan_s=plan_s, a_offsets=list(plan.a_offsets),
+               b_offsets=list(plan.b_offsets), tasks_per_worker_min=int(tpw.min()),
+               tasks_per_worker_max=int(tpw.max()), masked_share=float(1 - on_np.sum() / valid.sum()),
+               low_share=float(low.cpu().numpy()[valid].mean()), cases=results,
+               fused_eq_staged=fused_eq_staged, masked_eq_staged=masked_eq_staged,
+               masked_all_on_eq_unmasked=all_on_eq, timing=timing)
+    emit(out)
+    return out
+
+
+def dense_on_device(m, dtype):
+    """The dense matrix of a BSMatrix, built on its device."""
+    import torch as th
+
+    nbr, nbc = m.nblocks
+    grid = th.zeros((nbr, nbc, m.bs, m.bs), dtype=dtype, device=m.device)
+    if m.nnzb:
+        c = th.from_numpy(m.coords).to(m.device)
+        grid[c[:, 0], c[:, 1]] = m.data.to(dtype)
+    return grid.permute(0, 2, 1, 3).reshape(nbr * m.bs, nbc * m.bs)[: m.shape[0], : m.shape[1]]
+
+
+def phase_dist_multiply(ctx, sizes) -> dict:
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.core import multiply
+    from repro_torch.core.distributed import _exchange_stack, make_worker_mesh
+    from repro_torch.core.schedule import plan_worker_bytes
+    from repro_torch.dist import PlanCache, dist_multiply, scatter
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.kernels import ops
+
+    n, hw, bs, P = sizes["dist_n"], sizes["mul_hw"], sizes["mul_bs"], sizes["dist_p"]
+    a = banded_matrix(ctx, n, hw, bs, seed=200)
+    mesh = make_worker_mesh(P, ctx.dev)
+    t0 = time.perf_counter()
+    d = scatter(a, mesh)
+    ctx.sync()
+    scatter_s = time.perf_counter() - t0
+    if ctx.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cache = PlanCache()
+    expected = 0 if ctx.rehearse else 1
+    fl.launches = 0  # the main path's count starts here
+    t0 = time.perf_counter()
+    c = dist_multiply(d, d, cache)
+    ctx.sync()
+    cold_s = time.perf_counter() - t0
+    cold = (fl.launches, cache.hits, cache.misses)
+    del c
+    t0 = time.perf_counter()
+    c = dist_multiply(d, d, cache)
+    ctx.sync()
+    warm_s = time.perf_counter() - t0
+    launches = fl.launches  # ... and is read here
+    warm = (launches - cold[0], cache.hits - cold[1], cache.misses - cold[2])
+    check(cold == (expected, 0, 1), f"cold dist_multiply: (launches, hits, misses) = {cold}")
+    check(warm == (expected, 1, 0), f"warm dist_multiply: (launches, hits, misses) = {warm}")
+    peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+    plan, exe = cache.peek(cache.last_plan_key)
+    T = plan.tasks.num_tasks
+    flops = 2.0 * T * bs**3
+
+    # exchange and kernel alone (CUDA events), on the resident stores
+    def exchange():
+        return (_exchange_stack(d.store, plan.a_offsets, exe._a_sends),
+                _exchange_stack(d.store, plan.b_offsets, exe._b_sends))
+
+    exchange_ms = ctx.time_ms(exchange, reps=3)
+    a_recv, b_recv = exchange()
+    args = (d.store, a_recv, d.store, b_recv, *exe._idx, exe._run_ptr, plan.c_cap)
+    kernel_ms = ctx.time_ms(lambda: ops.fused_block_spmm(*args), reps=2)
+    bound = fused_bound(args)
+    bound.pop("tasks")
+    del a_recv, b_recv, args
+
+    # gather, then the single-device multiply of the same matrix: bit for bit
+    g = c.gather()
+    del c
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    single = multiply(a, a)
+    ctx.sync()
+    single_s = time.perf_counter() - t0
+    same_coords = bool(np.array_equal(single.coords, g.coords))
+    identical = same_coords and bool(torch.equal(single.data, g.data))
+    check(identical, "dist_multiply is not bit-identical to the single-device multiply")
+    del single
+
+    # 64 sampled output blocks against float64 host products
+    tasks = plan.tasks
+    run_ptr = np.searchsorted(tasks.c_idx, np.arange(tasks.num_out + 1))
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for blk in rng.choice(tasks.num_out, size=min(64, tasks.num_out), replace=False):
+        lo, hi = run_ptr[blk], run_ptr[blk + 1]
+        A_t = a.data[torch.from_numpy(tasks.a_idx[lo:hi]).to(ctx.dev)].double().cpu().numpy()
+        B_t = a.data[torch.from_numpy(tasks.b_idx[lo:hi]).to(ctx.dev)].double().cpu().numpy()
+        want = np.einsum("tij,tjk->ik", A_t, B_t)
+        tol = REL * float((np.linalg.norm(A_t, axis=(1, 2)) * np.linalg.norm(B_t, axis=(1, 2))).sum())
+        err = float(np.abs(g.data[int(blk)].double().cpu().numpy() - want).max())
+        check(err <= tol, f"dist_multiply block {blk}: error {err} > tolerance {tol}")
+        worst = max(worst, err / tol)
+    recv, send, padded = plan_worker_bytes(plan)
+    out = dict(phase="dist_multiply", n=n, half_bandwidth=hw, bs=bs, workers=P,
+               a_blocks=a.nnzb, a_gb=a.nnzb * bs * bs * 4 / 1e9, tasks=T, tflop=flops / 1e12,
+               a_offsets=list(plan.a_offsets), b_offsets=list(plan.b_offsets),
+               a_send_caps=[int(plan.a_send[x].shape[1]) for x in plan.a_offsets],
+               b_send_caps=[int(plan.b_send[x].shape[1]) for x in plan.b_offsets],
+               c_cap=plan.c_cap, c_store_gb=P * plan.c_cap * bs * bs * 4 / 1e9,
+               tasks_per_worker=plan.task_count.tolist(),
+               scatter_s=scatter_s, plan_build_s=cache.build_s, first_call_s=cold_s,
+               warm_call_s=warm_s, exchange_ms=exchange_ms, kernel_ms=kernel_ms,
+               kernel_tflops=flops / (kernel_ms * 1e-3) / 1e12, **bound,
+               exchanged_bytes=float(recv.sum()), exchanged_bytes_padded=float(padded.sum()),
+               max_memory_allocated=peak, launches=launches,
+               cache=dict(hits=cache.hits, misses=cache.misses),
+               single_device_multiply_s=single_s, bit_identical_to_multiply=identical,
+               sampled_blocks=int(min(64, tasks.num_out)), max_err_over_tol=worst)
+    emit(out)
+    return out
+
+
+def phase_dist_spamm(ctx, sizes) -> dict:
+    torch = ctx.torch
+    from repro_torch.core import BSMatrix
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, dist_multiply, dist_spamm, scatter
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.kernels.precision import BF16, Precision
+
+    n, bs, P = sizes["spamm_n"], sizes["mul_bs"], sizes["spamm_p"]
+    # exponential off-diagonal decay, a_ij = z_ij exp(-0.01 |i - j|), blocks
+    # of Frobenius norm <= 1e-6 dropped (the electronic-structure regime)
+    gen = torch.Generator(device=ctx.dev).manual_seed(11)
+    i = torch.arange(n, device=ctx.dev, dtype=torch.float32)
+    dense = torch.randn((n, n), generator=gen, device=ctx.dev) * torch.exp(-0.01 * (i[:, None] - i[None, :]).abs())
+    a = BSMatrix.from_dense(dense.cpu().numpy(), bs, prune_tol=1e-6, device=ctx.dev)
+    a64 = dense_on_device(a, torch.float64)
+    exact = a64 @ a64
+    a16 = a64.float().to(torch.bfloat16).double()
+    exact_bf16 = a16 @ a16
+    del dense, a64, a16
+    d = scatter(a, make_worker_mesh(P, ctx.dev))
+    cache = PlanCache()
+    fro = a.frobenius_norm()
+    full = dist_multiply(d, d, cache)
+    # fp32 rounding of the unpruned product, the allowance on top of each bound
+    rounding = float(torch.linalg.matrix_norm(dense_on_device(full.gather(), torch.float64) - exact))
+    full_tasks = int(cache.last_task_count.sum())
+    del full
+    expected = 0 if ctx.rehearse else 1
+    fl.launches = 0  # the main path's count starts here
+    rows, calls = [], 0
+    for tau_rel in (1e-4, 1e-3):
+        for name, prec in (("fp32", None), ("bf16", BF16), ("adaptive", Precision("adaptive"))):
+            h0, m0 = cache.hits, cache.misses
+            t0 = time.perf_counter()
+            c, err = dist_spamm(d, d, tau_rel * fro, cache, precision=prec)
+            ctx.sync()
+            secs = time.perf_counter() - t0
+            calls += 1
+            exe = cache.peek(cache.last_plan_key)[1]
+            kept = int(cache.last_task_count.sum())
+            ref = exact_bf16 if name == "bf16" else exact
+            true_err = float(torch.linalg.matrix_norm(dense_on_device(c.gather(), torch.float64) - ref))
+            del c
+            row = dict(tau_rel=tau_rel, tau=tau_rel * fro, precision=name, seconds=secs,
+                       err_bound=err, true_err=true_err, rounding_allowance=2 * rounding,
+                       kept_tasks=kept, full_tasks=full_tasks, pruned_share=1 - kept / full_tasks,
+                       cache_hits=cache.hits - h0, cache_misses=cache.misses - m0,
+                       last_exchange=exe.last_exchange)
+            rows.append(row)
+            check(true_err <= err + 2 * rounding,
+                  f"SpAMM {name} tau {tau_rel}: ||A A - C||_F {true_err} > bound {err} + rounding {2 * rounding}")
+            check(0 < row["pruned_share"] < 1, f"SpAMM {name} tau {tau_rel}: pruned share {row['pruned_share']}")
+            if tau_rel == 1e-3:
+                check(row["cache_misses"] == 0, f"SpAMM {name}: the second tau missed the plan cache")
+    launches = fl.launches  # ... and is read here
+    check(launches == expected * calls, f"dist_spamm: {launches} fused launches for {calls} calls")
+    out = dict(phase="dist_spamm", n=n, bs=bs, workers=P, a_blocks=a.nnzb, fro_norm=fro,
+               fp32_rounding_of_full_product=rounding, calls=calls, launches=launches, rows=rows,
+               cache=dict(hits=cache.hits, misses=cache.misses))
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rehearse", action="store_true",
@@ -437,19 +845,36 @@ def main(argv=None) -> int:
     sizes = REHEARSAL if args.rehearse else FULL
     t0 = time.perf_counter()
 
-    phase_build(ctx)
-    kern = phase_kernel(ctx, sizes)
-    mul = phase_multiply(ctx, sizes)
-    sp2 = phase_sp2(ctx, sizes)
+    def phase(fn, *args):
+        out = fn(*args)
+        if ctx.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
 
-    timing = kern["timing"]
-    max_err = max(c["max_abs_err"] for c in kern["cases"])
-    emit({"kernels": [dict(
-        name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
-        replaces="src/repro/kernels/block_spmm.py:38",
-        launches=mul["launches"] + sp2["kernel_launches"], max_abs_err=max_err,
-        ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=None)]})
+    phase(phase_build, ctx)
+    kern = phase(phase_kernel, ctx, sizes)
+    fused = phase(phase_fused_kernel, ctx, sizes)
+    mul = phase(phase_multiply, ctx, sizes)
+    sp2 = phase(phase_sp2, ctx, sizes)
+    dmul = phase(phase_dist_multiply, ctx, sizes)
+    dspamm = phase(phase_dist_spamm, ctx, sizes)
+
+    timing, ftiming = kern["timing"], fused["timing"]
+    emit({"kernels": [
+        dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
+             replaces="src/repro/kernels/block_spmm.py:38",
+             launches=mul["launches"] + sp2["kernel_launches"],
+             max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
+             ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+             bound_by=timing["bound_by"], library_ms=None),
+        dict(name="fused_block_spmm", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
+             replaces="src/repro/kernels/fused_leaf.py:71",
+             launches=dmul["launches"] + dspamm["launches"],
+             max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
+             ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
+             bound_by=ftiming["bound_by"], library_ms=None),
+    ]})
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     if args.rehearse:
         emit({"ok": True, "rehearsal": True, "device": {"platform": "cpu", "kind": "cpu", "count": 0}})

@@ -63,6 +63,10 @@ class SymbolicCache:
         )
         self.hits = 0
         self.misses = 0
+        # key of the plan the most recent resident multiply ran, and its
+        # per-worker executed task counts (set by repro_torch.dist.multiply)
+        self.last_plan_key: Hashable | None = None
+        self.last_task_count = None
         self._by_kind: collections.Counter = collections.Counter()
         # accumulated seconds spent in cache-miss builders (the symbolic
         # phase) and in per-call symbolic work that runs outside the cache

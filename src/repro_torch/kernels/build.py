@@ -3,8 +3,10 @@
 Each kernel source ``csrc/<name>.cu`` exports plain C functions.  At first use
 it is compiled for Hopper (``sm_90a``) into ``build/repro_torch_kernels/`` at
 the root of the source tree, under a file name that carries the hash of the
-source and the flags, so a changed source is rebuilt and an unchanged one is
-loaded as it is.  Nothing is compiled or loaded when a module is imported.
+source, the shared headers ``csrc/*.cuh`` and the flags, so a changed source
+is rebuilt and an unchanged one is loaded as it is.  :func:`build_all` starts
+one ``nvcc`` per source, all at once.  Nothing is compiled or loaded when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "build_library", "load_library", "nvcc_path"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 # <root>/src/repro_torch/kernels/build.py -> <root>/build/repro_torch_kernels
@@ -48,6 +51,8 @@ def nvcc_path() -> str:
 def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -66,6 +71,13 @@ def build_library(name: str) -> Path:
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     build_logs[name] = proc.stdout + proc.stderr
     return out
+
+
+def build_all(names) -> dict[str, Path]:
+    """Build several sources at once: one ``nvcc`` process for each, started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build_library, names)))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -27,24 +27,14 @@
 // operation-bound; for small bs the bytes of A, B and C at 3.35 TB/s bound
 // it.  This first version is simple: 64 x 64 tiles, 256 threads each holding
 // a 4 x 4 register tile, k-tiles of 16 staged through shared memory with no
-// asynchronous copies.  wgmma, TMA and persistent blocks are later work.
+// asynchronous copies (the tile engine of tile_gemm.cuh, shared with
+// fused_block_spmm.cu).  wgmma, TMA and persistent blocks are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int TM = 64;        // output tile rows
-constexpr int TN = 64;        // output tile columns
-constexpr int TK = 16;        // contraction depth staged per step
-constexpr int RM = 4;         // rows of the per-thread register tile
-constexpr int RN = 4;         // columns of the per-thread register tile
-constexpr int THREADS = (TM / RM) * (TN / RN);  // 256
-constexpr int APAD = 4;       // keeps the transposed A tile's rows 16-byte aligned
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+using namespace tile_gemm;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -53,72 +43,20 @@ block_spmm_kernel(const T* __restrict__ A, const T* __restrict__ B,
                   const int64_t* __restrict__ b_idx,
                   const int64_t* __restrict__ run_ptr,
                   float* __restrict__ C, int bm, int bk, int bn) {
-  __shared__ __align__(16) float As[TK][TM + APAD];  // A tile, k-major
-  __shared__ __align__(16) float Bs[TK][TN];
-
+  __shared__ Smem smem;
   const int64_t out = blockIdx.x;
   const int m0 = blockIdx.y * TM;
   const int n0 = blockIdx.z * TN;
-  const int tid = threadIdx.x;
-  const int ty = tid / (TN / RN);
-  const int tx = tid % (TN / RN);
   const int64_t a_stride = static_cast<int64_t>(bm) * bk;
   const int64_t b_stride = static_cast<int64_t>(bk) * bn;
 
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-
+  Acc acc;
+  acc.zero();
   const int64_t t_end = run_ptr[out + 1];
-  for (int64_t t = run_ptr[out]; t < t_end; ++t) {
-    const T* Ab = A + a_idx[t] * a_stride;
-    const T* Bb = B + b_idx[t] * b_stride;
-    for (int k0 = 0; k0 < bk; k0 += TK) {
-#pragma unroll
-      for (int r = 0; r < TM * TK / THREADS; ++r) {
-        const int l = tid + r * THREADS;
-        const int i = l / TK, kk = l % TK;
-        const int gi = m0 + i, gk = k0 + kk;
-        As[kk][i] = (gi < bm && gk < bk)
-                        ? to_float(Ab[static_cast<int64_t>(gi) * bk + gk]) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < TK * TN / THREADS; ++r) {
-        const int l = tid + r * THREADS;
-        const int kk = l / TN, j = l % TN;
-        const int gk = k0 + kk, gj = n0 + j;
-        Bs[kk][j] = (gk < bk && gj < bn)
-                        ? to_float(Bb[static_cast<int64_t>(gk) * bn + gj]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TK; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * RM]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * RN]);
-        const float a[RM] = {av.x, av.y, av.z, av.w};
-        const float b[RN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  float* Cb = C + out * static_cast<int64_t>(bm) * bn;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int gi = m0 + ty * RM + i;
-    if (gi >= bm) continue;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int gj = n0 + tx * RN + j;
-      if (gj < bn) Cb[static_cast<int64_t>(gi) * bn + gj] = acc[i][j];
-    }
-  }
+  for (int64_t t = run_ptr[out]; t < t_end; ++t)
+    accumulate_task(A + a_idx[t] * a_stride, B + b_idx[t] * b_stride, false,
+                    m0, n0, bm, bk, bn, smem, acc);
+  store_tile(C + out * static_cast<int64_t>(bm) * bn, acc, m0, n0, bm, bn);
 }
 
 template <typename T>

@@ -1,0 +1,162 @@
+// Fused leaf engine for Hopper (sm_90a): unpack + grouped block GEMM +
+// C-accumulate for every worker of the resident runtime in one launch.
+//
+// Replaces the Pallas TPU kernel `_kernel` / `fused_block_spmm_kernel_call`
+// of src/repro/kernels/fused_leaf.py, the numeric phase of every resident
+// multiply (dist_multiply, dist_spamm).  It computes what that kernel
+// computes, for all P workers at once:
+//
+//   C[p, c] = sum over the tasks t of worker p with c[p, t] == c and on[p, t]
+//             of  opA(p, t) @ opB(p, t)
+//
+// where an operand is addressed as (src, off): src == 0 reads row `off` of
+// the worker's own store [cap, bm, bk]; src == r + 1 reads row `off` of its
+// receive buffer r in the stacked receive buffers [R, capU, bm, bk].  The
+// concatenated [own | recv ...] operand buffer of the staged path is never
+// built.  Stores are fp32 or bf16 (read as they are); accumulation is fp32.
+// In adaptive mode a task with low[p, t] set has every fp32 operand element
+// rounded to bf16 (round to nearest even) before its products.
+//
+// Design.  The TPU kernel walks its grid in order and zeroes a revisited
+// output row when c[t] != c[t-1].  Hopper blocks run in no order, so here one
+// thread block owns one TM x TN tile of one output block of one worker: grid
+// (num_out, m-tiles * n-tiles, P).  It walks that output block's CSR run of
+// tasks (run_ptr[p, c] .. run_ptr[p, c + 1], built on the host once per plan
+// from the plan's sorted task_c), skips the tasks whose `on` flag is clear
+// (the delta-plan SpAMM mask: no trash-row redirect, so a masked task in the
+// middle of a run cannot break the run), selects the store or the receive
+// stack pointer per task, and accumulates through the shared tile engine of
+// tile_gemm.cuh.  Each output element is one fp32 fmaf chain from 0 over the
+// run's tasks in ascending order, exactly as block_spmm.cu sums it, so the
+// fused and staged paths, the masked path with every task on and the
+// single-device multiply agree bit for bit.  No atomics; an empty run writes
+// zeros; the padded tasks past a worker's count are never visited.  Any block
+// size (masked edges) and 64-bit offsets everywhere.
+//
+// Bound on an H100 SXM.  fp32 stays fp32 (plain FFMA, never TF32):
+// 2 * T * bm * bn * bk operations at 67 TFLOP/s, where T counts the tasks
+// that are on; for the N = 8192 band at bs 128 (104,664 tasks) that is
+// 6.55 ms.  The bytes (each referenced operand block read once, the task
+// arrays, each output block written once in fp32) at 3.35 TB/s bound it only
+// below bs ~ 32.  This first version reuses block_spmm.cu's 64 x 64 x 16
+// tile loop; wgmma (for bf16), TMA and persistent blocks are later work.
+
+#include "tile_gemm.cuh"
+
+namespace {
+
+using namespace tile_gemm;
+
+struct Dims {
+  int64_t num_out;   // output blocks per worker
+  int64_t t_cap;     // task slots per worker
+  int64_t a_cap, a_rounds, a_capu;
+  int64_t b_cap, b_rounds, b_capu;
+  int bm, bk, bn, n_tiles_n;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* operand(const T* store, const T* recv,
+                                            int64_t src, int64_t off,
+                                            int64_t p, int64_t cap,
+                                            int64_t rounds, int64_t capu,
+                                            int64_t blk) {
+  return src == 0 ? store + (p * cap + off) * blk
+                  : recv + ((p * rounds + (src - 1)) * capu + off) * blk;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fused_block_spmm_kernel(const T* __restrict__ a_store, const T* __restrict__ a_recv,
+                        const T* __restrict__ b_store, const T* __restrict__ b_recv,
+                        const int64_t* __restrict__ a_src,
+                        const int64_t* __restrict__ a_off,
+                        const int64_t* __restrict__ b_src,
+                        const int64_t* __restrict__ b_off,
+                        const int64_t* __restrict__ run_ptr,
+                        const uint8_t* __restrict__ on,
+                        const uint8_t* __restrict__ low,
+                        float* __restrict__ C, Dims d) {
+  __shared__ Smem smem;
+  const int64_t out = blockIdx.x;
+  const int m0 = (blockIdx.y / d.n_tiles_n) * TM;
+  const int n0 = (blockIdx.y % d.n_tiles_n) * TN;
+  const int64_t p = blockIdx.z;
+  const int64_t a_blk = static_cast<int64_t>(d.bm) * d.bk;
+  const int64_t b_blk = static_cast<int64_t>(d.bk) * d.bn;
+  const int64_t task0 = p * d.t_cap;
+  const int64_t* runs = run_ptr + p * (d.num_out + 1);
+
+  Acc acc;
+  acc.zero();
+  const int64_t t_end = runs[out + 1];
+  for (int64_t t = runs[out]; t < t_end; ++t) {
+    const int64_t i = task0 + t;
+    if (on != nullptr && on[i] == 0) continue;  // uniform across the block
+    const T* Ab = operand(a_store, a_recv, a_src[i], a_off[i], p, d.a_cap,
+                          d.a_rounds, d.a_capu, a_blk);
+    const T* Bb = operand(b_store, b_recv, b_src[i], b_off[i], p, d.b_cap,
+                          d.b_rounds, d.b_capu, b_blk);
+    accumulate_task(Ab, Bb, low != nullptr && low[i] != 0, m0, n0, d.bm, d.bk,
+                    d.bn, smem, acc);
+  }
+  store_tile(C + (p * d.num_out + out) * static_cast<int64_t>(d.bm) * d.bn, acc,
+             m0, n0, d.bm, d.bn);
+}
+
+template <typename T>
+int launch(const void* a_store, const void* a_recv, const void* b_store,
+           const void* b_recv, const void* a_src, const void* a_off,
+           const void* b_src, const void* b_off, const void* run_ptr,
+           const void* on, const void* low, void* C, long long nparts,
+           long long num_out, long long t_cap, long long a_cap,
+           long long a_rounds, long long a_capu, long long b_cap,
+           long long b_rounds, long long b_capu, int bm, int bk, int bn,
+           void* stream) {
+  if (nparts <= 0 || num_out <= 0) return 0;
+  const int tiles_m = (bm + TM - 1) / TM, tiles_n = (bn + TN - 1) / TN;
+  if (nparts > 65535 || static_cast<long long>(tiles_m) * tiles_n > 65535 ||
+      num_out > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Dims d{num_out, t_cap, a_cap, a_rounds, a_capu, b_cap, b_rounds, b_capu,
+               bm, bk, bn, tiles_n};
+  const dim3 grid(static_cast<unsigned>(num_out),
+                  static_cast<unsigned>(tiles_m * tiles_n),
+                  static_cast<unsigned>(nparts));
+  fused_block_spmm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a_store), static_cast<const T*>(a_recv),
+      static_cast<const T*>(b_store), static_cast<const T*>(b_recv),
+      static_cast<const int64_t*>(a_src), static_cast<const int64_t*>(a_off),
+      static_cast<const int64_t*>(b_src), static_cast<const int64_t*>(b_off),
+      static_cast<const int64_t*>(run_ptr), static_cast<const uint8_t*>(on),
+      static_cast<const uint8_t*>(low), static_cast<float*>(C), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  `on` and `low` may be null (every
+// task on; no rounding).  Each returns cudaGetLastError() after the launch:
+// 0 when the launch was accepted.
+#define FUSED_ENTRY(NAME, T)                                                    \
+  extern "C" int NAME(const void* a_store, const void* a_recv,                 \
+                      const void* b_store, const void* b_recv,                 \
+                      const void* a_src, const void* a_off, const void* b_src, \
+                      const void* b_off, const void* run_ptr, const void* on,  \
+                      const void* low, void* C, long long nparts,              \
+                      long long num_out, long long t_cap, long long a_cap,     \
+                      long long a_rounds, long long a_capu, long long b_cap,   \
+                      long long b_rounds, long long b_capu, int bm, int bk,    \
+                      int bn, void* stream) {                                  \
+    return launch<T>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src,    \
+                     b_off, run_ptr, on, low, C, nparts, num_out, t_cap,       \
+                     a_cap, a_rounds, a_capu, b_cap, b_rounds, b_capu, bm, bk, \
+                     bn, stream);                                              \
+  }
+
+FUSED_ENTRY(fused_block_spmm_f32, float)
+FUSED_ENTRY(fused_block_spmm_bf16, __nv_bfloat16)
+
+extern "C" const char* fused_block_spmm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

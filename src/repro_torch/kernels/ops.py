@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from . import block_spmm as _bsp
+from . import fused_leaf as _fl
 
-__all__ = ["block_spmm", "task_arrays"]
+__all__ = ["block_spmm", "block_spmm_tensors", "fused_block_spmm", "task_arrays"]
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -54,14 +55,70 @@ def block_spmm(
     dev = a_data.device
     if len(a_idx) == 0:
         return torch.zeros((num_out, a_data.shape[1], b_data.shape[2]), dtype=torch.float32, device=dev)
-    if impl == "auto":
-        if dev.type == "cuda":
-            impl = "kernel"
-        elif dev.type == "cpu":
-            impl = "ref"
-        else:
-            raise ValueError(f"block_spmm runs on a CUDA card or the CPU, not on {dev}")
-    args = (a_data.contiguous(), b_data.contiguous(), *task_arrays(a_idx, b_idx, c_idx, num_out, dev), num_out)
-    if impl == "kernel":
+    return block_spmm_tensors(a_data.contiguous(), b_data.contiguous(),
+                              *task_arrays(a_idx, b_idx, c_idx, num_out, dev), num_out, impl=impl)
+
+
+def _route(dev: torch.device, impl: str, what: str) -> str:
+    """``"kernel"`` or ``"ref"`` for ``impl`` on a tensor of device ``dev``."""
+    if impl != "auto":
+        return impl
+    if dev.type == "cuda":
+        return "kernel"
+    if dev.type == "cpu":
+        return "ref"
+    raise ValueError(f"{what} runs on a CUDA card or the CPU, not on {dev}")
+
+
+def block_spmm_tensors(
+    a_data: torch.Tensor,
+    b_data: torch.Tensor,
+    a_idx: torch.Tensor,
+    b_idx: torch.Tensor,
+    run_ptr: torch.Tensor,
+    num_out: int,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """:func:`block_spmm` on a task list already on the device (see :func:`task_arrays`)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r} not in {IMPLS}")
+    args = (a_data, b_data, a_idx, b_idx, run_ptr, num_out)
+    if _route(a_data.device, impl, "block_spmm") == "kernel":
         return _bsp.block_spmm_cuda(*args)
     return _bsp.block_spmm_ref(*args)
+
+
+def fused_block_spmm(
+    a_store: torch.Tensor,
+    a_recv: torch.Tensor,
+    b_store: torch.Tensor,
+    b_recv: torch.Tensor,
+    a_src: torch.Tensor,
+    a_off: torch.Tensor,
+    b_src: torch.Tensor,
+    b_off: torch.Tensor,
+    run_ptr: torch.Tensor,
+    num_out: int,
+    *,
+    on: torch.Tensor | None = None,
+    low: torch.Tensor | None = None,
+    adaptive: bool = False,
+) -> torch.Tensor:
+    """The fused leaf engine for every worker of a mesh in one call.
+
+    Operands are addressed as ``(src, off)`` over each worker's own store and
+    stacked receive buffers; ``run_ptr`` holds each worker's CSR runs of its
+    sorted output slots (:func:`repro_torch.kernels.fused_leaf.fused_task_runs`);
+    ``on`` skips tasks, ``low`` rounds a task's operands to bf16 when
+    ``adaptive``.  See :mod:`repro_torch.kernels.fused_leaf`.
+
+    A CUDA tensor launches the hand-written kernel (any block size, no
+    fallback); a CPU tensor takes the plain version.  Returns fp32
+    ``[P, num_out, bm, bn]``.
+    """
+    args = (a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, run_ptr, num_out)
+    kw = dict(on=on, low=low, adaptive=adaptive)
+    if _route(a_store.device, "auto", "fused_block_spmm") == "kernel":
+        return _fl.fused_block_spmm_cuda(*args, **kw)
+    return _fl.fused_block_spmm_ref(*args, **kw)

@@ -1,12 +1,12 @@
 """The disabled tracer, event log and the one wall clock of the runtime.
 
-Only the pieces :mod:`repro_torch.core.cache` needs; the full observatory of
+Only the pieces the symbolic and plan caches need; the full observatory of
 the JAX package (``repro.obs``) is not ported yet.
 """
 
 from .log import NULL_LOG, NullEventLog
 from .timing import Stopwatch, timed_into, wall_clock
-from .tracer import NULL_TRACER, NullTracer
+from .tracer import NULL_TRACER, NullTracer, tracer_of
 
 __all__ = [
     "NULL_LOG",
@@ -15,5 +15,6 @@ __all__ = [
     "NullTracer",
     "Stopwatch",
     "timed_into",
+    "tracer_of",
     "wall_clock",
 ]

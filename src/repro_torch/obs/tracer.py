@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["NULL_TRACER", "NullTracer"]
+__all__ = ["NULL_TRACER", "NullTracer", "tracer_of"]
 
 
 class _NullHandle:
@@ -45,5 +45,16 @@ class NullTracer:
     def counter(self, name: str) -> _NullMetric:
         return _NULL_METRIC
 
+    def sync(self, x: Any) -> Any:
+        return x
+
 
 NULL_TRACER = NullTracer()
+
+
+def tracer_of(cache):
+    """The tracer threaded through the runtime rides on the plan cache."""
+    if cache is None:
+        return NULL_TRACER
+    tr = getattr(cache, "tracer", None)
+    return tr if tr is not None else NULL_TRACER

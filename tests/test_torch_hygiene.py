@@ -76,6 +76,19 @@ def test_constructors_need_a_card_unless_asked_for_the_cpu():
     assert BSMatrix.zeros((8, 8), 4, device="cpu").device.type == "cpu"
 
 
+def test_worker_mesh_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from repro_torch.core.distributed import make_worker_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_worker_mesh(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_worker_mesh(1, device="cuda")
+    mesh = make_worker_mesh(4, device="cpu")
+    assert (mesh.nparts, mesh.device.type) == (4, "cpu")
+
+
 def test_plain_version_on_the_cpu_launches_nothing():
     from repro_torch.core import BSMatrix, multiply
     from repro_torch.kernels import block_spmm
