@@ -273,7 +273,10 @@ class FusedSpgemmExecutable:
         self._a_sends = [_upload(plan.a_send[d], dev) for d in plan.a_offsets]
         self._b_sends = [_upload(plan.b_send[d], dev) for d in plan.b_offsets]
 
-    def _run(self, a_store, b_store, *, keeps=None, live=(None, None), on=None, low=None):
+    def kernel_args(self, a_store, b_store, keeps=None, live=(None, None)) -> tuple:
+        """Run the exchange; return the fused engine's positional arguments
+        ``(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off,
+        run_ptr, c_cap)`` exactly as a call launches them."""
         plan = self.plan
         if self.precision.mode == "bf16":
             # cast before the exchange: halves the exchanged bytes too
@@ -283,11 +286,12 @@ class FusedSpgemmExecutable:
         a_keeps, b_keeps = keeps if keeps is not None else (None, None)
         a_recv = _exchange_stack(a_store, plan.a_offsets, self._a_sends, a_keeps, live[0])
         b_recv = _exchange_stack(b_store, plan.b_offsets, self._b_sends, b_keeps, live[1])
-        return kops.fused_block_spmm(
-            a_store.contiguous(), a_recv, b_store.contiguous(), b_recv, *self._idx,
-            self._run_ptr, plan.c_cap, on=on, low=low,
-            adaptive=self.precision.mode == "adaptive",
-        )
+        return (a_store.contiguous(), a_recv, b_store.contiguous(), b_recv, *self._idx,
+                self._run_ptr, plan.c_cap)
+
+    def _run(self, a_store, b_store, *, keeps=None, live=(None, None), on=None, low=None):
+        return kops.fused_block_spmm(*self.kernel_args(a_store, b_store, keeps, live),
+                                     on=on, low=low, adaptive=self.precision.mode == "adaptive")
 
     def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
         """Run on per-worker padded stores ``[P, cap, bs, bs]``; returns C stores

@@ -155,6 +155,9 @@ def test_fused_kernel_matches_plain_version(cuda, bm, bk, bn, mode):
     err = (got - want).abs().flatten(2).amax(dim=2).double()
     assert (err <= tol).all(), (float(err.max()), float(tol[err > tol][:4].min()))
     assert not got[:, [2, 8]].any()  # rows without tasks are zero
+    if mode == "adaptive":  # the low flags act: far nearer the rounded plain version than rounding moves it
+        shift = float((want - fl.fused_block_spmm_ref(*args)).abs().max())
+        assert 0 < shift and float(err.max()) * 8 <= shift, (float(err.max()), shift)
 
 
 def test_fused_kernel_bit_identical_to_staged_kernel_and_masked_all_on(cuda):
@@ -208,6 +211,4 @@ def test_dist_multiply_goes_through_the_fused_kernel(cuda):
     s, err = dist_spamm(d, d, 1e-3 * a.frobenius_norm() ** 2, cache)
     assert fl.launches == before + 2 and err > 0
     exact = dense.astype(np.float64) @ dense
-    # the pruned error, plus fp32 rounding of the order of the exact product's
-    rounding = np.linalg.norm(c.gather().to_dense() - exact)
-    assert np.linalg.norm(s.gather().to_dense() - exact) <= err + 2 * rounding
+    assert np.linalg.norm(s.gather().to_dense() - exact) <= err
