@@ -28,7 +28,20 @@ Phases, one JSON line each:
                       cache) -> ``gather``, bit-identical to ``multiply(A, A)``.
 7. ``dist_spamm``   — delta-plan SpAMM at N = 8192 on 8 workers, two ``tau``
                       and three precisions, each within its returned bound.
-8. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``.
+8. ``flash_kernel`` — the flash-attention kernel against its plain version in
+                      fp32 and bf16 over eight shapes (qwen2-0.5b's layer,
+                      non-causal D 80, D 128 and 256 with one kv head, a
+                      decode-style suffix, a window, ragged S, fully masked
+                      rows), timed on qwen2-0.5b's layer beside the plain
+                      version, the bound and SDPA (a yardstick only).
+9. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
+                      151,936), seeded random weights, B 2 x S 4096:
+                      ``apply(attn_impl="flash")`` against ``"direct"`` in fp32
+                      and bf16, 24 kernel launches per forward.
+10. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
+                      32 new tokens; a flash forward over the generated
+                      sequences confirms every decode step's logits and token.
+11. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
 Without ``--rehearse`` it needs a CUDA card and exits non-zero without one.
@@ -46,8 +59,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: fp32 FFMA rate (no tensor cores), HBM3 rate
+# NVIDIA H100 SXM data sheet: fp32 FFMA rate (no tensor cores), dense bf16
+# tensor-core rate, HBM3 rate
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # per output block: |dC|_max <= REL * sum over its tasks of ||A_t||_F ||B_t||_F,
 # because the kernel and the plain version sum each element in another order
@@ -56,14 +71,41 @@ REL = 1e-5
 # bf16 rounding of both operands of a task: |fl(A)fl(B) - AB|_F <= (2u + u^2) |A|_F |B|_F
 ROUND2_BOUND = 2.0 * 2.0**-8 + 2.0**-16
 
+LM_BATCH = 2  # lm_forward: B 2 x S lm_seq
+SERVE = (4, 8, 32)  # lm_serve: requests, prompt length, new tokens (the JAX CLI's defaults)
+
+# flash-attention cases: (B, H, HK, Sq, Sk, D, causal, window); the first is timed
+FLASH_FULL = {
+    "qwen2_0_5b_layer": (2, 14, 2, 4096, 4096, 64, True, None),
+    "noncausal_d80": (2, 16, 16, 1024, 1024, 80, False, None),
+    "d128_hk1": (1, 16, 1, 2048, 2048, 128, True, None),
+    "d256_hk1": (1, 8, 1, 2048, 2048, 256, True, None),
+    "suffix_256_of_4096": (2, 14, 2, 256, 4096, 64, True, None),
+    "window512_suffix": (1, 14, 2, 1024, 4096, 64, True, 512),
+    "ragged_1000": (2, 14, 2, 1000, 1000, 64, True, None),
+    "masked_rows": (1, 14, 2, 1000, 600, 64, True, None),
+}
+FLASH_REHEARSAL = {
+    "qwen2_0_5b_layer": (2, 14, 2, 256, 256, 64, True, None),
+    "noncausal_d80": (1, 4, 4, 128, 128, 80, False, None),
+    "d128_hk1": (1, 4, 1, 128, 128, 128, True, None),
+    "d256_hk1": (1, 2, 1, 128, 128, 256, True, None),
+    "suffix_256_of_4096": (1, 14, 2, 16, 256, 64, True, None),
+    "window512_suffix": (1, 14, 2, 64, 256, 64, True, 32),
+    "ragged_1000": (1, 14, 2, 100, 100, 64, True, None),
+    "masked_rows": (1, 14, 2, 100, 60, 64, True, None),
+}
+
 FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             sp2_n=8192, sp2_bs=128, sp2_nocc=2560,
             fused_p=8, r24_n=4800, r24_hw=600, small_n=2048,
-            dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8)
+            dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8,
+            flash=FLASH_FULL, lm_reduced=False, lm_seq=4096)
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
-                 dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8)
+                 dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8,
+                 flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64)
 
 
 def emit(obj: dict) -> None:
@@ -174,7 +216,7 @@ def phase_build(ctx) -> dict:
         return out
     from repro_torch.kernels import build
 
-    names = ["block_spmm", "fused_block_spmm"]
+    names = ["block_spmm", "fused_block_spmm", "flash_attention"]
     t0 = time.perf_counter()
     build.build_all(names)
     for name in names:
@@ -831,6 +873,289 @@ def phase_dist_spamm(ctx, sizes) -> dict:
     return out
 
 
+def flash_bound(q, k, live_pairs: int) -> dict:
+    """Least time for one flash-attention call on an H100: operations or bytes.
+
+    Operations: 2 * D per live (query, key) pair for each of the two
+    products.  ``bound_ms`` is the kernel's design, both products in fp32
+    FFMA at 67 TFLOP/s whatever the input type.  For bf16 inputs
+    ``bf16_bound_ms`` is the least time at the kernel's precision: the q.k
+    products of bf16 values are exact in fp32, so QK^T could run on the bf16
+    tensor cores (989 TFLOP/s, fp32 accumulation), while P stays fp32 and PV
+    in fp32 FFMA; the two units run at once, so the larger time bounds.
+    Bytes: q, k, v read once and o written once in the input type.
+    """
+    B, H, Sq, D = q.shape
+    half = 2.0 * D * live_pairs  # the operations of one product
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    t_ops, t_bytes = 2 * half / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    out = dict(live_pairs=live_pairs, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_arithmetic=(f"max(4*{D}*{live_pairs} op / 67e12 op/s = {t_ops * 1e3:.4f} ms, "
+                                 f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
+    if str(q.dtype) == "torch.bfloat16":
+        t_qk, t_pv = half / BF16_FLOPS, half / FP32_FLOPS
+        out.update(bf16_bound_ms=max(t_qk, t_pv, t_bytes) * 1e3,
+                   bf16_bound_arithmetic=(
+                       f"max(QK^T 2*{D}*{live_pairs} op / 989e12 op/s = {t_qk * 1e3:.4f} ms, "
+                       f"PV 2*{D}*{live_pairs} op / 67e12 op/s = {t_pv * 1e3:.4f} ms, "
+                       f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
+    return out
+
+
+def flash_ref_rounding_p(q, k, v, *, causal, window):
+    """A deliberately wrong copy of the plain version: it rounds the
+    probabilities to bf16 before the PV product, as a tensor-core redesign
+    might.  The bf16 check must reject it."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, Sq, D = q.shape
+    HK, Sk = k.shape[1], k.shape[2]
+    rep = H // HK
+    s = torch.matmul(q.float().reshape(B, HK, rep * Sq, D), k.float().transpose(-1, -2))
+    s = s.view(B, HK, rep, Sq, Sk) * D**-0.5
+    mask = fa.attention_mask(torch.arange(Sq, device=q.device) + (Sk - Sq),
+                             torch.arange(Sk, device=q.device), causal=causal, window=window)
+    s = torch.where(mask, s, fa.NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    p = p.to(torch.bfloat16).float()  # the fault
+    o = torch.matmul(p.view(B, HK, rep * Sq, Sk), v.float()).view(B, HK, rep, Sq, D)
+    return (o / torch.where(l == 0.0, 1.0, l)).reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_excess(got, q, k, v, **kw) -> tuple[float, float]:
+    """``(max |got - want|, max |got - want| / limit)`` against the plain
+    version's fp32 result ``want`` on the same inputs (bf16 inputs upcast
+    exactly).  The limit is elementwise: 1e-4 * max|v| for the order of the
+    fp32 sums and exps (the output is a convex combination of v's rows), and
+    for a bf16 output also its one rounding, half a bf16 ulp <= 2^-8 * |want|.
+    A ratio above 1 fails."""
+    from repro_torch.kernels import flash_attention as fa
+
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    limit = 1e-4 * float(v.float().abs().max())
+    if got.dtype != want.dtype:
+        limit = 2.0**-8 * want.abs() + limit
+    diff = (got.float() - want).abs()
+    return float(diff.max()), float((diff / limit).max())
+
+
+def phase_flash_kernel(ctx, sizes) -> dict:
+    torch = ctx.torch
+    from repro_torch.kernels import flash_attention as fa
+
+    kernel = fa.flash_attention_ref if ctx.rehearse else fa.flash_attention_cuda
+    gen = torch.Generator(device=ctx.dev).manual_seed(13)
+    results, timing = [], {}
+    cases = sizes["flash"]
+    for name, (B, H, HK, Sq, Sk, D, causal, window) in cases.items():
+        kw = dict(causal=causal, window=window)
+        q32, k32, v32 = (torch.randn(sh, generator=gen, device=ctx.dev)
+                         for sh in ((B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D)))
+        qpos = torch.arange(Sq, device=ctx.dev) + (Sk - Sq)
+        live = int(fa.attention_mask(qpos, torch.arange(Sk, device=ctx.dev), **kw).sum()) * B * H
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = kernel(q, k, v, **kw)
+            again = kernel(q, k, v, **kw)
+            ctx.sync()
+            identical = bool(torch.equal(got, again))
+            err, excess = flash_excess(got, q, k, v, **kw)
+            dead = max(Sq - Sk, 0) if causal else 0  # rows at negative positions
+            row = dict(case=name, dtype=str(dtype).replace("torch.", ""), B=B, H=H, HK=HK, Sq=Sq,
+                       Sk=Sk, D=D, causal=causal, window=window, live_pairs=live,
+                       max_abs_err=err, err_over_limit=excess, bit_identical_on_repeat=identical,
+                       dead_rows=dead, dead_rows_zero=bool(not got[:, :, :dead].any()),
+                       finite=bool(torch.isfinite(got.float()).all()))
+            check(identical, f"{name} {dtype}: flash kernel output differs between two launches")
+            check(excess <= 1.0, f"{name} {dtype}: flash kernel off its plain version by {excess} of the limit")
+            check(row["finite"] and row["dead_rows_zero"], f"{name} {dtype}: non-finite output or non-zero dead rows")
+            del got, again
+            if name == next(iter(cases)):  # timed: qwen2-0.5b's layer
+                if dtype == torch.bfloat16:  # the check must catch bf16 probabilities
+                    _, row["rounding_p_err_over_limit"] = flash_excess(
+                        flash_ref_rounding_p(q, k, v, **kw), q, k, v, **kw)
+                    check(row["rounding_p_err_over_limit"] > 1.0,
+                          f"{name}: the bf16 check passes a version that rounds p to bf16")
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                ms = ctx.time_ms(lambda: kernel(q, k, v, **kw), reps=20)
+                plain_ms = ctx.time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=3)
+                sdpa_ms = ctx.time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True), reps=20)
+                bound = flash_bound(q, k, live)
+                timing[row["dtype"]] = dict(case=name, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                                            sdpa="torch.nn.functional.scaled_dot_product_attention"
+                                                 "(is_causal=True, enable_gqa=True), yardstick only",
+                                            tflops=4.0 * D * live / (ms * 1e-3) / 1e12,
+                                            bound_share=bound["bound_ms"] / ms, **bound)
+                if "bf16_bound_ms" in bound:
+                    timing[row["dtype"]]["bf16_bound_share"] = bound["bf16_bound_ms"] / ms
+            results.append(row)
+    out = dict(phase="flash_kernel", cases=results, timing=timing)
+    emit(out)
+    return out
+
+
+def lm_model(ctx, sizes):
+    """qwen2-0.5b (full width on the card, reduced in the rehearsal), weights from seed 0."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import transformer
+
+    cfg = reduced_config("qwen2-0.5b") if sizes["lm_reduced"] else get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=ctx.dev)
+    ctx.sync()
+    return cfg, params, time.perf_counter() - t0
+
+
+def phase_lm_forward(ctx, sizes, model) -> dict:
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+
+    cfg, params, init_s = model
+    B, S = LM_BATCH, sizes["lm_seq"]
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    inputs = {"tokens": torch.from_numpy(tokens).to(ctx.dev)}
+    per_forward = 0 if ctx.rehearse else cfg.num_layers
+    if ctx.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rows = {}
+    fa.launches = 0  # the main path's count starts here
+    with torch.inference_mode():
+        for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            p = model_mod.cast_params(params, dtype)
+            before = fa.launches
+            flash = transformer.apply(p, cfg, inputs, attn_impl="flash")
+            ctx.sync()
+            check(fa.launches - before == per_forward,
+                  f"{dtype} forward launched the flash kernel {fa.launches - before} times, expected {per_forward}")
+            t0 = time.perf_counter()
+            again = transformer.apply(p, cfg, inputs, attn_impl="flash")  # warm, timed
+            ctx.sync()
+            secs = time.perf_counter() - t0
+            identical = bool(torch.equal(flash, again))
+            del again
+            t0 = time.perf_counter()
+            direct = transformer.apply(p, cfg, inputs, attn_impl="direct")
+            ctx.sync()
+            direct_s = time.perf_counter() - t0
+            lmax = float(flash.float().abs().max())
+            err = float((flash.float() - direct.float()).abs().max())
+            finite = bool(torch.isfinite(flash.float()).all())
+            del direct, flash, p
+            name = str(dtype).replace("torch.", "")
+            rows[name] = dict(seconds_per_forward=secs, tokens_per_s=B * S / secs,
+                              direct_seconds=direct_s, max_abs_logit=lmax,
+                              max_abs_flash_minus_direct=err, tol=rel * lmax,
+                              bit_identical_on_repeat=identical, finite=finite)
+            check(finite, f"{name} forward: non-finite logits")
+            check(identical, f"{name} forward: two flash forwards differ")
+            check(err <= rel * lmax, f"{name} forward: flash off direct by {err} > {rel} * {lmax}")
+    launches = fa.launches  # ... and is read here
+    numels = []
+    transformer.tree_map(lambda t: numels.append(t.numel()), params)
+    check(launches == 4 * per_forward, f"lm_forward: {launches} flash launches in 4 flash forwards")
+    peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+    out = dict(phase="lm_forward", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, params=sum(numels),
+               init_s=init_s, batch=B, seq=S, launches=launches, flash_forwards=4,
+               max_memory_allocated=peak, **rows)
+    emit(out)
+    return out
+
+
+def profile_decode_step(ctx, cfg, params, prompts) -> dict:
+    """One warm fp32 decode step under ``torch.profiler``: the PyTorch calls the
+    host makes, the kernels the card runs and their summed device time,
+    against the step's wall time with the profiler on."""
+    torch = ctx.torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+
+    B = prompts.shape[0]
+    cache = transformer.init_cache(cfg, B, 2, torch.float32, device=ctx.dev)
+    step = model_mod.make_serve_step(cfg, compute_dtype=torch.float32)
+    tok = torch.from_numpy(prompts[:, :1]).to(ctx.dev)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if ctx.dev.type == "cuda" else [])
+    with torch.inference_mode():
+        step(params, cache, tok, 0)
+        ctx.sync()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            step(params, cache, tok, 1)
+            ctx.sync()
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    host_calls = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+                     and e.name.startswith("aten::"))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    return dict(profiled_wall_ms=wall * 1e3, host_aten_calls=host_calls,
+                device_kernels=len(kernels) if ctx.dev.type == "cuda" else None,
+                device_ms=device_s * 1e3 if kernels else None,
+                device_busy_share=device_s / wall if kernels else None)
+
+
+def phase_lm_serve(ctx, model) -> dict:
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+
+    cfg, params, _ = model
+    B, P, G = SERVE
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, P))
+    generate(cfg, params, prompts[:, :2], 2, device=ctx.dev)  # warm-up: allocator, cuBLAS
+    ctx.sync()
+    t0 = time.perf_counter()
+    seqs, steps = generate(cfg, params, prompts, G, dtype=torch.float32, device=ctx.dev,
+                           return_logits=True)
+    ctx.sync()
+    secs = time.perf_counter() - t0
+    n_steps = P + G - 1
+    check(seqs.shape == (B, P + G) and np.array_equal(seqs[:, :P], prompts),
+          f"generate returned {seqs.shape}, or not the prompts")
+    fa.launches = 0  # the main path's count starts here
+    with torch.inference_mode():
+        full = transformer.apply(params, cfg, {"tokens": torch.from_numpy(seqs).to(ctx.dev)},
+                                 attn_impl="flash")[:, :-1].float()
+    ctx.sync()
+    launches = fa.launches  # ... and is read here
+    expected = 0 if ctx.rehearse else cfg.num_layers
+    check(launches == expected, f"lm_serve: the confirming forward launched {launches}, expected {expected}")
+    lmax = float(full.abs().max())
+    tol = 1e-4 * lmax
+    err = float((full - steps).abs().max())
+    check(err <= tol, f"lm_serve: decode-step logits off the flash forward by {err} > {tol}")
+    # greedy tokens: the forward's argmax where its top-2 margin exceeds the tolerance
+    gen_logits = full[:, P - 1:]
+    top2 = gen_logits.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol
+    agree = gen_logits.argmax(-1).cpu().numpy() == seqs[:, P:]
+    decided = decided.cpu().numpy()
+    check(bool(agree[decided].all()), "lm_serve: a generated token is not the flash forward's argmax")
+    out = dict(phase="lm_serve", arch=cfg.name, batch=B, prompt_len=P, gen=G, dtype="float32",
+               seconds=secs, decode_steps=n_steps, ms_per_decode_step=secs * 1e3 / n_steps,
+               profiled_step=profile_decode_step(ctx, cfg, params, prompts),
+               tokens_per_s=B * n_steps / secs, generated_tokens_per_s=B * G / secs,
+               launches=launches, max_abs_logit=lmax, max_abs_step_minus_forward=err, tol=tol,
+               tokens_checked=int(decided.sum()), tokens_total=int(decided.size),
+               first_sequence=seqs[0].tolist())
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rehearse", action="store_true",
@@ -866,8 +1191,13 @@ def main(argv=None) -> int:
     sp2 = phase(phase_sp2, ctx, sizes)
     dmul = phase(phase_dist_multiply, ctx, sizes)
     dspamm = phase(phase_dist_spamm, ctx, sizes)
+    flash = phase(phase_flash_kernel, ctx, sizes)
+    model = lm_model(ctx, sizes)
+    fwd = phase(phase_lm_forward, ctx, sizes, model)
+    serve = phase(phase_lm_serve, ctx, model)
+    del model
 
-    timing, ftiming = kern["timing"], fused["timing"]
+    timing, ftiming, atiming = kern["timing"], fused["timing"], flash["timing"]["float32"]
     emit({"kernels": [
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
@@ -882,6 +1212,13 @@ def main(argv=None) -> int:
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
              bound_by=ftiming["bound_by"], library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:31",
+             launches=fwd["launches"] + serve["launches"],
+             max_abs_err=max(c["max_abs_err"] for c in flash["cases"]),
+             ms=atiming["ms"], plain_ms=atiming["plain_ms"], bound_ms=atiming["bound_ms"],
+             bound_by=atiming["bound_by"], library_ms=atiming["sdpa_ms"]),
     ]})
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     if args.rehearse:

@@ -11,9 +11,10 @@ import numpy as np
 import torch
 
 from . import block_spmm as _bsp
+from . import flash_attention as _fa
 from . import fused_leaf as _fl
 
-__all__ = ["block_spmm", "block_spmm_tensors", "fused_block_spmm", "task_arrays"]
+__all__ = ["block_spmm", "block_spmm_tensors", "flash_attention", "fused_block_spmm", "task_arrays"]
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -122,3 +123,27 @@ def fused_block_spmm(
     if _route(a_store.device, "auto", "fused_block_spmm") == "kernel":
         return _fl.fused_block_spmm_cuda(*args, **kw)
     return _fl.fused_block_spmm_ref(*args, **kw)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Online-softmax attention; ``q [B, H, Sq, D]``, ``k, v [B, HK, Sk, D]``.
+
+    Queries are aligned to the end of the kv axis; a row with no live key
+    gives zeros.  ``impl``: ``"auto"`` launches the kernel on a CUDA tensor
+    and takes the plain version on a CPU tensor; ``"kernel"`` launches the
+    kernel and raises off the card; ``"ref"`` runs the plain version on any
+    device.  See :mod:`repro_torch.kernels.flash_attention`.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r} not in {IMPLS}")
+    if _route(q.device, impl, "flash_attention") == "kernel":
+        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention_ref(q, k, v, causal=causal, window=window)

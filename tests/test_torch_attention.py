@@ -1,0 +1,239 @@
+"""The port's attention against the JAX package's, on the same numpy inputs.
+
+``flash_attention`` (plain version on the CPU) is held against the Pallas
+kernel run in interpret mode, as ``tests/test_kernels.py`` runs it; the
+model-level ``attention`` and ``decode_attention`` against their JAX
+counterparts.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention_call  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+
+def _arrays(rng, *shapes):
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _to_torch(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _bf16_jax(a):
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+# (B, H, HK, Sq, Sk, D, causal, window)
+FLASH_CASES = {
+    "causal_rep1": (2, 4, 4, 128, 128, 32, True, None),
+    "noncausal_rep1": (2, 4, 4, 128, 128, 32, False, None),
+    "causal_rep2": (1, 4, 2, 128, 128, 16, True, None),
+    "noncausal_rep2": (1, 4, 2, 128, 128, 16, False, None),
+    "causal_rep4": (2, 8, 2, 128, 128, 32, True, None),
+    "noncausal_rep4": (1, 8, 2, 64, 64, 16, False, None),
+    "window": (1, 2, 1, 256, 256, 16, True, 48),
+    "window_noncausal": (1, 2, 2, 128, 128, 16, False, 40),
+    "suffix": (1, 4, 2, 64, 256, 16, True, None),
+    "window_suffix": (1, 4, 1, 64, 256, 16, True, 100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_matches_pallas_kernel(case):
+    """fp32: rtol = atol = 2e-4, the limit tests/test_kernels.py holds the Pallas kernel to."""
+    B, H, HK, Sq, Sk, D, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = _arrays(rng, (B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D))
+    want = np.asarray(flash_attention_call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           causal=causal, window=window, bq=64, bkv=64,
+                                           interpret=True))
+    tq, tk, tv = _to_torch(q, k, v)
+    ref = fa.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    fa.launches = 0
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert fa.launches == 0  # a CPU tensor takes the plain version
+    assert torch.equal(got, ref)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def _bf16_limit(want32, v):
+    """A bf16 output against the fp32 result on the same bf16 inputs,
+    elementwise: the fp32 sums' order (1e-4 * max|v|) plus one rounding to
+    bf16, half an ulp <= 2^-8 * |want|."""
+    return 2.0**-8 * np.abs(want32) + 1e-4 * float(np.abs(v).max())
+
+
+@pytest.mark.parametrize("case", ["causal_rep2", "window_suffix"])
+def test_flash_bf16_matches_pallas_kernel(case):
+    """bf16 in and out, fp32 inside: the port and the Pallas kernel each lie
+    within one bf16 rounding of the fp32 result on the same inputs."""
+    B, H, HK, Sq, Sk, D, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(7)
+    q, k, v = _arrays(rng, (B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D))
+    want = flash_attention_call(_bf16_jax(q), _bf16_jax(k), _bf16_jax(v), causal=causal,
+                                window=window, bq=64, bkv=64, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    tq, tk, tv = _to_torch(q, k, v, dtype=torch.bfloat16)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    want32 = fa.flash_attention_ref(tq.float(), tk.float(), tv.float(), causal=causal,
+                                    window=window).numpy()
+    limit = _bf16_limit(want32, tv.float().numpy())
+    assert (np.abs(got.float().numpy() - want32) <= limit).all()
+    assert (np.abs(np.asarray(want, np.float32) - want32) <= limit).all()
+
+
+def test_flash_fully_masked_rows_are_zero():
+    """Causal with Sq > Sk: the first Sq - Sk rows see no key.  The kernel (and
+    the Pallas kernel) give zeros; the JAX package's -inf reference gives NaN."""
+    rng = np.random.default_rng(3)
+    B, H, HK, Sq, Sk, D = 1, 4, 2, 128, 64, 16
+    q, k, v = _arrays(rng, (B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D))
+    want = np.asarray(flash_attention_call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           causal=True, bq=64, bkv=64, interpret=True))
+    got = ops.flash_attention(*_to_torch(q, k, v), causal=True).numpy()
+    assert not got[:, :, : Sq - Sk].any()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_dispatch_rules_on_the_cpu():
+    rng = np.random.default_rng(4)
+    q, k, v = _to_torch(*_arrays(rng, (1, 2, 16, 8), (1, 1, 16, 8), (1, 1, 16, 8)))
+    with pytest.raises(ValueError):  # the kernel needs a card
+        ops.flash_attention(q, k, v, impl="kernel")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=0)
+    assert torch.equal(ops.flash_attention(q, k, v, impl="ref"), ops.flash_attention(q, k, v))
+
+
+# --- models/attention.attention ---------------------------------------------
+
+# name: (B, Sq, Sk, H, HK, D, kwargs)
+ATTN_CASES = {
+    "direct_causal": (2, 32, 32, 4, 2, 16, dict(impl="direct")),
+    "direct_noncausal": (2, 32, 32, 4, 4, 16, dict(impl="direct", causal=False)),
+    "direct_suffix_window": (1, 16, 64, 4, 1, 16, dict(impl="direct", window=24)),
+    "small_chunked_takes_direct": (2, 64, 64, 4, 2, 16, dict(impl="chunked")),
+    "chunked_causal": (1, 384, 384, 4, 2, 16, dict(impl="chunked", chunk=128)),
+    "chunked_noncausal": (1, 256, 512, 2, 1, 16, dict(impl="chunked", causal=False, chunk=128)),
+    "chunked_suffix_window": (1, 128, 640, 4, 2, 16, dict(impl="chunked", window=200, chunk=128)),
+    "chunked_prefix": (1, 320, 320, 2, 2, 16, dict(impl="chunked", prefix_len=40, chunk=64)),
+    "local_banded": (2, 64, 64, 4, 2, 16, dict(impl="chunked", window=16)),
+    "local_banded_ragged": (1, 50, 50, 2, 1, 16, dict(impl="flash", window=16)),
+    "local_banded_noncausal": (1, 64, 64, 2, 2, 16, dict(impl="chunked", window=16, causal=False)),
+    "prefix_direct": (2, 32, 32, 4, 2, 16, dict(impl="chunked", prefix_len=8)),
+    "prefix_never_flash": (2, 32, 32, 4, 2, 16, dict(impl="flash", prefix_len=8)),
+    "flash_causal": (2, 64, 64, 4, 2, 16, dict(impl="flash")),
+    "flash_noncausal": (1, 128, 128, 4, 4, 32, dict(impl="flash", causal=False)),
+    "flash_suffix_window": (1, 64, 128, 4, 1, 16, dict(impl="flash", window=40)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_matches_jax(case):
+    """fp32, rtol = atol = 2e-4 (as the flash kernel's own limit)."""
+    B, Sq, Sk, H, HK, D, kw = ATTN_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = _arrays(rng, (B, Sq, H, D), (B, Sk, HK, D), (B, Sk, HK, D))
+    want = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    fa.launches = 0
+    got = tattn.attention(*_to_torch(q, k, v), **kw)
+    assert fa.launches == 0
+    assert got.shape == (B, Sq, H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_chunked_on_a_ragged_kv_axis_matches_direct():
+    """Sk not a multiple of the chunk.  The JAX package pads the last chunk
+    with keys at position -1e9, which pass the causal and the all-true masks,
+    so its chunked path gives the zero-padded keys weight there (an error of
+    order 1 against its own direct path); the port slices the last chunk, so
+    it agrees with the direct path of either package."""
+    rng = np.random.default_rng(5)
+    B, S, H, D = 1, 300, 2, 16
+    q, k, v = _arrays(rng, (B, S, H, D), (B, S, H, D), (B, S, H, D))
+    for causal in (True, False):
+        want = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=causal, impl="direct"))
+        got = tattn.attention(*_to_torch(q, k, v), causal=causal, impl="chunked", chunk=128)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+        jax_chunked = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                 causal=causal, impl="chunked", chunk=128))
+        assert np.abs(jax_chunked - want).max() > 1e-2  # the JAX package's padding fault
+
+
+def test_attention_bf16_matches_jax():
+    """bf16 activations through the flash path: both packages within one bf16
+    rounding of the fp32 result on the same bf16 inputs."""
+    rng = np.random.default_rng(6)
+    q, k, v = _arrays(rng, (2, 64, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16))
+    want = jattn.attention(_bf16_jax(q), _bf16_jax(k), _bf16_jax(v), impl="flash")
+    tq, tk, tv = _to_torch(q, k, v, dtype=torch.bfloat16)
+    got = tattn.attention(tq, tk, tv, impl="flash")
+    want32 = tattn.attention(tq.float(), tk.float(), tv.float(), impl="flash").numpy()
+    limit = _bf16_limit(want32, tv.float().numpy())
+    assert (np.abs(got.float().numpy() - want32) <= limit).all()
+    assert (np.abs(np.asarray(want, np.float32) - want32) <= limit).all()
+
+
+# --- decode_attention ---------------------------------------------------------
+
+
+def _decode_inputs(rng, cache_dtype, B=2, S=24, H=4, HK=2, D=16):
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    k, v = _arrays(rng, (B, S, HK, D), (B, S, HK, D))
+    if cache_dtype != "int8":
+        return q, k, v, None, None
+    ks, vs = np.abs(k).max(-1), np.abs(v).max(-1)
+    k8 = np.round(k / ks[..., None] * 127).astype(np.int8)
+    v8 = np.round(v / vs[..., None] * 127).astype(np.int8)
+    # scales are stored in bf16: hand both packages the bf16-exact values
+    ks, vs = (np.asarray(jnp.asarray(s, jnp.bfloat16), np.float32) for s in (ks, vs))
+    return q, k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window,ring", [(None, False), (8, True)])
+def test_decode_attention_matches_jax(cache_dtype, window, ring):
+    """fp32 q against an fp32, bf16 or int8 cache.  fp32: rtol = atol = 1e-5.
+    bf16 and int8 round q and the probabilities to bf16 in both packages, so
+    one bf16 ulp of the output can differ: atol = 2^-7 * max|v|."""
+    rng = np.random.default_rng(8)
+    q, k, v, ks, vs = _decode_inputs(rng, cache_dtype)
+    S, pos = k.shape[1], 17
+    kpos = None
+    if ring:  # a ring buffer of S slots holding positions pos - S + 1 .. pos
+        pos = 30
+        kpos = pos - ((pos - np.arange(S)) % S)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}[cache_dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[cache_dtype]
+    jk, jv = (jnp.asarray(a).astype(jdt) for a in (k, v))
+    want = np.asarray(jattn.decode_attention(
+        jnp.asarray(q), jk, jv, pos, window=window,
+        kpos=None if kpos is None else jnp.asarray(kpos),
+        k_scale=None if ks is None else jnp.asarray(ks, jnp.bfloat16),
+        v_scale=None if vs is None else jnp.asarray(vs, jnp.bfloat16)))
+    tk, tv = (torch.from_numpy(a).to(tdt) for a in (k, v))
+    got = tattn.decode_attention(
+        torch.from_numpy(q), tk, tv, pos, window=window,
+        kpos=None if kpos is None else torch.from_numpy(kpos),
+        k_scale=None if ks is None else torch.from_numpy(ks).to(torch.bfloat16),
+        v_scale=None if vs is None else torch.from_numpy(vs).to(torch.bfloat16)).numpy()
+    assert got.shape == q.shape
+    if cache_dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        v_values = v if vs is None else v * vs[..., None] / 127.0  # dequantised int8
+        assert np.abs(got - want).max() <= 2.0**-7 * float(np.abs(v_values).max())

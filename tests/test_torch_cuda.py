@@ -212,3 +212,130 @@ def test_dist_multiply_goes_through_the_fused_kernel(cuda):
     assert fl.launches == before + 2 and err > 0
     exact = dense.astype(np.float64) @ dense
     assert np.linalg.norm(s.gather().to_dense() - exact) <= err
+
+
+# --- flash attention (kernels/csrc/flash_attention.cu) ----------------------
+
+# (B, H, HK, Sq, Sk, D, causal, window): the smoke's flash_kernel cases at a smaller S
+FLASH_CASES = {
+    "qwen2_layer": (2, 14, 2, 512, 512, 64, True, None),
+    "noncausal_d80": (1, 4, 4, 300, 300, 80, False, None),
+    "d128_mqa": (1, 4, 1, 256, 256, 128, True, None),
+    "d256_mqa": (1, 4, 1, 200, 200, 256, True, None),
+    "suffix": (2, 6, 2, 64, 512, 64, True, None),
+    "window_suffix": (1, 4, 2, 100, 600, 64, True, 128),
+    "window_noncausal": (1, 2, 1, 256, 256, 32, False, 50),
+    "ragged": (1, 3, 1, 333, 333, 64, True, None),
+    "masked_rows": (1, 2, 1, 150, 100, 64, True, None),
+}
+
+
+def _flash_inputs(dev, case, dtype, seed=0):
+    B, H, HK, Sq, Sk, D, causal, window = FLASH_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in ((B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D)))
+    return q, k, v, dict(causal=causal, window=window)
+
+
+def _flash_excess(got, q, k, v, **kw):
+    """max |got - want| / limit against the plain version's fp32 result on the
+    same inputs, elementwise: 1e-4 * max|v| for the order of the fp32 sums and
+    exps (the output is a convex combination of v's rows), plus for a bf16
+    output its one rounding, half a bf16 ulp <= 2^-8 * |want|."""
+    from repro_torch.kernels import flash_attention as fa
+
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    limit = 1e-4 * float(v.float().abs().max())
+    if got.dtype != torch.float32:
+        limit = 2.0**-8 * want.abs() + limit
+    return float(((got.float() - want).abs() / limit).max())
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = _flash_inputs(cuda, case, dtype)
+    before = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    again = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again), "flash kernel is not deterministic"
+    excess = _flash_excess(got, q, k, v, **kw)
+    assert excess <= 1.0, (case, excess)
+
+
+def test_flash_kernel_zeros_on_fully_masked_rows(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, kw = _flash_inputs(cuda, "masked_rows", dtype)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        dead = q.shape[2] - k.shape[2]  # rows at negative positions see no key
+        assert not got[:, :, :dead].any()
+        assert torch.isfinite(got.float()).all() and got[:, :, dead:].abs().sum() > 0
+
+
+def test_flash_kernel_takes_strided_views_without_copy(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = _flash_inputs(cuda, "qwen2_layer", torch.float32)
+    # [B, S, H, D] activations seen as [B, H, S, D]: the layout models/attention.py passes
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    got = fa.flash_attention_cuda(qs, ks, vs, **kw)
+    assert got.stride() == qs.stride()
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw))
+
+
+def test_flash_dispatch_and_rejections(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = _flash_inputs(cuda, "suffix", torch.float32)
+    before = fa.launches
+    ops.flash_attention(q, k, v, **kw)
+    assert fa.launches == before + 1  # "auto" on a CUDA tensor launches the kernel
+    ops.flash_attention(q, k, v, impl="ref", **kw)
+    assert fa.launches == before + 1
+    with pytest.raises(ValueError):  # off the card the kernel is refused
+        ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), impl="kernel", **kw)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):  # head dim not a multiple of 8
+        fa.flash_attention_cuda(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError):  # head dim above 256
+        big = torch.zeros(1, 1, 8, 264, device=cuda)
+        fa.flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError):  # q heads not a multiple of kv heads
+        fa.flash_attention_cuda(q[:, :5], k, v)
+    with pytest.raises(ValueError):  # non-unit stride along the head dim
+        fa.flash_attention_cuda(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k, v, window=0)
+    assert fa.launches == before + 1
+
+
+def test_lm_forward_and_generate_go_through_the_flash_kernel(cuda):
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+
+    cfg = reduced_config("qwen2-0.5b")
+    params = transformer.init_params(cfg, seed=0)  # on the card by default
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 300))).to(cuda)
+    before = fa.launches
+    flash = transformer.apply(params, cfg, {"tokens": tokens}, attn_impl="flash")
+    assert fa.launches == before + cfg.num_layers
+    direct = transformer.apply(params, cfg, {"tokens": tokens}, attn_impl="direct")
+    assert float((flash - direct).abs().max()) <= 1e-4 * float(direct.abs().max())
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 5))
+    seqs, steps = generate(cfg, params, prompts, 6, return_logits=True)
+    full = transformer.apply(params, cfg, {"tokens": torch.from_numpy(seqs).to(cuda)},
+                             attn_impl="flash")[:, :-1]
+    assert float((full - steps).abs().max()) <= 1e-4 * float(full.abs().max())
