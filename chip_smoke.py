@@ -10,8 +10,10 @@ Phases, one JSON line each:
                       ``src/repro_torch``, one process per source, all at once.
 2. ``kernel``       — the ``block_spmm`` kernel on the card against its plain
                       PyTorch version on the same inputs (bit-identical on
-                      repeat, within tolerance), timed with CUDA events beside
-                      the plain version and its bound.
+                      repeat, within tolerance; its 128 x 128 engine
+                      bit-identical to the 64 x 64 one on the timing case),
+                      timed with CUDA events beside the plain version and
+                      its bound.
 3. ``fused_kernel`` — the fused leaf kernel the same way, on the N = 8192 band
                       planned for 8 workers (fp32, bf16 stores, adaptive,
                       masked tasks), bs 24, no exchange rounds and empty runs;
@@ -28,12 +30,13 @@ Phases, one JSON line each:
                       cache) -> ``gather``, bit-identical to ``multiply(A, A)``.
 7. ``dist_spamm``   — delta-plan SpAMM at N = 8192 on 8 workers, two ``tau``
                       and three precisions, each within its returned bound.
-8. ``flash_kernel`` — the flash-attention kernel against its plain version in
-                      fp32 and bf16 over eight shapes (qwen2-0.5b's layer,
-                      non-causal D 80, D 128 and 256 with one kv head, a
-                      decode-style suffix, a window, ragged S, fully masked
-                      rows), timed on qwen2-0.5b's layer beside the plain
-                      version, the bound and SDPA (a yardstick only).
+8. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
+                      cores) against their plain version over eight shapes
+                      (qwen2-0.5b's layer, non-causal D 80, D 128 and 256
+                      with one kv head, a decode-style suffix, a window,
+                      ragged S, fully masked rows), timed on qwen2-0.5b's
+                      layer in both types beside the plain version, the
+                      bounds and SDPA (a yardstick only).
 9. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
                       151,936), seeded random weights, B 2 x S 4096:
                       ``apply(attn_impl="flash")`` against ``"direct"`` in fp32
@@ -223,7 +226,7 @@ def phase_build(ctx) -> dict:
         build.load_library(name)
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in build.build_logs.get(name, "").splitlines()
-                    if "registers" in ln or "spill" in ln][:6] for name in names}
+                    if "registers" in ln or "spill" in ln] for name in names}
     out = dict(phase="build", seconds=secs, kernels=names, ptxas=ptxas)
     emit(out)
     return out
@@ -288,6 +291,14 @@ def phase_kernel(ctx, sizes) -> dict:
 
     name, A, B, a, b, c, num_out = timing
     args = (A, B, *ops.task_arrays(a, b, c, num_out, ctx.dev), num_out)
+    # the 128 x 128 engine against the 64 x 64 one on the timing case: one
+    # fmaf chain per element in both, so the same bits (a copy whose data
+    # starts 4 bytes past a 16-byte boundary makes the kernel take the 64 one)
+    moved = torch.empty(A.numel() + 1, device=ctx.dev)[1:].view(A.shape)
+    moved.copy_(A)
+    engines_identical = bool(torch.equal(kernel(*args), kernel(moved, moved, *args[2:])))
+    check(engines_identical, f"{name}: the 128 x 128 and 64 x 64 engines differ")
+    del moved
     ms = ctx.time_ms(lambda: kernel(*args), reps=10)
     plain_ms = ctx.time_ms(lambda: bsp.block_spmm_ref(*args), reps=3)
     lhs, rhs = A[args[2]], B[args[3]]
@@ -296,6 +307,7 @@ def phase_kernel(ctx, sizes) -> dict:
     T = len(a)
     bound = gemm_bound(T, mbs, mbs, mbs, np.unique(a).size, np.unique(b).size, num_out, 4)
     timing_row = dict(case=name, tasks=T, ms=ms, plain_ms=plain_ms,
+                      engines_bit_identical=engines_identical,
                       tflops=2.0 * T * mbs**3 / (ms * 1e-3) / 1e12,
                       bmm_yardstick_ms=bmm_ms,
                       bmm_yardstick="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
@@ -876,13 +888,15 @@ def phase_dist_spamm(ctx, sizes) -> dict:
 def flash_bound(q, k, live_pairs: int) -> dict:
     """Least time for one flash-attention call on an H100: operations or bytes.
 
-    Operations: 2 * D per live (query, key) pair for each of the two
-    products.  ``bound_ms`` is the kernel's design, both products in fp32
-    FFMA at 67 TFLOP/s whatever the input type.  For bf16 inputs
-    ``bf16_bound_ms`` is the least time at the kernel's precision: the q.k
-    products of bf16 values are exact in fp32, so QK^T could run on the bf16
-    tensor cores (989 TFLOP/s, fp32 accumulation), while P stays fp32 and PV
-    in fp32 FFMA; the two units run at once, so the larger time bounds.
+    Operations: 2 * D per live (query, key) pair for each product.
+    ``bound_ms`` is the fp32 kernel's design, both products in fp32 FFMA at
+    67 TFLOP/s.  For bf16 inputs ``bf16_bound_ms`` is the bf16 kernel's
+    design at the Pallas kernel's precision: QK^T (products of bf16 values
+    are exact in fp32) and the two PV products of the split P (p_hi V and
+    p_lo V), all three on the bf16 tensor cores at 989 TFLOP/s with fp32
+    accumulation.  ``bf16_ffma_pv_bound_ms`` is the earlier design's bound,
+    PV in fp32 FFMA beside QK^T on the tensor cores (the two units run at
+    once, so the larger time bounds): no kernel that runs PV on FFMA beats it.
     Bytes: q, k, v read once and o written once in the input type.
     """
     B, H, Sq, D = q.shape
@@ -894,9 +908,14 @@ def flash_bound(q, k, live_pairs: int) -> dict:
                bound_arithmetic=(f"max(4*{D}*{live_pairs} op / 67e12 op/s = {t_ops * 1e3:.4f} ms, "
                                  f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
     if str(q.dtype) == "torch.bfloat16":
-        t_qk, t_pv = half / BF16_FLOPS, half / FP32_FLOPS
-        out.update(bf16_bound_ms=max(t_qk, t_pv, t_bytes) * 1e3,
+        t_tc, t_qk, t_pv = 3 * half / BF16_FLOPS, half / BF16_FLOPS, half / FP32_FLOPS
+        out.update(bf16_bound_ms=max(t_tc, t_bytes) * 1e3,
+                   bf16_bound_by="operations" if t_tc >= t_bytes else "bytes",
                    bf16_bound_arithmetic=(
+                       f"max(QK^T + p_hi V + p_lo V 3*2*{D}*{live_pairs} op / 989e12 op/s = "
+                       f"{t_tc * 1e3:.4f} ms, {nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"),
+                   bf16_ffma_pv_bound_ms=max(t_qk, t_pv, t_bytes) * 1e3,
+                   bf16_ffma_pv_bound_arithmetic=(
                        f"max(QK^T 2*{D}*{live_pairs} op / 989e12 op/s = {t_qk * 1e3:.4f} ms, "
                        f"PV 2*{D}*{live_pairs} op / 67e12 op/s = {t_pv * 1e3:.4f} ms, "
                        f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
@@ -991,7 +1010,8 @@ def phase_flash_kernel(ctx, sizes) -> dict:
                                             tflops=4.0 * D * live / (ms * 1e-3) / 1e12,
                                             bound_share=bound["bound_ms"] / ms, **bound)
                 if "bf16_bound_ms" in bound:
-                    timing[row["dtype"]]["bf16_bound_share"] = bound["bf16_bound_ms"] / ms
+                    timing[row["dtype"]].update(bf16_bound_share=bound["bf16_bound_ms"] / ms,
+                                                bf16_tflops=3 * 2.0 * D * live / (ms * 1e-3) / 1e12)
             results.append(row)
     out = dict(phase="flash_kernel", cases=results, timing=timing)
     emit(out)
@@ -1197,7 +1217,8 @@ def main(argv=None) -> int:
     serve = phase(phase_lm_serve, ctx, model)
     del model
 
-    timing, ftiming, atiming = kern["timing"], fused["timing"], flash["timing"]["float32"]
+    timing, ftiming = kern["timing"], fused["timing"]
+    atiming, btiming = flash["timing"]["float32"], flash["timing"]["bfloat16"]
     emit({"kernels": [
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
@@ -1218,7 +1239,9 @@ def main(argv=None) -> int:
              launches=fwd["launches"] + serve["launches"],
              max_abs_err=max(c["max_abs_err"] for c in flash["cases"]),
              ms=atiming["ms"], plain_ms=atiming["plain_ms"], bound_ms=atiming["bound_ms"],
-             bound_by=atiming["bound_by"], library_ms=atiming["sdpa_ms"]),
+             bound_by=atiming["bound_by"], library_ms=atiming["sdpa_ms"],
+             bf16_ms=btiming["ms"], bf16_bound_ms=btiming["bf16_bound_ms"],
+             bf16_library_ms=btiming["sdpa_ms"]),
     ]})
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     if args.rehearse:

@@ -13,22 +13,25 @@
 // turns the sorted output indices into CSR runs (run_ptr[num_out + 1]), and
 // one thread block owns one TM x TN tile of one output block: grid
 // (num_out, ceil(bm / TM), ceil(bn / TN)).  The block walks its run's tasks
-// in ascending t and each task's k-tiles through shared memory, accumulates
-// in fp32 registers, and stores its tile once.  So there are no atomics, no
-// zero-initialisation race, the summation order is fixed (bit-identical
-// results from launch to launch), and an empty run writes zeros, as the
-// reference's segment_sum does.  Any block size works: loads and stores are
-// masked at the ragged edge.  Offsets into the block stacks are 64-bit.
+// in ascending t through a tile engine of tile_gemm.cuh (shared with
+// fused_block_spmm.cu), accumulates in fp32 registers, and stores its tile
+// once.  So there are no atomics, no zero-initialisation race, the summation
+// order is fixed (bit-identical results from launch to launch), and an empty
+// run writes zeros, as the reference's segment_sum does.  The engine follows
+// the block size (tile_gemm::use_tile128): bm and bn multiples of 128 take
+// the 128 x 128 engine (8 x 8 registers a thread, a three-stage cp.async
+// ring, one barrier per stage), every other size the masked 64 x 64 engine,
+// so any block size works.  Both give the same bits.  Offsets into the
+// block stacks are 64-bit.
 //
 // Bound on an H100 SXM.  fp32 has no tensor-core path that keeps full fp32
 // precision (TF32 would round the inputs), so the products run as plain FFMA:
 // 2 * T * bm * bn * bk operations at 67 TFLOP/s.  Each task reuses a bk-long
 // panel of A and B for TM * TN outputs, so for bs >= 32 the kernel is
 // operation-bound; for small bs the bytes of A, B and C at 3.35 TB/s bound
-// it.  This first version is simple: 64 x 64 tiles, 256 threads each holding
-// a 4 x 4 register tile, k-tiles of 16 staged through shared memory with no
-// asynchronous copies (the tile engine of tile_gemm.cuh, shared with
-// fused_block_spmm.cu).  wgmma, TMA and persistent blocks are later work.
+// it.  What still holds the 128 engine back is set out in tile_gemm.cuh;
+// bf16 stores convert to fp32 in shared memory and run as FFMA too (no
+// tensor-core path yet).
 
 #include "tile_gemm.cuh"
 
@@ -36,41 +39,69 @@ namespace {
 
 using namespace tile_gemm;
 
+// The tasks of one output block's run, in ascending t.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct RunCursor {
+  const T* A;
+  const T* B;
+  const int64_t* a_idx;
+  const int64_t* b_idx;
+  int64_t t, t_end, a_stride, b_stride;
+
+  __device__ __forceinline__ bool next(const T*& Ab, const T*& Bb, bool& low) {
+    if (t >= t_end) return false;
+    Ab = A + a_idx[t] * a_stride;
+    Bb = B + b_idx[t] * b_stride;
+    low = false;
+    ++t;
+    return true;
+  }
+};
+
+template <typename T, typename Engine>
+__global__ void __launch_bounds__(THREADS, Engine::MIN_BLOCKS)
 block_spmm_kernel(const T* __restrict__ A, const T* __restrict__ B,
                   const int64_t* __restrict__ a_idx,
                   const int64_t* __restrict__ b_idx,
                   const int64_t* __restrict__ run_ptr,
                   float* __restrict__ C, int bm, int bk, int bn) {
-  __shared__ Smem smem;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int64_t out = blockIdx.x;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.z * TN;
-  const int64_t a_stride = static_cast<int64_t>(bm) * bk;
-  const int64_t b_stride = static_cast<int64_t>(bk) * bn;
+  const RunCursor<T> cur{A, B, a_idx, b_idx, run_ptr[out], run_ptr[out + 1],
+                         static_cast<int64_t>(bm) * bk, static_cast<int64_t>(bk) * bn};
+  Engine::template run<T>(cur, C + out * static_cast<int64_t>(bm) * bn,
+                          blockIdx.y * Engine::TM, blockIdx.z * Engine::TN, bm, bk, bn, smem);
+}
 
-  Acc acc;
-  acc.zero();
-  const int64_t t_end = run_ptr[out + 1];
-  for (int64_t t = run_ptr[out]; t < t_end; ++t)
-    accumulate_task(A + a_idx[t] * a_stride, B + b_idx[t] * b_stride, false,
-                    m0, n0, bm, bk, bn, smem, acc);
-  store_tile(C + out * static_cast<int64_t>(bm) * bn, acc, m0, n0, bm, bn);
+template <typename T, typename Engine>
+int launch_engine(const void* A, const void* B, const void* a_idx, const void* b_idx,
+                  const void* run_ptr, void* C, long long num_out, int bm, int bk, int bn,
+                  size_t smem, cudaStream_t stream) {
+  const auto kernel = block_spmm_kernel<T, Engine>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(num_out), (bm + Engine::TM - 1) / Engine::TM,
+                  (bn + Engine::TN - 1) / Engine::TN);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B),
+      static_cast<const int64_t*>(a_idx), static_cast<const int64_t*>(b_idx),
+      static_cast<const int64_t*>(run_ptr), static_cast<float*>(C), bm, bk, bn);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* A, const void* B, const void* a_idx, const void* b_idx,
            const void* run_ptr, void* C, long long num_out, int bm, int bk,
-           int bn, void* stream) {
+           int bn, void* stream_ptr) {
   if (num_out <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>(num_out), (bm + TM - 1) / TM,
-                  (bn + TN - 1) / TN);
-  block_spmm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<const T*>(B),
-      static_cast<const int64_t*>(a_idx), static_cast<const int64_t*>(b_idx),
-      static_cast<const int64_t*>(run_ptr), static_cast<float*>(C), bm, bk, bn);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const void* ptrs[2] = {A, B};
+  if (use_tile128(bm, bk, bn, ptrs, 2))
+    return launch_engine<T, Tile128>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn,
+                                     Tile128::smem_bytes<T>(), stream);
+  return launch_engine<T, Tile64>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn,
+                                  Tile64::smem_bytes, stream);
 }
 
 }  // namespace

@@ -25,21 +25,26 @@
 // from the plan's sorted task_c), skips the tasks whose `on` flag is clear
 // (the delta-plan SpAMM mask: no trash-row redirect, so a masked task in the
 // middle of a run cannot break the run), selects the store or the receive
-// stack pointer per task, and accumulates through the shared tile engine of
-// tile_gemm.cuh.  Each output element is one fp32 fmaf chain from 0 over the
-// run's tasks in ascending order, exactly as block_spmm.cu sums it, so the
+// stack pointer per task, and accumulates through a tile engine of
+// tile_gemm.cuh, picked by the same block-size rule as block_spmm.cu
+// (tile_gemm::use_tile128): bm and bn multiples of 128 take the 128 x 128
+// engine (8 x 8 registers a thread, three-stage cp.async ring), every other
+// size the masked 64 x 64 engine.  bf16 stores and the adaptive `low`
+// rounding convert to fp32 in the engine, as they are read.  Each output
+// element is one fp32 fmaf chain from 0 over the run's tasks in ascending
+// order, exactly as block_spmm.cu sums it whichever engine runs, so the
 // fused and staged paths, the masked path with every task on and the
 // single-device multiply agree bit for bit.  No atomics; an empty run writes
 // zeros; the padded tasks past a worker's count are never visited.  Any block
-// size (masked edges) and 64-bit offsets everywhere.
+// size and 64-bit offsets everywhere.
 //
 // Bound on an H100 SXM.  fp32 stays fp32 (plain FFMA, never TF32):
 // 2 * T * bm * bn * bk operations at 67 TFLOP/s, where T counts the tasks
 // that are on; for the N = 8192 band at bs 128 (104,664 tasks) that is
 // 6.55 ms.  The bytes (each referenced operand block read once, the task
 // arrays, each output block written once in fp32) at 3.35 TB/s bound it only
-// below bs ~ 32.  This first version reuses block_spmm.cu's 64 x 64 x 16
-// tile loop; wgmma (for bf16), TMA and persistent blocks are later work.
+// below bs ~ 32.  What still holds it back is what holds the engine back
+// (tile_gemm.cuh), and bf16 stores run as FFMA (no tensor-core path yet).
 
 #include "tile_gemm.cuh"
 
@@ -55,18 +60,49 @@ struct Dims {
   int bm, bk, bn, n_tiles_n;
 };
 
+// The on tasks of one output block's run of one worker, in ascending t,
+// each operand read from the worker's own store (src == 0) or from receive
+// buffer src - 1 of its stacked receive buffers.
 template <typename T>
-__device__ __forceinline__ const T* operand(const T* store, const T* recv,
-                                            int64_t src, int64_t off,
-                                            int64_t p, int64_t cap,
-                                            int64_t rounds, int64_t capu,
-                                            int64_t blk) {
-  return src == 0 ? store + (p * cap + off) * blk
-                  : recv + ((p * rounds + (src - 1)) * capu + off) * blk;
-}
+struct FusedCursor {
+  const T* a_store;
+  const T* a_recv;
+  const T* b_store;
+  const T* b_recv;
+  const int64_t* a_src;
+  const int64_t* a_off;
+  const int64_t* b_src;
+  const int64_t* b_off;
+  const uint8_t* on;
+  const uint8_t* low;
+  Dims d;
+  int64_t p, task0, t, t_end;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+  __device__ __forceinline__ static const T* operand(const T* store, const T* recv, int64_t src,
+                                                     int64_t off, int64_t p, int64_t cap,
+                                                     int64_t rounds, int64_t capu, int64_t blk) {
+    return src == 0 ? store + (p * cap + off) * blk
+                    : recv + ((p * rounds + (src - 1)) * capu + off) * blk;
+  }
+
+  __device__ __forceinline__ bool next(const T*& Ab, const T*& Bb, bool& is_low) {
+    for (; t < t_end; ++t) {
+      const int64_t i = task0 + t;
+      if (on != nullptr && on[i] == 0) continue;  // uniform across the block
+      Ab = operand(a_store, a_recv, a_src[i], a_off[i], p, d.a_cap, d.a_rounds, d.a_capu,
+                   static_cast<int64_t>(d.bm) * d.bk);
+      Bb = operand(b_store, b_recv, b_src[i], b_off[i], p, d.b_cap, d.b_rounds, d.b_capu,
+                   static_cast<int64_t>(d.bk) * d.bn);
+      is_low = low != nullptr && low[i] != 0;
+      ++t;
+      return true;
+    }
+    return false;
+  }
+};
+
+template <typename T, typename Engine>
+__global__ void __launch_bounds__(THREADS, Engine::MIN_BLOCKS)
 fused_block_spmm_kernel(const T* __restrict__ a_store, const T* __restrict__ a_recv,
                         const T* __restrict__ b_store, const T* __restrict__ b_recv,
                         const int64_t* __restrict__ a_src,
@@ -77,31 +113,44 @@ fused_block_spmm_kernel(const T* __restrict__ a_store, const T* __restrict__ a_r
                         const uint8_t* __restrict__ on,
                         const uint8_t* __restrict__ low,
                         float* __restrict__ C, Dims d) {
-  __shared__ Smem smem;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int64_t out = blockIdx.x;
-  const int m0 = (blockIdx.y / d.n_tiles_n) * TM;
-  const int n0 = (blockIdx.y % d.n_tiles_n) * TN;
+  const int m0 = (blockIdx.y / d.n_tiles_n) * Engine::TM;
+  const int n0 = (blockIdx.y % d.n_tiles_n) * Engine::TN;
   const int64_t p = blockIdx.z;
-  const int64_t a_blk = static_cast<int64_t>(d.bm) * d.bk;
-  const int64_t b_blk = static_cast<int64_t>(d.bk) * d.bn;
-  const int64_t task0 = p * d.t_cap;
   const int64_t* runs = run_ptr + p * (d.num_out + 1);
+  const FusedCursor<T> cur{a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, on, low,
+                           d, p, p * d.t_cap, runs[out], runs[out + 1]};
+  Engine::template run<T>(cur, C + (p * d.num_out + out) * static_cast<int64_t>(d.bm) * d.bn,
+                          m0, n0, d.bm, d.bk, d.bn, smem);
+}
 
-  Acc acc;
-  acc.zero();
-  const int64_t t_end = runs[out + 1];
-  for (int64_t t = runs[out]; t < t_end; ++t) {
-    const int64_t i = task0 + t;
-    if (on != nullptr && on[i] == 0) continue;  // uniform across the block
-    const T* Ab = operand(a_store, a_recv, a_src[i], a_off[i], p, d.a_cap,
-                          d.a_rounds, d.a_capu, a_blk);
-    const T* Bb = operand(b_store, b_recv, b_src[i], b_off[i], p, d.b_cap,
-                          d.b_rounds, d.b_capu, b_blk);
-    accumulate_task(Ab, Bb, low != nullptr && low[i] != 0, m0, n0, d.bm, d.bk,
-                    d.bn, smem, acc);
-  }
-  store_tile(C + (p * d.num_out + out) * static_cast<int64_t>(d.bm) * d.bn, acc,
-             m0, n0, d.bm, d.bn);
+template <typename T, typename Engine>
+int launch_engine(const void* a_store, const void* a_recv, const void* b_store,
+                  const void* b_recv, const void* a_src, const void* a_off,
+                  const void* b_src, const void* b_off, const void* run_ptr,
+                  const void* on, const void* low, void* C, long long nparts, Dims d,
+                  size_t smem, cudaStream_t stream) {
+  const int tiles_m = (d.bm + Engine::TM - 1) / Engine::TM;
+  const int tiles_n = (d.bn + Engine::TN - 1) / Engine::TN;
+  if (nparts > 65535 || static_cast<long long>(tiles_m) * tiles_n > 65535 ||
+      d.num_out > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  d.n_tiles_n = tiles_n;
+  const auto kernel = fused_block_spmm_kernel<T, Engine>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(d.num_out), static_cast<unsigned>(tiles_m * tiles_n),
+                  static_cast<unsigned>(nparts));
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(a_store), static_cast<const T*>(a_recv),
+      static_cast<const T*>(b_store), static_cast<const T*>(b_recv),
+      static_cast<const int64_t*>(a_src), static_cast<const int64_t*>(a_off),
+      static_cast<const int64_t*>(b_src), static_cast<const int64_t*>(b_off),
+      static_cast<const int64_t*>(run_ptr), static_cast<const uint8_t*>(on),
+      static_cast<const uint8_t*>(low), static_cast<float*>(C), d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -112,25 +161,18 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
            long long num_out, long long t_cap, long long a_cap,
            long long a_rounds, long long a_capu, long long b_cap,
            long long b_rounds, long long b_capu, int bm, int bk, int bn,
-           void* stream) {
+           void* stream_ptr) {
   if (nparts <= 0 || num_out <= 0) return 0;
-  const int tiles_m = (bm + TM - 1) / TM, tiles_n = (bn + TN - 1) / TN;
-  if (nparts > 65535 || static_cast<long long>(tiles_m) * tiles_n > 65535 ||
-      num_out > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
   const Dims d{num_out, t_cap, a_cap, a_rounds, a_capu, b_cap, b_rounds, b_capu,
-               bm, bk, bn, tiles_n};
-  const dim3 grid(static_cast<unsigned>(num_out),
-                  static_cast<unsigned>(tiles_m * tiles_n),
-                  static_cast<unsigned>(nparts));
-  fused_block_spmm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a_store), static_cast<const T*>(a_recv),
-      static_cast<const T*>(b_store), static_cast<const T*>(b_recv),
-      static_cast<const int64_t*>(a_src), static_cast<const int64_t*>(a_off),
-      static_cast<const int64_t*>(b_src), static_cast<const int64_t*>(b_off),
-      static_cast<const int64_t*>(run_ptr), static_cast<const uint8_t*>(on),
-      static_cast<const uint8_t*>(low), static_cast<float*>(C), d);
-  return static_cast<int>(cudaGetLastError());
+               bm, bk, bn, 0};
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const void* ptrs[4] = {a_store, a_recv, b_store, b_recv};
+  if (use_tile128(bm, bk, bn, ptrs, 4))
+    return launch_engine<T, Tile128>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src,
+                                     b_off, run_ptr, on, low, C, nparts, d,
+                                     Tile128::smem_bytes<T>(), stream);
+  return launch_engine<T, Tile64>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off,
+                                  run_ptr, on, low, C, nparts, d, Tile64::smem_bytes, stream);
 }
 
 }  // namespace

@@ -92,6 +92,60 @@ def test_flash_bf16_matches_pallas_kernel(case):
     assert (np.abs(np.asarray(want, np.float32) - want32) <= limit).all()
 
 
+def _split_p_attention(q, k, v, *, causal, window, split):
+    """The bf16 CUDA kernel's arithmetic in plain torch, on bf16 q, k, v:
+    fp32 scores (products of bf16 values are exact), fp32 softmax with the
+    kernel's sentinel and zero rows, then P V with P split into
+    ``p_hi = bf16(p)`` and ``p_lo = bf16(p - p_hi)`` (``split``) or rounded
+    once to bf16, each product of bf16 values summed in fp32."""
+    B, H, Sq, D = q.shape
+    HK, Sk = k.shape[1], k.shape[2]
+    rep = H // HK
+    s = torch.matmul(q.float().reshape(B, HK, rep * Sq, D), k.float().transpose(-1, -2))
+    s = s.view(B, HK, rep, Sq, Sk) * D**-0.5
+    mask = fa.attention_mask(torch.arange(Sq) + (Sk - Sq), torch.arange(Sk), causal=causal,
+                             window=window)
+    s = torch.where(mask, s, fa.NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    p_hi = p.to(torch.bfloat16).float()
+    parts = (p_hi, (p - p_hi).to(torch.bfloat16).float()) if split else (p_hi,)
+    o = sum(torch.matmul(part.view(B, HK, rep * Sq, Sk), v.float()) for part in parts)
+    o = o.view(B, HK, rep, Sq, D) / torch.where(l == 0.0, 1.0, l)
+    return o.reshape(B, H, Sq, D).to(torch.bfloat16)
+
+
+# (B, H, HK, Sq, Sk, D, causal, window): qwen2-0.5b's heads at S 256, a
+# decode-style suffix with a window, a non-causal D 80
+SPLIT_P_CASES = {
+    "qwen2_layer_s256": (1, 14, 2, 256, 256, 64, True, None),
+    "window_suffix": (1, 14, 2, 64, 256, 64, True, 32),
+    "noncausal_d80": (1, 4, 4, 128, 128, 80, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_P_CASES))
+def test_split_p_arithmetic_meets_the_bf16_limit(case):
+    """Pins the bf16 kernel's PV arithmetic before it reaches the card: with P
+    split in two the bf16 output lies within the smoke's elementwise limit
+    (2^-8 |want| + 1e-4 max|v|) of the plain version's fp32 result on the
+    same inputs, while a P rounded once to bf16 exceeds that limit."""
+    B, H, HK, Sq, Sk, D, causal, window = SPLIT_P_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = _to_torch(*_arrays(rng, (B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D)),
+                        dtype=torch.bfloat16)
+    want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                    window=window).numpy()
+    limit = _bf16_limit(want32, v.float().numpy())
+
+    def excess(split):
+        got = _split_p_attention(q, k, v, causal=causal, window=window, split=split)
+        return float((np.abs(got.float().numpy() - want32) / limit).max())
+
+    assert excess(split=True) <= 1.0
+    assert excess(split=False) > 1.0
+
+
 def test_flash_fully_masked_rows_are_zero():
     """Causal with Sq > Sk: the first Sq - Sk rows see no key.  The kernel (and
     the Pallas kernel) give zeros; the JAX package's -inf reference gives NaN."""

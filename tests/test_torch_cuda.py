@@ -55,9 +55,12 @@ def _check(A, B, a, b, c, nc):
     return got
 
 
+# 96 and 130 take the 64 x 64 engine, 128, 256 and (128, 256, 128) the
+# 128 x 128 one (256: four tiles a block), 192 the 64 one on nine tiles
 @pytest.mark.parametrize("bm,bk,bn", [(8, 8, 8), (10, 10, 10), (16, 16, 16), (24, 24, 24),
                                       (16, 32, 8), (64, 16, 32), (128, 128, 128),
-                                      (130, 70, 66), (128, 256, 128)])
+                                      (130, 70, 66), (128, 256, 128), (96, 96, 96),
+                                      (192, 192, 192), (256, 256, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, bm, bk, bn, dtype):
     rng = np.random.default_rng(bm + bk + bn)
@@ -131,7 +134,8 @@ def _fused_tolerance(args, on=None):
 
 
 @pytest.mark.parametrize("bm,bk,bn", [(8, 8, 8), (10, 10, 10), (24, 24, 24), (16, 32, 8),
-                                      (128, 128, 128), (130, 70, 66)])
+                                      (128, 128, 128), (130, 70, 66), (96, 96, 96),
+                                      (192, 192, 192), (256, 256, 256)])
 @pytest.mark.parametrize("mode", ["fp32", "bf16", "adaptive", "masked"])
 def test_fused_kernel_matches_plain_version(cuda, bm, bk, bn, mode):
     rng = np.random.default_rng(bm * 7 + bk + bn)
@@ -160,14 +164,11 @@ def test_fused_kernel_matches_plain_version(cuda, bm, bk, bn, mode):
         assert 0 < shift and float(err.max()) * 8 <= shift, (float(err.max()), shift)
 
 
-def test_fused_kernel_bit_identical_to_staged_kernel_and_masked_all_on(cuda):
-    rng = np.random.default_rng(3)
-    args = _fused_problem(cuda, rng, 4, 60, 128, 128, 128, torch.float32)
+def _staged_operands(args):
+    """The staged path's operands of a fused problem: per worker [own | recv
+    rounds] concatenated into one stack, and one flat task list."""
     a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, run_ptr, num_out = args
-    fused = fl.fused_block_spmm_cuda(*args)
-    all_on = fl.fused_block_spmm_cuda(*args, on=torch.ones(a_src.shape, dtype=torch.bool, device=cuda))
-    assert torch.equal(fused, all_on)
-    # staged: per worker [own | recv rounds] concatenated, one flat task list
+    dev = a_store.device
     P, cap = a_store.shape[:2]
     R, cu = a_recv.shape[1:3]
     L = cap + R * cu
@@ -177,11 +178,47 @@ def test_fused_kernel_bit_identical_to_staged_kernel_and_masked_all_on(cuda):
     rp = run_ptr.cpu().numpy()
     p, t = np.nonzero(np.arange(a_src.shape[1])[None] < rp[:, -1:])
     c = np.concatenate([np.repeat(np.arange(num_out), np.diff(rp[q])) for q in range(P)])
-    pt = (torch.from_numpy(p).to(cuda), torch.from_numpy(t).to(cuda))
+    pt = (torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev))
     a = (pt[0] * L + lin(a_src, a_off)[pt]).cpu().numpy()
     b = (pt[0] * L + lin(b_src, b_off)[pt]).cpu().numpy()
-    staged = ops.block_spmm(a_all, b_all, a, b, p * num_out + c, P * num_out, impl="kernel")
+    return a_all, b_all, a, b, p * num_out + c, P * num_out
+
+
+def test_fused_kernel_bit_identical_to_staged_kernel_and_masked_all_on(cuda):
+    rng = np.random.default_rng(3)
+    args = _fused_problem(cuda, rng, 4, 60, 128, 128, 128, torch.float32)
+    fused = fl.fused_block_spmm_cuda(*args)
+    all_on = fl.fused_block_spmm_cuda(*args, on=torch.ones(args[4].shape, dtype=torch.bool, device=cuda))
+    assert torch.equal(fused, all_on)
+    staged = ops.block_spmm(*_staged_operands(args), impl="kernel")
     assert torch.equal(fused.reshape(staged.shape), staged)
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernels then take the 64 x 64 engine at any block size."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    out = flat.view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("bs", [128, 130])
+def test_engines_and_paths_agree_bit_for_bit(cuda, bs):
+    """fp32 fused == staged (concatenated stacks through block_spmm), and at
+    bs 128 the 128 x 128 engine == the 64 x 64 engine on the same inputs:
+    one fmaf chain per element whatever the kernel and the tile shape."""
+    rng = np.random.default_rng(bs)
+    args = _fused_problem(cuda, rng, 4, 60, bs, bs, bs, torch.float32)
+    fused = fl.fused_block_spmm_cuda(*args)
+    a_all, b_all, a, b, c, nc = _staged_operands(args)
+    staged = ops.block_spmm(a_all, b_all, a, b, c, nc, impl="kernel")
+    assert torch.equal(fused.reshape(staged.shape), staged)
+    small = ops.block_spmm(_misaligned(a_all), _misaligned(b_all), a, b, c, nc, impl="kernel")
+    assert torch.equal(small, staged)
+    moved = tuple(_misaligned(t) for t in args[:4]) + args[4:]
+    assert torch.equal(fl.fused_block_spmm_cuda(*moved), fused)
 
 
 def test_fused_kernel_without_rounds_and_without_tasks(cuda):
@@ -227,6 +264,12 @@ FLASH_CASES = {
     "window_noncausal": (1, 2, 1, 256, 256, 32, False, 50),
     "ragged": (1, 3, 1, 333, 333, 64, True, None),
     "masked_rows": (1, 2, 1, 150, 100, 64, True, None),
+    # head dims that pad the contraction to 16 (and to the 64 or 128 bucket)
+    "d8": (1, 4, 2, 130, 130, 8, True, None),
+    "d40_noncausal": (1, 3, 1, 200, 200, 40, False, None),
+    "d72": (2, 4, 2, 150, 150, 72, True, None),
+    # qwen2's GQA (14 q heads on 2 kv heads, rep 7) on a ragged kv axis with a suffix
+    "gqa_rep7_suffix_ragged": (1, 14, 2, 100, 1000, 64, True, None),
 }
 
 
