@@ -13,8 +13,9 @@ and run through the same Python wrappers on the same inputs:
 - ``block_spmm`` on ``chip_smoke.py``'s timing case (the N = 8192 band at
   bs 128, fp32) and ``fused_block_spmm`` on its fused timing case (that band
   planned for 8 workers): the two versions' outputs must be bit-identical;
-- ``flash_attention`` on qwen2-0.5b's layer in fp32 and bf16: each version's
-  output is held against the plain version with ``chip_smoke.py``'s limit.
+- ``flash_attention`` on qwen2-0.5b's layer in fp32 and bf16, and on
+  ``chip_smoke.py``'s D 128 and D 256 cases in fp32: each version's output is
+  held against the plain version with ``chip_smoke.py``'s limit.
 
 Each kernel is timed with CUDA events in turns old, new, new, old, and the
 current version is run back to back for about a second while ``nvidia-smi``
@@ -111,6 +112,27 @@ def clocks_during(fn, seconds: float = 1.0) -> dict:
                 power_w=statistics.median(r[1] for r in rows), samples=len(rows))
 
 
+def flash_turns(ctx, versions, result, case, q32, k32, v32, dtype, kw) -> None:
+    """One flash case in one type: both versions against the plain version,
+    then timed in turns; the row goes to ``result``."""
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+    row = {}
+    for which in ("old", "new"):
+        versions.use(which)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        row[f"{which}_err_over_limit"] = cs.flash_excess(got, q, k, v, **kw)[1]
+    versions.use("new")
+    call = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+    row.update(turns(ctx, versions, call, 20), new_under_load=clocks_during(call))
+    name = f"flash_attention_{str(dtype).replace('torch.', '')}"
+    result[name if case == "qwen2_0_5b_layer" else f"{name}_{case}"] = dict(case=case, **row)
+
+
 def gemm_cases(ctx):
     """chip_smoke.py's block_spmm and fused timing cases (fp32)."""
     import chip_smoke as cs
@@ -148,7 +170,6 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from repro_torch.kernels import block_spmm as bsp
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_leaf as fl
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,23 +193,16 @@ def main(argv=None) -> int:
                             new_under_load=clocks_during(fn))
         del old, new
 
-    B, H, HK, Sq, Sk, D, causal, window = cs.FLASH_FULL["qwen2_0_5b_layer"]
-    gen = torch.Generator(device=ctx.dev).manual_seed(13)
-    q32, k32, v32 = (torch.randn(sh, generator=gen, device=ctx.dev)
-                     for sh in ((B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D)))
-    kw = dict(causal=causal, window=window)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-        row = {}
-        for which in ("old", "new"):
-            versions.use(which)
-            got = fa.flash_attention_cuda(q, k, v, **kw)
-            torch.cuda.synchronize()
-            row[f"{which}_err_over_limit"] = cs.flash_excess(got, q, k, v, **kw)[1]
-        versions.use("new")
-        call = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
-        row.update(turns(ctx, versions, call, 20), new_under_load=clocks_during(call))
-        result[f"flash_attention_{str(dtype).replace('torch.', '')}"] = dict(case="qwen2_0_5b_layer", **row)
+    flash_cases = (("qwen2_0_5b_layer", (torch.float32, torch.bfloat16)),
+                   ("d128_hk1", (torch.float32,)), ("d256_hk1", (torch.float32,)))
+    for case, dtypes in flash_cases:
+        B, H, HK, Sq, Sk, D, causal, window = cs.FLASH_FULL[case]
+        gen = torch.Generator(device=ctx.dev).manual_seed(13)
+        q32, k32, v32 = (torch.randn(sh, generator=gen, device=ctx.dev)
+                         for sh in ((B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D)))
+        kw = dict(causal=causal, window=window)
+        for dtype in dtypes:
+            flash_turns(ctx, versions, result, case, q32, k32, v32, dtype, kw)
 
     line = json.dumps(result)
     if args.out is not None:

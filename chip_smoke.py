@@ -35,8 +35,10 @@ Phases, one JSON line each:
                       (qwen2-0.5b's layer, non-causal D 80, D 128 and 256
                       with one kv head, a decode-style suffix, a window,
                       ragged S, fully masked rows), timed on qwen2-0.5b's
-                      layer in both types beside the plain version, the
-                      bounds and SDPA (a yardstick only).
+                      layer and the D 128 and D 256 cases in both types
+                      beside the plain version, the bounds and SDPA (a
+                      yardstick only); the ``build`` phase fails on a spill
+                      in any fp32 instantiation it compiled.
 9. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
                       151,936), seeded random weights, B 2 x S 4096:
                       ``apply(attn_impl="flash")`` against ``"direct"`` in fp32
@@ -44,7 +46,8 @@ Phases, one JSON line each:
 10. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
                       32 new tokens; a flash forward over the generated
                       sequences confirms every decode step's logits and token.
-11. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``.
+11. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
+    its launches per type), then ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
 Without ``--rehearse`` it needs a CUDA card and exits non-zero without one.
@@ -77,7 +80,8 @@ ROUND2_BOUND = 2.0 * 2.0**-8 + 2.0**-16
 LM_BATCH = 2  # lm_forward: B 2 x S lm_seq
 SERVE = (4, 8, 32)  # lm_serve: requests, prompt length, new tokens (the JAX CLI's defaults)
 
-# flash-attention cases: (B, H, HK, Sq, Sk, D, causal, window); the first is timed
+# flash-attention cases: (B, H, HK, Sq, Sk, D, causal, window); FLASH_TIMED are timed
+FLASH_TIMED = ("qwen2_0_5b_layer", "d128_hk1", "d256_hk1")
 FLASH_FULL = {
     "qwen2_0_5b_layer": (2, 14, 2, 4096, 4096, 64, True, None),
     "noncausal_d80": (2, 16, 16, 1024, 1024, 80, False, None),
@@ -227,8 +231,38 @@ def phase_build(ctx) -> dict:
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in build.build_logs.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln] for name in names}
-    out = dict(phase="build", seconds=secs, kernels=names, ptxas=ptxas)
+    log = build.build_logs.get("flash_attention", "")  # empty for a library loaded as built
+    flash = ptxas_by_function(log)
+    out = dict(phase="build", seconds=secs, kernels=names, ptxas=ptxas, flash_ptxas=flash)
     emit(out)
+    if log:
+        f32 = {f: r for f, r in flash.items() if f.startswith("flash_attention_f32_kernel")}
+        check(len(f32) == 3, f"build: ptxas reported {sorted(f32)} for the fp32 flash kernel, "
+                             "expected D 64, 128 and 256")
+        for f, r in f32.items():
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"build: {f} spills registers: {r}")
+    return out
+
+
+def ptxas_by_function(log: str) -> dict:
+    """``{kernel<DMAX>: {registers, spill_stores, spill_loads}}`` from the flash
+    library's ``nvcc -Xptxas -v`` output (mangled names shortened)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            short = re.search(r"(flash_attention_(?:f32|bf16)_kernel)ILi(\d+)E", entry.group(1))
+            name = f"{short.group(1)}<{short.group(2)}>" if short else entry.group(1)
+            out[name] = dict(registers=None, spill_stores=None, spill_loads=None)
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and name:
+            out[name].update(spill_stores=int(spills.group(1)), spill_loads=int(spills.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out[name]["registers"] = int(regs.group(1))
     return out
 
 
@@ -993,25 +1027,26 @@ def phase_flash_kernel(ctx, sizes) -> dict:
             check(excess <= 1.0, f"{name} {dtype}: flash kernel off its plain version by {excess} of the limit")
             check(row["finite"] and row["dead_rows_zero"], f"{name} {dtype}: non-finite output or non-zero dead rows")
             del got, again
-            if name == next(iter(cases)):  # timed: qwen2-0.5b's layer
-                if dtype == torch.bfloat16:  # the check must catch bf16 probabilities
-                    _, row["rounding_p_err_over_limit"] = flash_excess(
-                        flash_ref_rounding_p(q, k, v, **kw), q, k, v, **kw)
-                    check(row["rounding_p_err_over_limit"] > 1.0,
-                          f"{name}: the bf16 check passes a version that rounds p to bf16")
+            if name == next(iter(cases)) and dtype == torch.bfloat16:
+                # the check must catch bf16 probabilities
+                _, row["rounding_p_err_over_limit"] = flash_excess(
+                    flash_ref_rounding_p(q, k, v, **kw), q, k, v, **kw)
+                check(row["rounding_p_err_over_limit"] > 1.0,
+                      f"{name}: the bf16 check passes a version that rounds p to bf16")
+            if name in FLASH_TIMED:
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 ms = ctx.time_ms(lambda: kernel(q, k, v, **kw), reps=20)
                 plain_ms = ctx.time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=3)
                 sdpa_ms = ctx.time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True), reps=20)
                 bound = flash_bound(q, k, live)
-                timing[row["dtype"]] = dict(case=name, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-                                            sdpa="torch.nn.functional.scaled_dot_product_attention"
-                                                 "(is_causal=True, enable_gqa=True), yardstick only",
-                                            tflops=4.0 * D * live / (ms * 1e-3) / 1e12,
-                                            bound_share=bound["bound_ms"] / ms, **bound)
+                t = timing.setdefault(name, {})[row["dtype"]] = dict(
+                    case=name, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                    sdpa=f"torch.nn.functional.scaled_dot_product_attention(is_causal={causal}, "
+                         "enable_gqa=True), yardstick only",
+                    tflops=4.0 * D * live / (ms * 1e-3) / 1e12, bound_share=bound["bound_ms"] / ms, **bound)
                 if "bf16_bound_ms" in bound:
-                    timing[row["dtype"]].update(bf16_bound_share=bound["bf16_bound_ms"] / ms,
-                                                bf16_tflops=3 * 2.0 * D * live / (ms * 1e-3) / 1e12)
+                    t.update(bf16_bound_share=bound["bf16_bound_ms"] / ms,
+                             bf16_tflops=3 * 2.0 * D * live / (ms * 1e-3) / 1e12)
             results.append(row)
     out = dict(phase="flash_kernel", cases=results, timing=timing)
     emit(out)
@@ -1047,6 +1082,7 @@ def phase_lm_forward(ctx, sizes, model) -> dict:
         torch.cuda.reset_peak_memory_stats()
     rows = {}
     fa.launches = 0  # the main path's count starts here
+    fa.launches_by_dtype.update(float32=0, bfloat16=0)
     with torch.inference_mode():
         for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
             p = model_mod.cast_params(params, dtype)
@@ -1078,13 +1114,17 @@ def phase_lm_forward(ctx, sizes, model) -> dict:
             check(identical, f"{name} forward: two flash forwards differ")
             check(err <= rel * lmax, f"{name} forward: flash off direct by {err} > {rel} * {lmax}")
     launches = fa.launches  # ... and is read here
+    by_dtype = dict(fa.launches_by_dtype)
     numels = []
     transformer.tree_map(lambda t: numels.append(t.numel()), params)
     check(launches == 4 * per_forward, f"lm_forward: {launches} flash launches in 4 flash forwards")
+    check(by_dtype == dict(float32=2 * per_forward, bfloat16=2 * per_forward),
+          f"lm_forward: flash launches by type {by_dtype}, expected {2 * per_forward} of each")
     peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
     out = dict(phase="lm_forward", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
                vocab=cfg.vocab_size, params=sum(numels),
-               init_s=init_s, batch=B, seq=S, launches=launches, flash_forwards=4,
+               init_s=init_s, batch=B, seq=S, launches=launches, launches_by_dtype=by_dtype,
+               flash_forwards=4,
                max_memory_allocated=peak, **rows)
     emit(out)
     return out
@@ -1147,13 +1187,16 @@ def phase_lm_serve(ctx, model) -> dict:
     check(seqs.shape == (B, P + G) and np.array_equal(seqs[:, :P], prompts),
           f"generate returned {seqs.shape}, or not the prompts")
     fa.launches = 0  # the main path's count starts here
+    fa.launches_by_dtype.update(float32=0, bfloat16=0)
     with torch.inference_mode():
         full = transformer.apply(params, cfg, {"tokens": torch.from_numpy(seqs).to(ctx.dev)},
                                  attn_impl="flash")[:, :-1].float()
     ctx.sync()
     launches = fa.launches  # ... and is read here
+    by_dtype = dict(fa.launches_by_dtype)
     expected = 0 if ctx.rehearse else cfg.num_layers
-    check(launches == expected, f"lm_serve: the confirming forward launched {launches}, expected {expected}")
+    check(launches == expected and by_dtype["float32"] == expected,
+          f"lm_serve: the confirming forward launched {by_dtype}, expected {expected} fp32")
     lmax = float(full.abs().max())
     tol = 1e-4 * lmax
     err = float((full - steps).abs().max())
@@ -1169,7 +1212,7 @@ def phase_lm_serve(ctx, model) -> dict:
                seconds=secs, decode_steps=n_steps, ms_per_decode_step=secs * 1e3 / n_steps,
                profiled_step=profile_decode_step(ctx, cfg, params, prompts),
                tokens_per_s=B * n_steps / secs, generated_tokens_per_s=B * G / secs,
-               launches=launches, max_abs_logit=lmax, max_abs_step_minus_forward=err, tol=tol,
+               launches=launches, launches_by_dtype=by_dtype, max_abs_logit=lmax, max_abs_step_minus_forward=err, tol=tol,
                tokens_checked=int(decided.sum()), tokens_total=int(decided.size),
                first_sequence=seqs[0].tolist())
     emit(out)
@@ -1218,7 +1261,20 @@ def main(argv=None) -> int:
     del model
 
     timing, ftiming = kern["timing"], fused["timing"]
-    atiming, btiming = flash["timing"]["float32"], flash["timing"]["bfloat16"]
+    flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
+
+    def flash_row(dtype):
+        t = flash_t[dtype]
+        bf16 = dtype == "bfloat16"
+        return dict(name=f"flash_attention_{'bf16' if bf16 else 'f32'}", route="cuda",
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:31",
+                    launches=fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype],
+                    max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
+                    bound_by=t["bf16_bound_by"] if bf16 else t["bound_by"], library_ms=t["sdpa_ms"])
+
     emit({"kernels": [
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
@@ -1233,15 +1289,8 @@ def main(argv=None) -> int:
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
              bound_by=ftiming["bound_by"], library_ms=None),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:31",
-             launches=fwd["launches"] + serve["launches"],
-             max_abs_err=max(c["max_abs_err"] for c in flash["cases"]),
-             ms=atiming["ms"], plain_ms=atiming["plain_ms"], bound_ms=atiming["bound_ms"],
-             bound_by=atiming["bound_by"], library_ms=atiming["sdpa_ms"],
-             bf16_ms=btiming["ms"], bf16_bound_ms=btiming["bf16_bound_ms"],
-             bf16_library_ms=btiming["sdpa_ms"]),
+        flash_row("float32"),
+        flash_row("bfloat16"),
     ]})
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     if args.rehearse:

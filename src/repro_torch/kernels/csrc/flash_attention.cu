@@ -15,9 +15,9 @@
 //
 // Design shared by both kernels.  The TPU kernel walks kv tiles along a
 // sequential grid axis with (m, l, acc) in VMEM scratch.  Hopper blocks run
-// in no order, so one thread block owns one (batch, q head, 64-row q tile)
-// and walks its kv tiles (64 keys each) in ascending order in a loop inside
-// the block; m and l stay in registers, the accumulator stays in fp32
+// in no order, so one thread block owns one (batch, q head, q tile) and
+// walks its kv tiles (64 keys each) in ascending order in a loop inside the
+// block; m and l stay in registers, the accumulator stays in fp32
 // registers, and the output is stored once.  No atomics: the result is
 // bit-identical from launch to launch.  A kv tile is skipped only when none
 // of its (row, column) pairs is live: the live keys of a q tile form the
@@ -27,18 +27,44 @@
 // contiguous), so `[B, S, H, D]` activations are read and written without a
 // transposed copy; offsets are 64-bit.  Blocks are issued last q tile first,
 // so the longest causal rows start first.  The head dim selects one of three
-// instantiations (D <= 64, 128, 256) that size the shared tiles.
+// instantiations (D <= 64, 128, 256) that size the shared tiles.  Both
+// kernels build the mask only on a tile that crosses an edge (the ragged
+// ends, the diagonal, the window's edge; the softmax is compiled for full
+// and partial tiles), fold the scale into the one FFMA before ex2.approx in
+// log2 units (relative error ~2^-22), and rescale the accumulator only
+// where a row max moved.
 //
-// fp32 (flash_attention_f32): plain fp32 FFMA, as the Pallas kernel's fp32
-// dots.  256 threads; the Q tile is staged once into shared memory
-// (transposed, d-major), each K tile (transposed) and V tile synchronously
-// through shared memory, and the probabilities through a shared tile between
-// the two products.  Thread (ty, tx) owns score rows 4ty..4ty+3 and columns
-// 4tx..4tx+3, and output rows 4ty..4ty+3 at columns 4tx + 64j; the row max
-// and sum are reduced over the 16 lanes of a row with warp shuffles.  Bound:
-// 4 * D operations per live score at 67 TFLOP/s, far above the bytes of q,
-// k, v and o at 3.35 TB/s; it is limited by shared-memory reads (two 16-byte
-// reads per 16 FFMA) more than by the FFMA rate.
+// fp32 (flash_attention_f32, namespace ffma): plain fp32 FFMA, as the Pallas
+// kernel's fp32 dots; no TF32 and no tensor cores.  Bound: 4 * D operations
+// per live score at 67 TFLOP/s, far above the bytes of q, k, v and o at
+// 3.35 TB/s.  What bounds such a kernel is the issue slots around the FFMAs:
+// shared-memory reads, the softmax, copies and barriers.  The design:
+// - Register tiles for both products, as the GEMM engine of tile_gemm.cuh.
+//   In QK^T a thread owns 8 x 8 scores (8 x 4 at D 128, 4 x 4 at D 256), on
+//   rows and keys interleaved across the block, and reads Q and K row-major
+//   along d as float4 (rows padded by 16 bytes, so a warp's reads fall in
+//   distinct banks): 16 reads per 256 FFMA at D <= 64.  In P V it owns 8
+//   output rows x 8 columns and reads per key two float4 of P and two of V:
+//   4 reads per 64 FFMA.  P goes through shared memory once per tile, its
+//   rows permuted so that each output thread's 8 rows are adjacent.
+// - Block shapes by head dim (the accumulator lives across the loop beside
+//   the scores, so registers and shared memory bind together): D <= 64, 128
+//   query rows and 128 threads, two blocks an SM; D 128, 128 rows and 256
+//   threads; D 256, 64 rows and 256 threads.  Every block stays within
+//   227 KB of shared memory and 255 registers a thread without spills.
+// - Copies by cp.async with each thread's addresses worked out once per
+//   block, rows past Sk and columns past D zero-filled by the copy's source
+//   size (the ragged last V tile must be zeros: 0 * a stale NaN is NaN).
+//   One K buffer and one V buffer: V(kt) lands while QK^T(kt) and the
+//   softmax run, K(kt + 1) while P V(kt) runs, so a copy is always in
+//   flight and D 256 still fits; two barriers per tile.
+// - One grid axis with the q tile slowest, so the longest causal rows of
+//   every head start before any shorter ones.
+// What still holds it back: the softmax, the P round trip and two barriers
+// per tile sit between the products with no second consumer to fill them,
+// QK^T runs below P V's FFMA rate at the same read ratio, at D 128 and 256
+// the narrower score tiles cost more reads per FFMA, and a grid of few q
+// tiles (a decode-style suffix) leaves most SMs idle.
 //
 // bf16 (flash_attention_bf16, namespace tc): both products on the bf16
 // tensor cores with fp32 accumulation, at the Pallas kernel's precision.
@@ -80,12 +106,8 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BKV = 64;        // keys per kv tile
-constexpr int RM = 4;          // score rows per thread
-constexpr int RN = 4;          // score columns per thread
-constexpr int THREADS = (BQ / RM) * (BKV / RN);  // 256
-constexpr int PPAD = 4;        // pads the probability tile's rows (keeps 16-byte alignment)
+constexpr int BQ = 64;         // query rows per block of the bf16 kernel
+constexpr int BKV = 64;        // keys per kv tile (both kernels)
 constexpr float NEG = -1e30f;  // the finite mask sentinel of the Pallas kernel
 
 struct Params {
@@ -94,214 +116,6 @@ struct Params {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
 };
 
-// 8 consecutive fp32 elements of one row (two 16-byte vector loads)
-__device__ __forceinline__ void load8(const float* src, float (&x)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void store4(float* dst, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-// dst[d * 64 + row] = src[row * row_stride + d] for d < D, rows < `rows`
-// (zeros for the rows past the ragged edge).  Consecutive threads take
-// consecutive rows, so the shared-memory writes do not conflict.
-template <typename T>
-__device__ __forceinline__ void load_tile_transposed(const T* __restrict__ src, long long row_stride,
-                                                     int rows, int D, float* __restrict__ dst) {
-  const int chunks = D / 8;
-  for (int item = threadIdx.x; item < 64 * chunks; item += THREADS) {
-    const int row = item & 63, ch = item >> 6;
-    float x[8];
-    if (row < rows) {
-      load8(src + row * row_stride + ch * 8, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(ch * 8 + e) * 64 + row] = x[e];
-  }
-}
-
-// dst[row * DMAX + d] = src[row * row_stride + d] for d < D (zeros past `rows`)
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_tile_rows(const T* __restrict__ src, long long row_stride,
-                                               int rows, int D, float* __restrict__ dst) {
-  const int chunks = D / 8;
-  for (int item = threadIdx.x; item < 64 * chunks; item += THREADS) {
-    const int row = item / chunks, ch = item - row * chunks;
-    float x[8];
-    if (row < rows) {
-      load8(src + row * row_stride + ch * 8, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-    float4* d4 = reinterpret_cast<float4*>(dst + row * DMAX + ch * 8);
-    d4[0] = make_float4(x[0], x[1], x[2], x[3]);
-    d4[1] = make_float4(x[4], x[5], x[6], x[7]);
-  }
-}
-
-template <int DMAX>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(DMAX) * BQ + static_cast<size_t>(DMAX) * BKV +
-                          static_cast<size_t>(BKV) * DMAX + static_cast<size_t>(BKV) * (BQ + PPAD));
-}
-
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Params p) {
-  constexpr int JJ = DMAX / 64;  // 4-wide output column groups per thread
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [DMAX][BQ]   q tile, d-major
-  float* Kt = Qt + DMAX * BQ;                    // [DMAX][BKV]  k tile, d-major
-  float* Vs = Kt + DMAX * BKV;                   // [BKV][DMAX]  v tile
-  float* Ps = Vs + BKV * DMAX;                   // [BKV][BQ + PPAD] probabilities, key-major
-
-  const int iq = gridDim.x - 1 - blockIdx.x;  // last q tile first: longest causal rows
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.rep;
-  const int q0 = iq * BQ;
-  const int rows = min(BQ, p.sq - q0);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int D = p.d;
-
-  const T* qb = q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const T* kb = k + b * p.k_sb + hk * p.k_sh;
-  const T* vb = v + b * p.v_sb + hk * p.v_sh;
-  T* ob = o + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
-
-  // columns >= D of the v tile are never loaded: zero them once
-  for (int i = tid; i < BKV * DMAX; i += THREADS) Vs[i] = 0.f;
-  load_tile_transposed(qb, p.q_ss, rows, D, Qt);
-
-  // the kv tiles that hold a live (row, key) pair
-  const long long q_first = static_cast<long long>(q0) + p.sk - p.sq;  // position of row 0
-  const long long q_last = q_first + rows - 1;
-  const int nkv = (p.sk + BKV - 1) / BKV;
-  int kt_begin = 0, kt_end = nkv;
-  if (p.causal) kt_end = q_last < 0 ? 0 : static_cast<int>(min(static_cast<long long>(nkv), q_last / BKV + 1));
-  if (p.window > 0) {
-    const long long lowest = q_first - p.window + 1;
-    if (lowest > 0) kt_begin = static_cast<int>(min(static_cast<long long>(nkv), lowest / BKV));
-  }
-
-  float m[RM], l[RM], acc[RM][4 * JJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4 * JJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BKV;
-    const int kv_rows = min(BKV, p.sk - k0);
-    __syncthreads();  // the previous tile's Kt, Vs and Ps are read
-    load_tile_transposed(kb + k0 * p.k_ss, p.k_ss, kv_rows, D, Kt);
-    load_tile_rows<T, DMAX>(vb + k0 * p.v_ss, p.v_ss, kv_rows, D, Vs);
-    __syncthreads();
-
-    // scores s = q . k over d, fp32 FFMA
-    float s[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * BQ + ty * RM);
-      const float4 c = *reinterpret_cast<const float4*>(Kt + d * BKV + tx * RN);
-      const float av[RM] = {a.x, a.y, a.z, a.w};
-      const float cv[RN] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-    // mask, online softmax update (row max and sum over the row's 16 lanes)
-    bool live[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const long long qpos = q_first + ty * RM + i;
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int col = tx * RN + j;
-        const long long kpos = k0 + col;
-        bool ok = (ty * RM + i < rows) && (col < kv_rows);
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        live[i][j] = ok;
-        s[i][j] = ok ? s[i][j] * p.scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        s[i][j] = live[i][j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * JJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < RN; ++j)
-      *reinterpret_cast<float4*>(Ps + (tx * RN + j) * (BQ + PPAD) + ty * RM) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // acc += p @ v, fp32 FFMA over the tile's keys (masked keys have p = 0
-    // and zero rows of v)
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      const float4 pc = *reinterpret_cast<const float4*>(Ps + c * (BQ + PPAD) + ty * RM);
-      const float pv[RM] = {pc.x, pc.y, pc.z, pc.w};
-#pragma unroll
-      for (int jj = 0; jj < JJ; ++jj) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + c * DMAX + jj * 64 + tx * 4);
-        const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][jj * 4 + e] = fmaf(pv[i], vr[e], acc[i][jj * 4 + e]);
-      }
-    }
-  }
-
-  // one store: acc / l, with l == 0 (no live key) dividing by 1
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = ty * RM + i;
-    if (row >= rows) continue;
-    const float safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int jj = 0; jj < JJ; ++jj) {
-      const int d0 = jj * 64 + tx * 4;
-      if (d0 >= D) continue;
-      float x[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = acc[i][jj * 4 + e] / safe;
-      store4(ob + row * p.o_ss + d0, x);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 kernel: both products on the tensor cores (wgmma), softmax in fp32.
@@ -662,20 +476,367 @@ int launch_dmax(const void* q, const void* k, const void* v, void* o, int batch,
 
 }  // namespace tc
 
-template <typename T, int DMAX>
-int launch_dmax(const void* q, const void* k, const void* v, void* o, int batch,
+// ---------------------------------------------------------------------------
+// The fp32 kernel: both products in fp32 FFMA from register tiles.
+
+namespace ffma {
+
+// The block shape of one head-dim bucket: BQ query rows against 64-key
+// tiles, NT threads.  In QK^T a thread owns SR score rows x SC keys; in P V
+// it owns 8 output rows x 8 columns (two float4 groups).  The accumulator
+// (64 registers) lives across the whole kv loop beside the SR x SC scores,
+// so the wider head dims take fewer rows or narrower score tiles, and shared
+// memory (the Q tile, one K tile, one V tile and the P tile) stays within a
+// block's 227 KB; D <= 64 fits two blocks an SM.
+template <int DMAX> struct Shape;
+template <> struct Shape<64> { static constexpr int BQ = 128, NT = 128, SR = 8, SC = 8, MINB = 2; };
+template <> struct Shape<128> { static constexpr int BQ = 128, NT = 256, SR = 8, SC = 4, MINB = 1; };
+template <> struct Shape<256> { static constexpr int BQ = 64, NT = 256, SR = 4, SC = 4, MINB = 1; };
+
+template <int DMAX>
+struct Layout {
+  using S = Shape<DMAX>;
+  static constexpr int BQ = S::BQ, NT = S::NT, SR = S::SR, SC = S::SC;
+  static constexpr int SRG = BQ / SR;    // score row groups: rows sy + SRG i
+  static constexpr int SCG = BKV / SC;   // score key groups: keys sx + SCG j
+  static constexpr int OR = 8, OC = 8;   // output rows and columns per thread
+  static constexpr int ORG = BQ / OR;    // output row groups: rows oy + ORG i
+  static constexpr int OCG = DMAX / OC;  // output column groups: columns 4 ox + 4 OCG h + e
+  static_assert(SRG * SCG == NT && ORG * OCG == NT, "every thread owns one score and one output tile");
+  static_assert(SCG <= 32 && 32 % SCG == 0, "a score row's lanes lie in one warp");
+  static_assert(SR * SC <= 64, "the live mask is one 64-bit word");
+  // Row strides in floats.  Q and K are read along d as float4 by lanes on
+  // consecutive rows: 16 bytes of padding put those rows 4 banks apart.  V
+  // is read along its columns by consecutive lanes (no padding), P along
+  // its permuted rows (see prow).
+  static constexpr int QS = DMAX + 4, KS = DMAX + 4, VS = DMAX, PS = BQ + 4;
+  static constexpr int Q_OFF = 0, K_OFF = Q_OFF + BQ * QS, V_OFF = K_OFF + BKV * KS,
+                       P_OFF = V_OFF + BKV * VS, A_OFF = P_OFF + BKV * PS, L_OFF = A_OFF + BQ;
+  static constexpr size_t smem_bytes = sizeof(float) * (L_OFF + BQ);
+  static_assert(smem_bytes <= 232448, "a block takes at most 227 KB of shared memory");
+  static_assert(S::MINB * (smem_bytes + 1024) <= 233472, "MINB blocks fit an SM's shared memory");
+  // P's column of query row r: each output thread's 8 rows are adjacent, so
+  // P V reads them as two float4
+  __device__ __forceinline__ static int prow(int r) { return (r % ORG) * OR + r / ORG; }
+};
+
+// One thread's share of copying a tile of R rows x DMAX fp32 columns into
+// shared memory (row stride STRIDE floats) by 16-byte cp.async: chunk cc =
+// t % CH of rows r_t + RSTEP j.  Rows past `rows` and columns past D are
+// zero-filled by a source size of 0, so the ragged last kv tile's V rows are
+// zeros (p = 0 there, and 0 * a stale NaN would be NaN).  The addresses are
+// worked out once per block.
+template <int DMAX, int NT, int STRIDE>
+struct TileCopy {
+  static constexpr int CH = DMAX / 4, RSTEP = NT / CH;
+  static_assert(NT % CH == 0, "whole rows per pass");
+  int r_t, goff;   // the thread's first row, and its column
+  bool col_ok;
+  uint32_t soff;   // byte offset of the thread's first chunk in the tile
+
+  __device__ __forceinline__ explicit TileCopy(int D) {
+    const int cc = threadIdx.x % CH;
+    r_t = threadIdx.x / CH;
+    goff = cc * 4;
+    col_ok = goff < D;
+    soff = static_cast<uint32_t>((r_t * STRIDE + goff) * 4);
+  }
+
+  // src: row 0, column 0 of the tile in global memory
+  template <int R>
+  __device__ __forceinline__ void copy(const float* src, long long row_stride, int rows,
+                                       uint32_t dst) const {
+    static_assert(R % RSTEP == 0, "whole passes per tile");
+    const float* g = src + r_t * row_stride + goff;
+    const long long step = RSTEP * row_stride;
+#pragma unroll
+    for (int j = 0; j < R / RSTEP; ++j) {
+      const bool ok = col_ok && r_t + RSTEP * j < rows;
+      tc::cp_async16(dst + soff + j * RSTEP * STRIDE * 4, ok ? g : src, ok);
+      g += step;
+    }
+  }
+};
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// The online-softmax step of one tile for the score thread (sx, sy): s holds
+// its raw scores, rows sy + SRG i and keys sx + SCG j.  Scores are scaled by
+// sl2 (the softmax scale in log2 units, so that exp2 serves) in the one FFMA
+// before ex2; masked pairs (a clear bit of `live`; FULL: none) count as
+// -1e30 in the max and give p = 0.  m and this thread's share of l take the
+// rescale alpha, which lane sx == 0 leaves in `alpha_s` for the output
+// threads; p goes to the P tile, as float4 of four rows where the score
+// thread's rows are an output thread's (D <= 128).
+template <int DMAX, bool FULL>
+__device__ __forceinline__ void softmax_tile(float (&s)[Layout<DMAX>::SR][Layout<DMAX>::SC],
+                                             unsigned long long live, float sl2, int sx, int sy,
+                                             float (&m)[Layout<DMAX>::SR], float (&l)[Layout<DMAX>::SR],
+                                             float* __restrict__ Ps, float* __restrict__ alpha_s) {
+  using L = Layout<DMAX>;
+#pragma unroll
+  for (int i = 0; i < L::SR; ++i) {
+    float mx = NEG;  // the row max of the raw scores
+#pragma unroll
+    for (int j = 0; j < L::SC; ++j)
+      mx = fmaxf(mx, FULL || (live >> (i * L::SC + j)) & 1ull ? s[i][j] : NEG);
+#pragma unroll
+    for (int off = L::SCG / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // sl2 > 0, so the max of the scaled scores is the scaled max; a row with
+    // no live pair in this tile keeps the sentinel
+    const float m_new = fmaxf(m[i], mx == NEG ? NEG : mx * sl2);
+    const float alpha = tc::exp2_approx(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha;
+    if (sx == 0) alpha_s[sy + L::SRG * i] = alpha;
+#pragma unroll
+    for (int j = 0; j < L::SC; ++j) {
+      const float x = tc::exp2_approx(fmaf(s[i][j], sl2, -m_new));
+      s[i][j] = FULL || (live >> (i * L::SC + j)) & 1ull ? x : 0.f;
+      l[i] += s[i][j];
+    }
+  }
+  if constexpr (L::SRG == L::ORG && L::SR == L::OR) {
+    // prow(sy + SRG i) = 8 sy + i: the thread's rows are adjacent in P
+#pragma unroll
+    for (int j = 0; j < L::SC; ++j)
+#pragma unroll
+      for (int i = 0; i < L::SR; i += 4)
+        *reinterpret_cast<float4*>(Ps + (sx + L::SCG * j) * L::PS + 8 * sy + i) =
+            make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < L::SR; ++i)
+#pragma unroll
+      for (int j = 0; j < L::SC; ++j) Ps[(sx + L::SCG * j) * L::PS + L::prow(sy + L::SRG * i)] = s[i][j];
+  }
+}
+
+// s += Q K^T over d .. d + 3 for the score thread's rows (qrow: Q row sy)
+// and keys (krow: K row sx): SR + SC float4 reads feed 4 SR SC FFMA, one d
+// at a time over the whole tile (each score still sums d in order)
+template <int DMAX>
+__device__ __forceinline__ void qk_step(const float* qrow, const float* krow, int d,
+                                        float (&s)[Layout<DMAX>::SR][Layout<DMAX>::SC]) {
+  using L = Layout<DMAX>;
+  float4 a[L::SR], c[L::SC];
+#pragma unroll
+  for (int i = 0; i < L::SR; ++i) a[i] = *reinterpret_cast<const float4*>(qrow + i * L::SRG * L::QS + d);
+#pragma unroll
+  for (int j = 0; j < L::SC; ++j) c[j] = *reinterpret_cast<const float4*>(krow + j * L::SCG * L::KS + d);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int i = 0; i < L::SR; ++i)
+#pragma unroll
+      for (int j = 0; j < L::SC; ++j) {
+        const float ae = e == 0 ? a[i].x : e == 1 ? a[i].y : e == 2 ? a[i].z : a[i].w;
+        const float ce = e == 0 ? c[j].x : e == 1 ? c[j].y : e == 2 ? c[j].z : c[j].w;
+        s[i][j] = fmaf(ae, ce, s[i][j]);
+      }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(Shape<DMAX>::NT, Shape<DMAX>::MINB)
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, Params p) {
+  using L = Layout<DMAX>;
+  constexpr int BQ = L::BQ, SR = L::SR, SC = L::SC, SRG = L::SRG, SCG = L::SCG;
+  constexpr int ORG = L::ORG, OCG = L::OCG;
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const float* Qs = sm + L::Q_OFF;  // [BQ][QS]
+  const float* Ks = sm + L::K_OFF;  // [BKV][KS]
+  const float* Vs = sm + L::V_OFF;  // [BKV][VS]
+  float* Ps = sm + L::P_OFF;        // [BKV][PS]: p of key c and query row r at c * PS + prow(r)
+  float* alpha_s = sm + L::A_OFF;   // [BQ]: this tile's rescale of each row
+  float* l_s = sm + L::L_OFF;       // [BQ]: each row's sum, at the end
+  const uint32_t q_dst = tc::smem_u32(Qs), k_dst = tc::smem_u32(Ks), v_dst = tc::smem_u32(Vs);
+
+  // one grid axis, the q tile slowest and the last q tile first: every
+  // head's longest causal rows start before any shorter ones
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int per_tile = gridDim.x / nq;  // heads x batch
+  const int iq = nq - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int h = static_cast<int>(blockIdx.x) % per_tile % p.heads;
+  const int b = static_cast<int>(blockIdx.x) % per_tile / p.heads;
+  const int hk = h / p.rep;
+  const int q0 = iq * BQ;
+  const int rows = min(BQ, p.sq - q0);
+  const int tid = threadIdx.x;
+  const int sx = tid % SCG, sy = tid / SCG;  // score tile
+  const int ox = tid % OCG, oy = tid / OCG;  // output tile
+  const int D = p.d;
+
+  const float* qb = q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
+  const float* kb = k + b * p.k_sb + hk * p.k_sh;
+  const float* vb = v + b * p.v_sb + hk * p.v_sh;
+  float* ob = o + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
+
+  // the kv tiles that hold a live (row, key) pair, as in the bf16 kernel
+  const long long q_first = static_cast<long long>(q0) + p.sk - p.sq;  // position of row 0
+  const long long q_last = q_first + rows - 1;
+  const int nkv = (p.sk + BKV - 1) / BKV;
+  int kt_begin = 0, kt_end = nkv;
+  if (p.causal) kt_end = q_last < 0 ? 0 : static_cast<int>(min(static_cast<long long>(nkv), q_last / BKV + 1));
+  if (p.window > 0) {
+    const long long lowest = q_first - p.window + 1;
+    if (lowest > 0) kt_begin = static_cast<int>(min(static_cast<long long>(nkv), lowest / BKV));
+  }
+
+  const float sl2 = p.scale * 1.4426950408889634f;  // the scale in log2 units
+  float m[SR], l[SR];  // per score row; l is this thread's share of the row sum
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+  }
+  float acc[8][8];  // output rows oy + ORG i, columns 4 ox + 4 OCG (j / 4) + j % 4
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const TileCopy<DMAX, L::NT, L::QS> qk_copy(D);  // Q and K share a row stride
+  const TileCopy<DMAX, L::NT, L::VS> v_copy(D);
+  if (kt_begin < kt_end) {
+    qk_copy.template copy<BQ>(qb, p.q_ss, rows, q_dst);
+    qk_copy.template copy<BKV>(kb + kt_begin * BKV * p.k_ss, p.k_ss, p.sk - kt_begin * BKV, k_dst);
+    commit();
+  }
+  // One K buffer and one V buffer, each refilled while the other operand is
+  // multiplied: V(kt) lands during QK^T(kt) and the softmax, K(kt + 1)
+  // during P V(kt).  Two barriers per tile.
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BKV;
+    const int kv_rows = min(BKV, p.sk - k0);
+    wait_all();       // K(kt) (and Q) has landed: own copies ...
+    __syncthreads();  // ... and everyone's; P V(kt - 1) is done with V, P and alpha
+    v_copy.template copy<BKV>(vb + k0 * p.v_ss, p.v_ss, kv_rows, v_dst);
+    commit();
+
+    // S = Q K^T over d, fp32 FFMA; unrolled whole when D fills the bucket
+    float s[SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
+    const float* qrow = Qs + sy * L::QS;
+    const float* krow = Ks + sx * L::KS;
+    if (D == DMAX) {
+#pragma unroll
+      for (int d = 0; d < DMAX; d += 4) qk_step<DMAX>(qrow, krow, d, s);
+    } else {
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) qk_step<DMAX>(qrow, krow, d, s);
+    }
+
+    // the mask is needed only on a tile that crosses an edge, the diagonal
+    // or the window's edge (uniform across the block)
+    const bool full = rows == BQ && kv_rows == BKV && (!p.causal || k0 + BKV - 1 <= q_first) &&
+                      (p.window <= 0 || k0 > q_last - p.window);
+    if (full) {
+      softmax_tile<DMAX, true>(s, 0ull, sl2, sx, sy, m, l, Ps, alpha_s);
+    } else {
+      unsigned long long live = 0;         // bit i SC + j: s[i][j] is a live pair
+      const long long rel = q_first - k0;  // qpos - kpos = rel + row - col
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const int row = sy + SRG * i, col = sx + SCG * j;
+          const long long diff = rel + row - col;
+          bool ok = row < rows && col < kv_rows;
+          if (p.causal) ok = ok && diff >= 0;
+          if (p.window > 0) ok = ok && diff < p.window;
+          live |= static_cast<unsigned long long>(ok) << (i * SC + j);
+        }
+      softmax_tile<DMAX, false>(s, live, sl2, sx, sy, m, l, Ps, alpha_s);
+    }
+
+    wait_all();       // V(kt) has landed: own copies ...
+    __syncthreads();  // ... and everyone's, with P and alpha; K is free
+    if (kt + 1 < kt_end) {
+      const int k1 = k0 + BKV;
+      qk_copy.template copy<BKV>(kb + k1 * p.k_ss, p.k_ss, p.sk - k1, k_dst);
+      commit();
+    }
+
+    // rescale the accumulator where a row max moved (alpha == 1 elsewhere;
+    // once the maxima settle this is skipped)
+    float alpha[8];
+    bool moved = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      alpha[i] = alpha_s[oy + ORG * i];
+      moved |= alpha[i] != 1.f;
+    }
+    if (moved) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] *= alpha[i];
+    }
+
+    // acc += P V over the tile's keys, fp32 FFMA: per key, four float4
+    // reads feed 64 FFMA (masked keys have p = 0 and V rows of zeros)
+    const float* pk = Ps + oy * 8;
+    const float* vk = Vs + 4 * ox;
+#pragma unroll 8
+    for (int c = 0; c < BKV; ++c) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pk + c * L::PS);
+      const float4 p1 = *reinterpret_cast<const float4*>(pk + c * L::PS + 4);
+      const float4 v0 = *reinterpret_cast<const float4*>(vk + c * L::VS);
+      const float4 v1 = *reinterpret_cast<const float4*>(vk + c * L::VS + 4 * OCG);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float vr[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pr[i], vr[j], acc[i][j]);
+    }
+  }
+
+  // the row sums: this thread's shares over the row's SCG lanes
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+#pragma unroll
+    for (int off = SCG / 2; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    if (sx == 0) l_s[sy + SRG * i] = l[i];
+  }
+  __syncthreads();
+
+  // one store: acc / l, with l == 0 (no live key) dividing by 1; scalar
+  // stores, so that no accumulator quad is tied to aligned registers
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = oy + ORG * i;
+    if (row >= rows) continue;
+    const float den = l_s[row] == 0.f ? 1.f : l_s[row];
+    float* dst = ob + row * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 4 * ox + 4 * OCG * (j / 4) + j % 4;
+      if (col < D) dst[col] = acc[i][j] / den;
+    }
+  }
+}
+
+template <int DMAX>
+int launch_dmax(const float* q, const float* k, const float* v, float* o, int batch,
                 const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DMAX>,
+  using L = Layout<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel<DMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(L::smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, batch);
-  flash_attention_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), p);
+  const unsigned grid = static_cast<unsigned>((p.sq + L::BQ - 1) / L::BQ) * p.heads * batch;
+  flash_attention_f32_kernel<DMAX><<<grid, L::NT, L::smem_bytes, stream>>>(q, k, v, o, p);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace ffma
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
@@ -697,9 +858,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if constexpr (std::is_same<T, float>::value) {
-    if (d <= 64) return launch_dmax<T, 64>(q, k, v, o, batch, p, stream);
-    if (d <= 128) return launch_dmax<T, 128>(q, k, v, o, batch, p, stream);
-    return launch_dmax<T, 256>(q, k, v, o, batch, p, stream);
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    if (d <= 64) return ffma::launch_dmax<64>(qf, kf, vf, of, batch, p, stream);
+    if (d <= 128) return ffma::launch_dmax<128>(qf, kf, vf, of, batch, p, stream);
+    return ffma::launch_dmax<256>(qf, kf, vf, of, batch, p, stream);
   } else {
     if (d <= 64) return tc::launch_dmax<64>(q, k, v, o, batch, p, stream);
     if (d <= 128) return tc::launch_dmax<128>(q, k, v, o, batch, p, stream);

@@ -12,8 +12,10 @@ with ``H % HK == 0``; q head ``h`` reads kv head ``h // (H // HK)``.  Query
 row ``i`` sits at position ``i + Sk - Sq`` (a suffix of queries attends to
 the whole kv axis).  Both compute in fp32 and return ``q.dtype``.
 
-``launches`` counts the kernel launches of this process: it is raised by one
-where :func:`flash_attention_cuda` launches the kernel, and nowhere else.
+``launches`` counts the kernel launches of this process, and
+``launches_by_dtype`` the same launches by input type (``"float32"``: the
+fp32 FFMA kernel, ``"bfloat16"``: the tensor-core kernel): both are raised
+by one where :func:`flash_attention_cuda` launches a kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ import torch
 
 from .build import load_library
 
-__all__ = ["NEG_INF", "attention_mask", "flash_attention_cuda", "flash_attention_ref", "launches"]
+__all__ = ["NEG_INF", "attention_mask", "flash_attention_cuda", "flash_attention_ref", "launches",
+           "launches_by_dtype"]
 
 #: kernel launches so far (see the module docstring)
 launches = 0
+#: the same launches by input type
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 #: the finite mask sentinel of the Pallas kernel (never -inf: see the plain version)
 NEG_INF = -1e30
@@ -167,4 +172,5 @@ def flash_attention_cuda(
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: {_error_string(rc)} ({rc})")
     launches += 1
+    launches_by_dtype[str(q.dtype).replace("torch.", "")] += 1
     return out

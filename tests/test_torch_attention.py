@@ -146,6 +146,106 @@ def test_split_p_arithmetic_meets_the_bf16_limit(case):
     assert excess(split=False) > 1.0
 
 
+def _ffma_kernel_attention(q, k, v, *, causal, window):
+    """The fp32 CUDA kernel's arithmetic in plain torch, tile by tile, on fp32
+    q, k, v: q tiles of 128 rows (64 for head dims above 128) against 64-key
+    tiles over exactly the live range; per tile the fp32 scores, the row max
+    of the raw scores (masked pairs count as -1e30), m_new = max(m, mx * sl2)
+    with sl2 = scale * log2(e), alpha = exp2(m - m_new), p = exp2(fma(s, sl2,
+    -m_new)) (the fma taken in float64 and rounded once, as the hardware
+    does), p = 0 on masked pairs; a tile that crosses no edge (the ragged
+    ends, the diagonal, the window's edge) is not masked at all, and the
+    accumulator is rescaled only where a row max moved.  Returns the output
+    and the counts of full tiles, masked tiles and rows whose rescale was
+    skipped."""
+    B, H, Sq, D = q.shape
+    HK, Sk = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(H // HK, dim=1)
+    v = v.repeat_interleave(H // HK, dim=1)
+    BQ, BKV = (128 if D <= 128 else 64), 64
+    sl2 = torch.tensor(D**-0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    neg = torch.tensor(fa.NEG_INF, dtype=torch.float32)
+    out = torch.empty_like(q)
+    counts = dict(full=0, masked=0, rescale_skipped=0)
+    nkv = -(-Sk // BKV)
+    for q0 in range(0, Sq, BQ):
+        rows = min(BQ, Sq - q0)
+        q_first = q0 + Sk - Sq
+        q_last = q_first + rows - 1
+        kt_begin, kt_end = 0, nkv
+        if causal:
+            kt_end = 0 if q_last < 0 else min(nkv, q_last // BKV + 1)
+        if window is not None and q_first - window + 1 > 0:
+            kt_begin = min(nkv, (q_first - window + 1) // BKV)
+        m = torch.full((B, H, rows), fa.NEG_INF)
+        l = torch.zeros(B, H, rows)
+        acc = torch.zeros(B, H, rows, D)
+        for kt in range(kt_begin, kt_end):
+            k0 = kt * BKV
+            kv_rows = min(BKV, Sk - k0)
+            s = torch.matmul(q[:, :, q0:q0 + rows], k[:, :, k0:k0 + kv_rows].transpose(-1, -2))
+            full = (rows == BQ and kv_rows == BKV and (not causal or k0 + BKV - 1 <= q_first)
+                    and (window is None or k0 > q_last - window))
+            if full:
+                live = torch.ones(rows, kv_rows, dtype=torch.bool)
+                counts["full"] += 1
+            else:
+                live = fa.attention_mask(torch.arange(rows) + q_first, torch.arange(kv_rows) + k0,
+                                         causal=causal, window=window)
+                counts["masked"] += 1
+            mx = torch.where(live, s, neg).amax(-1)
+            m_new = torch.maximum(m, torch.where(mx == neg, neg, mx * sl2))
+            alpha = torch.exp2(m - m_new)
+            m = m_new
+            x = torch.exp2((s.double() * sl2.double() - m_new.double()[..., None]).float())
+            p = torch.where(live, x, 0.0)
+            l = l * alpha + p.sum(-1)
+            moved = alpha != 1.0
+            acc = torch.where(moved[..., None], acc * alpha[..., None], acc)
+            counts["rescale_skipped"] += int((~moved).sum())
+            acc = acc + torch.matmul(p, v[:, :, k0:k0 + kv_rows])
+        out[:, :, q0:q0 + rows] = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out, counts
+
+
+# (B, H, HK, Sq, Sk, D, causal, window), multiples of the Pallas kernel's 64:
+# a ragged last q tile on the causal diagonal, a window suffix ending
+# mid-tile, rows at negative positions, and D 80 (the 128 bucket)
+FFMA_CASES = {
+    "causal_ragged_q_tile": (1, 4, 2, 320, 320, 64, True, None),
+    "window_suffix": (1, 4, 2, 128, 512, 64, True, 300),
+    "masked_rows": (1, 2, 1, 192, 128, 64, True, None),
+    "noncausal_d80": (1, 2, 2, 192, 192, 80, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FFMA_CASES))
+def test_ffma_kernel_arithmetic_meets_the_fp32_limit(case):
+    """Pins the fp32 kernel's softmax before it reaches the card: the scale
+    folded into the fma before exp2, the rescale skipped where no row max
+    moved, and the mask built only on tiles that cross an edge keep the
+    result within the smoke's fp32 limit, 1e-4 * max|v|, of the plain version
+    and of the Pallas kernel in interpret mode on the same inputs."""
+    B, H, HK, Sq, Sk, D, causal, window = FFMA_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = _arrays(rng, (B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D))
+    tq, tk, tv = _to_torch(q, k, v)
+    got, counts = _ffma_kernel_attention(tq, tk, tv, causal=causal, window=window)
+    limit = 1e-4 * float(np.abs(v).max())
+    ref = fa.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    pallas = np.asarray(flash_attention_call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             causal=causal, window=window, bq=64, bkv=64,
+                                             interpret=True))
+    assert counts["masked"] > 0
+    if case != "masked_rows":  # every q tile of that case is ragged
+        assert counts["full"] > 0
+    assert counts["rescale_skipped"] > 0
+    assert float((got - ref).abs().max()) <= limit
+    dead = max(Sq - Sk, 0) if causal else 0
+    assert not got[:, :, :dead].any()  # rows at negative positions: exact zeros
+    assert np.abs(got.numpy()[:, :, dead:] - pallas[:, :, dead:]).max() <= limit
+
+
 def test_flash_fully_masked_rows_are_zero():
     """Causal with Sq > Sk: the first Sq - Sk rows see no key.  The kernel (and
     the Pallas kernel) give zeros; the JAX package's -inf reference gives NaN."""

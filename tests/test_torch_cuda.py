@@ -270,6 +270,20 @@ FLASH_CASES = {
     "d72": (2, 4, 2, 150, 150, 72, True, None),
     # qwen2's GQA (14 q heads on 2 kv heads, rep 7) on a ragged kv axis with a suffix
     "gqa_rep7_suffix_ragged": (1, 14, 2, 100, 1000, 64, True, None),
+    # the fp32 kernel's tile edges (128 query rows for D <= 128, 64 for D 256;
+    # 64-key tiles): Sq and Sk one off a multiple, so a q tile meets a partly
+    # live kv tile at both ends of the diagonal
+    "edges_sq129_sk191": (1, 4, 2, 129, 191, 64, True, None),
+    "edges_sq127_sk65": (2, 3, 1, 127, 65, 64, True, None),
+    "edges_d128_sq255_sk257": (1, 4, 1, 255, 257, 128, True, None),
+    "edges_d256_sq65_sk63": (1, 2, 1, 65, 63, 256, True, None),
+    # one query row against a long kv axis (decode)
+    "decode_sq1_sk1000": (2, 14, 2, 1, 1000, 64, True, None),
+    # a window ending mid-tile, Sq != Sk, causal and not
+    "window100_sq300_sk700": (1, 4, 2, 300, 700, 64, True, 100),
+    "window77_noncausal_sq200_sk333": (1, 2, 1, 200, 333, 48, False, 77),
+    # D 256, non-causal, ragged on both axes
+    "d256_noncausal_ragged": (1, 4, 1, 129, 250, 256, False, None),
 }
 
 
