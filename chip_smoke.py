@@ -30,7 +30,14 @@ Phases, one JSON line each:
                       cache) -> ``gather``, bit-identical to ``multiply(A, A)``.
 7. ``dist_spamm``   — delta-plan SpAMM at N = 8192 on 8 workers, two ``tau``
                       and three precisions, each within its returned bound.
-8. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
+8. ``dist_pipeline`` — the ``sp2`` phase's S and H resident on 8 workers:
+                      ``dist_sqrt_inv_pipeline`` (S -> Z -> Z^T H Z -> SP2 ->
+                      Z D Z^T), one fused launch per non-empty resident
+                      multiply, M = L^T D L (L = cholesky(S)) held to the
+                      ``sp2`` phase's limits against the float64
+                      eigendecomposition of L^-1 H L^-T; then the same run
+                      from a skewed layout with ``rebalance=``, bit-identical.
+9. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
                       cores) against their plain version over eight shapes
                       (qwen2-0.5b's layer, non-causal D 80, D 128 and 256
                       with one kv head, a decode-style suffix, a window,
@@ -39,14 +46,18 @@ Phases, one JSON line each:
                       beside the plain version, the bounds and SDPA (a
                       yardstick only); the ``build`` phase fails on a spill
                       in any fp32 instantiation it compiled.
-9. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
+10. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
                       151,936), seeded random weights, B 2 x S 4096:
                       ``apply(attn_impl="flash")`` against ``"direct"`` in fp32
                       and bf16, 24 kernel launches per forward.
-10. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
+11. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
                       32 new tokens; a flash forward over the generated
                       sequences confirms every decode step's logits and token.
-11. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
+12. ``dist_pipeline_profile`` — the ``dist_pipeline`` phase's static run
+                      replayed on a full plan cache under ``torch.profiler``:
+                      the card's busy share and the fused kernel's time
+                      (last, since a profiler session slows later launches).
+13. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
     its launches per type), then ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
@@ -106,12 +117,12 @@ FLASH_REHEARSAL = {
 FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             sp2_n=8192, sp2_bs=128, sp2_nocc=2560,
             fused_p=8, r24_n=4800, r24_hw=600, small_n=2048,
-            dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8,
+            dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8, pipe_p=8,
             flash=FLASH_FULL, lm_reduced=False, lm_seq=4096)
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
-                 dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8,
+                 dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8, pipe_p=8,
                  flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64)
 
 
@@ -919,6 +930,195 @@ def phase_dist_spamm(ctx, sizes) -> dict:
     return out
 
 
+def _skewed_owner(nnzb: int, nparts: int):
+    """The first half of the Morton order on worker 0, the rest Morton-cut over the others."""
+    import numpy as np
+    from repro_torch.core.schedule import partition_morton
+
+    half = nnzb // 2
+    return np.concatenate([np.zeros(half, np.int32),
+                           partition_morton(nnzb - half, nparts - 1).astype(np.int32) + 1])
+
+
+def phase_dist_pipeline(ctx, sizes) -> dict:
+    """S -> Z -> Z^T H Z -> SP2 -> Z D Z^T resident on 8 workers (the paper's workload).
+
+    Static Morton layout first, then the same matrices scattered skewed and
+    run with ``rebalance=``: D must come out bit for bit the same.  Stage
+    seconds come from wrappers that synchronise the card at each stage's
+    edges (the drivers themselves only wait where a scalar crosses).
+    """
+    import numpy as np
+
+    torch = ctx.torch
+    import repro_torch.core.distributed as cdist
+    import repro_torch.dist.inverse as inv_mod
+    import repro_torch.dist.purify as pur
+    from repro_torch.core import BSMatrix
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, RebalancePolicy, scatter
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.obs.timing import IterationScope
+
+    n, bs, nocc, P = sizes["sp2_n"], sizes["sp2_bs"], sizes["sp2_nocc"], sizes["pipe_p"]
+    h, s_dense = _hamiltonian(n, nocc, seed=7)
+    mesh = make_worker_mesh(P, ctx.dev)
+    H = BSMatrix.from_dense(h, bs, device=ctx.dev)
+    S = BSMatrix.from_dense(s_dense, bs, device=ctx.dev)
+    kw = dict(trunc_tau=1e-5, idem_tol=1e-6)
+
+    # resident multiplies counted independently of the kernel, and by whether
+    # their plan holds a task
+    marks, calls = {}, [0, 0]
+    real_run = cdist.FusedSpgemmExecutable._run
+
+    def counting_run(self, *a, **k):
+        calls[0] += 1
+        calls[1] += self.plan.tasks.num_tasks > 0
+        return real_run(self, *a, **k)
+
+    def synced(name, fn):
+        def wrapped(*a, **k):
+            ctx.sync()
+            marks[name] = [time.perf_counter()]
+            out = fn(*a, **k)
+            ctx.sync()
+            marks[name].append(time.perf_counter())
+            return out
+        return wrapped
+
+    class SyncedScope(IterationScope):
+        def delta(self):
+            ctx.sync()
+            return super().delta()
+
+    patches = [(cdist.FusedSpgemmExecutable, "_run", counting_run),
+               (pur, "dist_localized_inverse_factorization",
+                synced("inverse", pur.dist_localized_inverse_factorization)),
+               (pur, "dist_sp2_purify", synced("sp2", pur.dist_sp2_purify)),
+               (pur, "IterationScope", SyncedScope), (inv_mod, "IterationScope", SyncedScope)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+
+    def run(owner, rebalance):
+        calls[0] = calls[1] = 0
+        cache = PlanCache()
+        ds, dh = scatter(S, mesh, owner=owner), scatter(H, mesh, owner=owner)
+        fl.launches = 0  # the main path's count starts here
+        ctx.sync()
+        t0 = time.perf_counter()
+        d, st = pur.dist_sqrt_inv_pipeline(ds, dh, nocc, cache=cache, rebalance=rebalance, **kw)
+        ctx.sync()
+        total = time.perf_counter() - t0
+        launches = fl.launches  # ... and is read here
+        inv_s = marks["inverse"][1] - marks["inverse"][0]
+        sp2_s = marks["sp2"][1] - marks["sp2"][0]
+        rows = st.inverse.per_iter + st.purify.per_iter
+        stages = dict(inverse_s=inv_s, congruence_s=st.congruence["wall_s"],
+                      spectral_bounds_s=marks["sp2"][0] - marks["inverse"][1] - st.congruence["wall_s"],
+                      sp2_s=sp2_s, back_transform_s=st.back_transform["wall_s"],
+                      gather_s=t0 + total - marks["sp2"][1] - st.back_transform["wall_s"])
+        imb = [r["imbalance"] for r in rows if r["imbalance"] is not None]
+        refine_s = sum(r["wall_s"] for r in st.inverse.per_iter)
+        info = dict(seconds=total, **stages, inv_chol_s=inv_s - refine_s, refinement_s=refine_s,
+                    refinement_iterations=st.inverse.iterations,
+                    refinement_stop=st.inverse.stop_reason,
+                    factorization_residual=st.inverse.factorization_residual,
+                    residual_history=st.inverse.residual_history,
+                    sp2_iterations=st.purify.iterations,
+                    sp2_s_per_iteration=sp2_s / st.purify.iterations,
+                    sp2_nnzb_history=st.purify.nnzb_history, bounds=list(st.bounds),
+                    plan_build_s=cache.build_s, symbolic_s=cache.symbolic_s,
+                    cache=dict(hits=cache.hits, misses=cache.misses),
+                    zero_miss_iterations=dict(
+                        refinement=sum(r["cache_misses"] == 0 for r in st.inverse.per_iter),
+                        sp2=sum(r["cache_misses"] == 0 for r in st.purify.per_iter)),
+                    resident_multiplies=calls[0], nonempty_multiplies=calls[1],
+                    fused_launches=launches,
+                    imbalance_mean=float(np.mean(imb)), imbalance_max=float(np.max(imb)),
+                    imbalance_first=imb[0],
+                    rebalances=st.inverse.rebalances + st.purify.rebalances,
+                    migrated_bytes=int(sum(r["migrated_bytes"] for r in rows)),
+                    d_blocks=d.nnzb)
+        expected = 0 if ctx.rehearse else calls[1]
+        check(launches == expected and calls[0] == calls[1],
+              f"fused launches {launches}, resident multiplies {calls[0]}, non-empty {calls[1]}")
+        return d, info
+
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        d, static = run(None, None)
+        skew = _skewed_owner(S.nnzb, P)
+        d_reb, rebalanced = run(skew, RebalancePolicy())
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    identical = (np.array_equal(d.coords, d_reb.coords) and bool(torch.equal(d.data, d_reb.data)))
+    check(identical, "the rebalanced pipeline's D is not bit-identical to the static run's")
+    check(rebalanced["rebalances"] >= 1 or rebalanced["migrated_bytes"] > 0,
+          "the rebalanced run re-laid nothing out")
+    resid, stop = static["factorization_residual"], static["refinement_stop"]
+    check(stop in ("converged", "stalled"), f"refinement stopped: {stop}")
+
+    # accuracy: M = L^T D L is the density matrix in the orthonormal basis L^-T
+    s64 = torch.from_numpy(s_dense).to(ctx.dev, torch.float64)
+    h64 = torch.from_numpy(h).to(ctx.dev, torch.float64)
+    L = torch.linalg.cholesky(s64)
+    m = L.T @ dense_on_device(d, torch.float64) @ L
+    li = torch.linalg.solve_triangular(L, torch.eye(n, dtype=torch.float64, device=ctx.dev),
+                                       upper=False)
+    evals, evecs = torch.linalg.eigh(li @ h64 @ li.T)
+    occ = evecs[:, :nocc]
+    out = dict(phase="dist_pipeline", n=n, bs=bs, nocc=nocc, workers=P, **kw,
+               tol=1e-8, s_blocks=S.nnzb, h_blocks=H.nnzb,
+               homo_lumo_gap=float(evals[nocc] - evals[nocc - 1]),
+               trace_error=abs(float(torch.trace(m)) - nocc),
+               idempotency_max=float((m @ m - m).abs().max()),
+               max_abs_m_minus_ref=float((m - occ @ occ.T).abs().max()),
+               static=static, rebalanced=rebalanced, skew="first half of the Morton order on worker 0",
+               rebalanced_bit_identical=identical,
+               launches=static["fused_launches"] + rebalanced["fused_launches"])
+    emit(out)
+    check(out["trace_error"] <= 1e-3, "|trace(L^T D L) - nocc| > 1e-3")
+    check(out["idempotency_max"] <= 1e-6, "max |M^2 - M| > 1e-6")
+    check(out["max_abs_m_minus_ref"] <= 1e-4, "max |M - V_occ V_occ^T| > 1e-4")
+    return out
+
+
+def phase_dist_pipeline_profile(ctx, sizes) -> dict:
+    """Where a warm resident pipeline's time goes: the ``dist_pipeline`` phase's
+    static run, once to fill the plan cache, then replayed on it under
+    ``torch.profiler``.  It runs after every timed phase: a profiler session
+    leaves the card's activity tracing attached, which slows each later
+    kernel launch of the process."""
+    import repro_torch.dist.purify as pur
+    from repro_torch.core import BSMatrix
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, scatter
+
+    n, bs, nocc = sizes["sp2_n"], sizes["sp2_bs"], sizes["sp2_nocc"]
+    h, s_dense = _hamiltonian(n, nocc, seed=7)
+    mesh = make_worker_mesh(sizes["pipe_p"], ctx.dev)
+    H = BSMatrix.from_dense(h, bs, device=ctx.dev)
+    S = BSMatrix.from_dense(s_dense, bs, device=ctx.dev)
+    # room for every plan of the run: at the default 128 entries the LRU
+    # evicts plans the replay needs again
+    cache = PlanCache(max_entries=4096)
+
+    def pipeline():
+        return pur.dist_sqrt_inv_pipeline(scatter(S, mesh), scatter(H, mesh), nocc, cache=cache,
+                                          trunc_tau=1e-5, idem_tol=1e-6)
+
+    pipeline()
+    ctx.sync()
+    misses = cache.misses
+    out = dict(phase="dist_pipeline_profile", **profile_device(ctx, pipeline,
+                                                                 kernel="fused_block_spmm"),
+               replay_cache_misses=cache.misses - misses)
+    emit(out)
+    return out
+
+
 def flash_bound(q, k, live_pairs: int) -> dict:
     """Least time for one flash-attention call on an H100: operations or bytes.
 
@@ -1130,14 +1330,40 @@ def phase_lm_forward(ctx, sizes, model) -> dict:
     return out
 
 
-def profile_decode_step(ctx, cfg, params, prompts) -> dict:
-    """One warm fp32 decode step under ``torch.profiler``: the PyTorch calls the
-    host makes, the kernels the card runs and their summed device time,
-    against the step's wall time with the profiler on."""
-    torch = ctx.torch
+def profile_device(ctx, fn, kernel: str | None = None) -> dict:
+    """``fn()`` under ``torch.profiler``: the PyTorch calls the host makes, the
+    kernels the card runs and their summed device time, against the wall time
+    with the profiler on; ``kernel`` also sums the device time of the kernels
+    whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if ctx.dev.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        ctx.sync()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    host_calls = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+                     and e.name.startswith("aten::"))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    out = dict(profiled_wall_ms=wall * 1e3, host_aten_calls=host_calls,
+               device_kernels=len(kernels) if ctx.dev.type == "cuda" else None,
+               device_ms=device_s * 1e3 if kernels else None,
+               device_busy_share=device_s / wall if kernels else None)
+    if kernel is not None:
+        mine = [e for e in kernels if kernel in e.name]
+        out.update({f"{kernel}_launches": len(mine),
+                    f"{kernel}_ms": sum(e.time_range.elapsed_us() for e in mine) * 1e-3
+                    if mine else None})
+    return out
+
+
+def profile_decode_step(ctx, cfg, params, prompts) -> dict:
+    """One warm fp32 decode step under ``torch.profiler`` (:func:`profile_device`)."""
+    torch = ctx.torch
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer
 
@@ -1145,24 +1371,10 @@ def profile_decode_step(ctx, cfg, params, prompts) -> dict:
     cache = transformer.init_cache(cfg, B, 2, torch.float32, device=ctx.dev)
     step = model_mod.make_serve_step(cfg, compute_dtype=torch.float32)
     tok = torch.from_numpy(prompts[:, :1]).to(ctx.dev)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if ctx.dev.type == "cuda" else [])
     with torch.inference_mode():
         step(params, cache, tok, 0)
         ctx.sync()
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            step(params, cache, tok, 1)
-            ctx.sync()
-            wall = time.perf_counter() - t0
-    events = prof.events()
-    host_calls = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
-                     and e.name.startswith("aten::"))
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
-    return dict(profiled_wall_ms=wall * 1e3, host_aten_calls=host_calls,
-                device_kernels=len(kernels) if ctx.dev.type == "cuda" else None,
-                device_ms=device_s * 1e3 if kernels else None,
-                device_busy_share=device_s / wall if kernels else None)
+        return profile_device(ctx, lambda: step(params, cache, tok, 1))
 
 
 def phase_lm_serve(ctx, model) -> dict:
@@ -1254,11 +1466,13 @@ def main(argv=None) -> int:
     sp2 = phase(phase_sp2, ctx, sizes)
     dmul = phase(phase_dist_multiply, ctx, sizes)
     dspamm = phase(phase_dist_spamm, ctx, sizes)
+    dpipe = phase(phase_dist_pipeline, ctx, sizes)
     flash = phase(phase_flash_kernel, ctx, sizes)
     model = lm_model(ctx, sizes)
     fwd = phase(phase_lm_forward, ctx, sizes, model)
     serve = phase(phase_lm_serve, ctx, model)
     del model
+    phase(phase_dist_pipeline_profile, ctx, sizes)
 
     timing, ftiming = kern["timing"], fused["timing"]
     flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
@@ -1285,7 +1499,7 @@ def main(argv=None) -> int:
         dict(name="fused_block_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
              replaces="src/repro/kernels/fused_leaf.py:71",
-             launches=dmul["launches"] + dspamm["launches"],
+             launches=dmul["launches"] + dspamm["launches"] + dpipe["launches"],
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
              bound_by=ftiming["bound_by"], library_ms=None),

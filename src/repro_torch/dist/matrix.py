@@ -99,21 +99,51 @@ class DistBSMatrix:
     def codes(self) -> np.ndarray:
         return morton_encode(self.coords[:, 0], self.coords[:, 1])
 
+    def store_maps(self) -> tuple[np.ndarray, np.ndarray]:
+        """(store_idx [P, cap] global block per slot, store_valid [P, cap])."""
+        idx = np.zeros((self.nparts, self.cap), dtype=np.int32)
+        valid = np.zeros((self.nparts, self.cap), dtype=bool)
+        idx[self.owner, self.slot] = np.arange(self.nnzb, dtype=np.int32)
+        valid[self.owner, self.slot] = True
+        return idx, valid
+
+    def stack_blocks(self) -> torch.Tensor:
+        """The blocks ``[nnzb, bs, bs]`` in stack (Morton) order, on the store's device.
+
+        A reduction over this stack depends on the structure alone, never on
+        the owner layout: the resident reductions go through it so that a
+        re-layout cannot move a single bit of a norm, a trace or a decision
+        taken on them.
+        """
+        return self.store[_upload(self.owner, self.device), _upload(self.slot, self.device)]
+
     # -- boundary conversions ----------------------------------------------
     def gather(self) -> BSMatrix:
         """The matrix as a BSMatrix in stack order, on the store's device (boundary op)."""
-        data = self.store[_upload(self.owner, self.device), _upload(self.slot, self.device)]
-        return BSMatrix(shape=tuple(self.shape), bs=self.bs, coords=self.coords, data=data)
+        return BSMatrix(shape=tuple(self.shape), bs=self.bs, coords=self.coords,
+                        data=self.stack_blocks())
+
+    # -- worker-local ops ---------------------------------------------------
+    def scale(self, alpha) -> "DistBSMatrix":
+        """alpha * A; elementwise on the resident store, stays in place."""
+        return dataclasses.replace(self, store=self.store * torch.tensor(alpha, dtype=self.dtype))
+
+    def astype(self, dtype) -> "DistBSMatrix":
+        return dataclasses.replace(self, store=self.store.to(dtype))
 
 
 class NormTableExecutable:
-    """Device-side norm reduction + compaction for one structure.
+    """Device-side compaction + norm reduction for one structure.
 
-    Reduces every store row to its Frobenius norm on the device and gathers
-    the valid rows into stack order there, so only the ``[nnzb]`` leaf
-    bounds the hierarchical descents consume cross device -> host.  (The JAX
-    package scatters each device's norms to their stack positions and sums
-    over the mesh; on one card the gather is the whole of it.)
+    Gathers the valid store rows into stack order on the device and reduces
+    each to its Frobenius norm there, so only the ``[nnzb]`` leaf bounds the
+    hierarchical descents consume cross device -> host.  Reducing the
+    stack-order blocks (not the padded ``[P, cap]`` store) makes every norm
+    independent of the owner layout and equal to the single-device
+    :meth:`~repro_torch.core.matrix.BSMatrix.block_norms` of the same
+    blocks.  (The JAX package scatters each device's norms to their stack
+    positions and sums over the mesh; on one card the gather is the whole
+    of it.)
     """
 
     def __init__(self, x: DistBSMatrix):
@@ -121,7 +151,7 @@ class NormTableExecutable:
         self._slot = _upload(x.slot, x.device)
 
     def __call__(self, store: torch.Tensor) -> np.ndarray:
-        return _to_numpy(block_frobenius_norms(store)[self._owner, self._slot])
+        return _to_numpy(block_frobenius_norms(store[self._owner, self._slot]))
 
 
 def resident_block_norms(x: DistBSMatrix, cache=None) -> np.ndarray:
@@ -129,8 +159,8 @@ def resident_block_norms(x: DistBSMatrix, cache=None) -> np.ndarray:
 
     Runs :func:`repro_torch.core.matrix.block_frobenius_norms` — the same
     reduction the single-device path uses, same fp32 accumulation — on the
-    ``[P, cap, bs, bs]`` store, so single-device and resident SpAMM make the
-    same prune decisions near ``tau``.  With a
+    stack-order blocks, so single-device and resident SpAMM make the same
+    prune decisions near ``tau`` and a re-layout changes no norm.  With a
     :class:`~repro_torch.dist.cache.PlanCache` the compaction runs on the
     device (:class:`NormTableExecutable`, cached per structure) and only the
     ``[nnzb]`` vector crosses to the host.
@@ -149,8 +179,7 @@ def resident_block_norms(x: DistBSMatrix, cache=None) -> np.ndarray:
             )
             exe = cache.get_or_build(key, lambda: NormTableExecutable(x))
             return exe(x.store).astype(np.float64)
-        table = _to_numpy(block_frobenius_norms(x.store))  # [P, cap] -> host
-        return table[x.owner, x.slot].astype(np.float64)
+        return _to_numpy(block_frobenius_norms(x.stack_blocks())).astype(np.float64)
 
 
 def dist_zeros(shape: tuple[int, int], bs: int, mesh: WorkerMesh, dtype=torch.float32) -> DistBSMatrix:

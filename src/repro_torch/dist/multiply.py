@@ -42,10 +42,11 @@ from ..core.distributed import (
 )
 from ..core.quadtree import build_quadtree_index, quadtree_depth
 from ..core.schedule import make_spgemm_plan, structure_fingerprint
-from ..core.spgemm import spamm_symbolic
+from ..core.spgemm import spamm_symbolic, spgemm_symbolic
 from ..kernels.precision import FP32, Precision, low_precision_task_mask
 from ..obs.timing import timed_into
 from ..obs.tracer import tracer_of
+from .balance import LoadMonitor, block_reference_weights
 from .cache import PlanCache
 from .matrix import DistBSMatrix, mesh_key, resident_block_norms
 
@@ -92,17 +93,38 @@ def spamm_delta_plan_key(
     return _plan_key("spamm-delta", a, b, exchange, impl, precision)
 
 
-def _check_operands(a: DistBSMatrix, b: DistBSMatrix, impl: str, rebalance) -> None:
+def _check_operands(a: DistBSMatrix, b: DistBSMatrix, impl: str) -> None:
     if a.mesh != b.mesh:
         raise ValueError("operands must live on the same worker mesh")
     if a.shape[1] != b.shape[0] or a.bs != b.bs:
         raise ValueError(f"operands do not chain: {a.shape} (bs {a.bs}) @ {b.shape} (bs {b.bs})")
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
-    if rebalance is not None:
-        raise NotImplementedError(
-            "rebalance= needs the resident load balancer (repro_torch.dist.balance), "
-            "which is not ported yet")
+
+
+def _rebalance_operands(
+    a: DistBSMatrix, b: DistBSMatrix, cache: PlanCache | None, policy
+) -> tuple[DistBSMatrix, DistBSMatrix]:
+    """Opt-in operand re-layout before planning a multiply.
+
+    Weighs each operand's current owner map against its task-reference
+    counts in this multiply (plus one unit of ownership weight per block) —
+    the :mod:`repro_torch.dist.balance` cost model at single-op granularity —
+    and re-slots skewed operands through
+    :func:`~repro_torch.dist.collectives.dist_repartition` before the plan is
+    built (:meth:`~repro_torch.dist.balance.LoadMonitor.relayout_if_skewed`).
+    Everything is structural, so the decision is deterministic per structure
+    pair and repeated calls are pure cache hits; iterative callers should
+    instead hold the repartitioned handle (the drivers' ``rebalance=`` loop
+    does).
+    """
+    key = ("spgemm-tasks", structure_fingerprint(a.codes(), b.codes(), a.bs))
+    build = lambda: spgemm_symbolic(a.coords, b.coords)  # noqa: E731
+    tasks = cache.get_or_build(key, build) if cache is not None else build()
+    wa, wb = block_reference_weights(tasks, a.nnzb, b.nnzb)
+    mon = LoadMonitor(a.nparts, policy)
+    a2, _ = mon.relayout_if_skewed(a, cache, wa + 1.0)
+    return (a2, a2) if b is a else (a2, mon.relayout_if_skewed(b, cache, wb + 1.0)[0])
 
 
 def _precision_of(precision, impl: str, exchange: str) -> Precision:
@@ -174,15 +196,17 @@ def dist_multiply(
     ``precision.tau`` using the resident norm tables).  The staged impls
     (``"ref"`` / ``"kernel"``) are fp32-only.
 
-    ``rebalance`` needs the resident load balancer, which is not ported
-    yet: anything but ``None`` raises ``NotImplementedError``.
+    ``rebalance`` (a :class:`repro_torch.dist.balance.RebalancePolicy`)
+    re-slots skewed operands before planning (:func:`_rebalance_operands`).
     """
-    _check_operands(a, b, impl, rebalance)
+    _check_operands(a, b, impl)
     precision = _precision_of(precision, impl, exchange)
     fused = _use_fused(impl, exchange)
     adaptive = precision.mode == "adaptive"
     tr = tracer_of(cache)
     with tr.span("dist_multiply", cat="collective", nnzb_a=a.nnzb, nnzb_b=b.nnzb):
+        if rebalance is not None:
+            a, b = _rebalance_operands(a, b, cache, rebalance)
 
         def build():
             plan = make_spgemm_plan(
@@ -288,10 +312,13 @@ def dist_spamm(
     of ``precision.budget(tau)`` — the returned bound then includes the
     rounding spend, so ``||A@B - C||_F <= err_bound`` still holds.
 
+    ``rebalance`` (a :class:`repro_torch.dist.balance.RebalancePolicy`)
+    re-slots skewed operands before planning (:func:`_rebalance_operands`);
+    the stack-order norm tables stay valid across the re-layout.
+
     Returns ``(C, err_bound)`` with ``||A@B - C||_F <= err_bound``.
-    ``rebalance`` is not ported yet and must be ``None``.
     """
-    _check_operands(a, b, impl, rebalance)
+    _check_operands(a, b, impl)
     precision = _precision_of(precision, impl, exchange)
     if method not in ("delta", "replan"):
         raise ValueError(f"method={method!r} not in ('delta', 'replan')")
@@ -299,6 +326,8 @@ def dist_spamm(
         raise ValueError("adaptive precision rides the delta plan (method='delta')")
     tr = tracer_of(cache)
     with tr.span("dist_spamm", cat="collective", nnzb_a=a.nnzb, nnzb_b=b.nnzb, tau=float(tau)):
+        if rebalance is not None:
+            a, b = _rebalance_operands(a, b, cache, rebalance)
         return _dist_spamm_impl(
             a, b, tau, cache, tr, exchange=exchange, impl=impl, method=method,
             precision=precision, a_norms=a_norms, b_norms=b_norms,

@@ -73,8 +73,16 @@ def _chunked(q, k, v, qpos, kpos, *, causal, window, prefix_len, scale, chunk):
     return out.to(q.dtype)
 
 
-def _local_banded(q, k, v, *, window, causal, scale):
-    """Sliding-window attention via banded chunking: O(S * 2W) work."""
+def _local_banded(q, k, v, *, window, scale):
+    """Causal sliding-window attention via banded chunking: O(S * 2W) work.
+
+    A query at position p sees the keys in (p - W, p], which lie in its own
+    chunk of W and the one before.  Only the causal mask bounds the band:
+    the window alone (``kpos > qpos - window``) lets a non-causal query see
+    every later key, so non-causal windows take the general paths.  The
+    zeros padded after a ragged last chunk sit at positions >= S, past every
+    real query, and the causal mask drops them.
+    """
     B, S, H, D = q.shape
     W = window
     pad = (-S) % W
@@ -98,7 +106,7 @@ def _local_banded(q, k, v, *, window, causal, scale):
     qpos = torch.arange(n * W, device=dev).reshape(n, W)
     # positions of the 2W context for chunk i: (i-1)*W ... (i+1)*W - 1
     ctx = (torch.arange(n, device=dev)[:, None] - 1) * W + torch.arange(2 * W, device=dev)[None, :]
-    m = attention_mask(qpos, ctx, causal=causal, window=W) & (ctx[:, None, :] >= 0)
+    m = attention_mask(qpos, ctx, causal=True, window=W) & (ctx[:, None, :] >= 0)
     logits = torch.where(m[None, :, None], logits, _NEG)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnhqk,bnkhd->bnqhd", p, vctx.float())
@@ -123,8 +131,8 @@ def attention(
     scale = D**-0.5
     qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
     kpos = torch.arange(Sk, device=q.device)
-    if window is not None and prefix_len is None and Sq == Sk and impl != "direct":
-        return _local_banded(q, k, v, window=window, causal=causal, scale=scale)
+    if window is not None and causal and prefix_len is None and Sq == Sk and impl != "direct":
+        return _local_banded(q, k, v, window=window, scale=scale)
     if impl == "flash" and prefix_len is None:
         # [B, S, H, D] seen as [B, H, S, D]: strided views, no copy on the card
         out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),

@@ -4,9 +4,9 @@ from __future__ import annotations
 
 from time import perf_counter
 
-from .tracer import NULL_TRACER
+from .tracer import NULL_TRACER, tracer_of
 
-__all__ = ["timed_into", "wall_clock", "Stopwatch"]
+__all__ = ["timed_into", "wall_clock", "Stopwatch", "IterationScope", "SHARED_ITER_KEYS"]
 
 
 def wall_clock() -> float:
@@ -76,3 +76,92 @@ class timed_into:
         if obj is not None:
             setattr(obj, self._attr, getattr(obj, self._attr) + self.elapsed)
         return None
+
+
+# the per-iteration row keys both iterative drivers (dist_sp2_purify,
+# dist_localized_inverse_factorization) emit
+SHARED_ITER_KEYS = (
+    "iteration",
+    "nnzb",
+    "spamm_err",
+    "recv_bytes_mean",
+    "norm_fetch_bytes",
+    "imbalance",
+    "imbalance_after",
+    "migrated_bytes",
+    "wall_s",
+    "cache_hits",
+    "cache_misses",
+    "plan_build_s",
+    "symbolic_s",
+)
+
+_ROW_DEFAULTS = dict(
+    nnzb=0,
+    spamm_err=0.0,
+    recv_bytes_mean=0.0,
+    norm_fetch_bytes=0,
+    imbalance=None,
+    imbalance_after=None,
+    migrated_bytes=0,
+)
+
+
+class IterationScope:
+    """One driver iteration (or named stage): span + cache snapshot + clock.
+
+    ``delta()`` returns the wall/cache-counter deltas accumulated so far
+    (the stage rows of :func:`~repro_torch.dist.purify.dist_sqrt_inv_pipeline`);
+    ``row(**fields)`` additionally fills the shared per-iteration schema
+    (:data:`SHARED_ITER_KEYS`) with uniform defaults so every driver's rows
+    carry the same keys for the same meanings.  The wall clock is the
+    host's: it covers device work only where the body waited for it.
+    """
+
+    __slots__ = ("_cache", "_tracer", "_name", "_cat", "_args", "_handle",
+                 "_snap", "_t0", "iteration")
+
+    def __init__(self, cache, iteration=None, tracer=None,
+                 name: str = "iteration", cat: str = "iteration", **args):
+        self._cache = cache
+        self._tracer = tracer if tracer is not None else tracer_of(cache)
+        self._name = name
+        self._cat = cat
+        self._args = args
+        self._handle = None
+        self.iteration = iteration
+
+    def __enter__(self):
+        if self._tracer.enabled:
+            args = dict(self._args)
+            if self.iteration is not None:
+                args["i"] = self.iteration
+            self._handle = self._tracer.span(self._name, cat=self._cat, **args)
+            self._handle.__enter__()
+        self._snap = self._cache.snapshot() if self._cache is not None else None
+        self._t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._handle is not None:
+            self._handle.__exit__(*exc)
+            self._handle = None
+        return None
+
+    def delta(self) -> dict:
+        """wall seconds + cache counter deltas accumulated in this scope."""
+        out = dict(wall_s=perf_counter() - self._t0)
+        if self._snap is not None:
+            out.update(self._cache.delta(self._snap))
+        else:
+            out.update(cache_hits=0, cache_misses=0, plan_build_s=0.0, symbolic_s=0.0)
+        return out
+
+    def row(self, **fields) -> dict:
+        """The shared per-iteration stats row, driver extras appended."""
+        out = dict(iteration=self.iteration, **_ROW_DEFAULTS)
+        out.update(self.delta())
+        out.update(fields)
+        missing = set(SHARED_ITER_KEYS) - out.keys()
+        assert not missing, f"iteration row missing shared keys: {missing}"
+        return out

@@ -295,13 +295,20 @@ ATTN_CASES = {
 }
 
 
+# cases held against another path of the JAX package: its banded path gives
+# a non-causal window only the keys of two chunks, while the window
+# (kpos > qpos - window) lets a non-causal query see every later key
+JAX_IMPL = {"local_banded_noncausal": "direct"}
+
+
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))
 def test_attention_matches_jax(case):
     """fp32, rtol = atol = 2e-4 (as the flash kernel's own limit)."""
     B, Sq, Sk, H, HK, D, kw = ATTN_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     q, k, v = _arrays(rng, (B, Sq, H, D), (B, Sk, HK, D), (B, Sk, HK, D))
-    want = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    jkw = dict(kw, impl=JAX_IMPL.get(case, kw["impl"]))
+    want = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw))
     fa.launches = 0
     got = tattn.attention(*_to_torch(q, k, v), **kw)
     assert fa.launches == 0
@@ -326,6 +333,24 @@ def test_chunked_on_a_ragged_kv_axis_matches_direct():
         jax_chunked = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                                  causal=causal, impl="chunked", chunk=128))
         assert np.abs(jax_chunked - want).max() > 1e-2  # the JAX package's padding fault
+
+
+@pytest.mark.parametrize("S", [50, 64, 300])
+def test_windowed_attention_on_a_ragged_sequence_matches_direct(S):
+    """A window of 16 over S = 50 and 300 (ragged) and 64: every path against
+    the port's direct path, causal and not.  The banded path padded the
+    ragged last chunk with zero keys and, without the causal mask, let real
+    queries attend to them; it also held a non-causal query to two chunks,
+    where the window lets it see every later key.  Causal windows still take
+    the banded path; non-causal ones the chunked (or direct) path.  The JAX
+    package's banded path has both faults, so it is not the reference here."""
+    torch.manual_seed(0)
+    q, k, v = torch.randn(1, S, 2, 16), torch.randn(1, S, 1, 16), torch.randn(1, S, 1, 16)
+    for causal in (False, True):
+        want = tattn.attention(q, k, v, causal=causal, window=16, impl="direct")
+        for impl in ("chunked", "flash"):
+            got = tattn.attention(q, k, v, causal=causal, window=16, impl=impl, chunk=128)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
 
 
 def test_attention_bf16_matches_jax():

@@ -251,6 +251,74 @@ def test_dist_multiply_goes_through_the_fused_kernel(cuda):
     assert np.linalg.norm(s.gather().to_dense() - exact) <= err
 
 
+
+def _sp2_problem(n, nocc, seed):
+    """A gapped banded Hamiltonian and its overlap S = I + 0.01 |H| (the smoke's)."""
+    rng = np.random.default_rng(seed)
+    diag = np.where(np.arange(n) < nocc, np.linspace(-2.0, -0.5, n), np.linspace(0.5, 2.0, n))
+    h = np.zeros((n, n))
+    i = np.arange(n)
+    for d in range(1, 9):
+        h[i[:-d], i[d:]] = 0.3 * np.exp(-0.5 * d) * rng.standard_normal(n - d)
+    h = (h + h.T) / 2 + np.diag(rng.permutation(diag))
+    return h.astype(np.float32), (np.eye(n) + 0.01 * np.abs(h)).astype(np.float32)
+
+
+def _skewed(nnzb, nparts):
+    from repro_torch.core.schedule import partition_morton
+
+    half = nnzb // 2
+    return np.concatenate([np.zeros(half, np.int32),
+                           partition_morton(nnzb - half, nparts - 1).astype(np.int32) + 1])
+
+
+def test_resident_sp2_on_the_card_repeats_and_rebalances_bit_for_bit(cuda):
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, RebalancePolicy, dist_sp2_purify, scatter
+
+    h, _ = _sp2_problem(512, 160, 1)
+    f = BSMatrix.from_dense(h, 32)
+    mesh = make_worker_mesh(8)
+    kw = dict(idem_tol=1e-6, trunc_tau=1e-5, spamm_tau=1e-7)
+    before = fl.launches
+    d1, st1 = dist_sp2_purify(f, 160, -2.5, 2.5, mesh, **kw)
+    assert fl.launches - before == st1.iterations  # one fused launch per square
+    d2, st2 = dist_sp2_purify(f, 160, -2.5, 2.5, mesh, **kw)
+    d3, st3 = dist_sp2_purify(scatter(f, mesh, owner=_skewed(f.nnzb, 8)), 160, -2.5, 2.5,
+                              cache=PlanCache(), rebalance=RebalancePolicy(), **kw)
+    assert st3.rebalances >= 1
+    for d, st in ((d2, st2), (d3, st3)):
+        assert st.idempotency_history == st1.idempotency_history
+        assert np.array_equal(d.coords, d1.coords) and torch.equal(d.data, d1.data)
+    dd = d1.to_dense().astype(np.float64)
+    assert abs(np.trace(dd) - 160) < 1e-3 and np.abs(dd @ dd - dd).max() < 1e-5
+
+
+def test_resident_pipeline_on_the_card_repeats_and_rebalances_bit_for_bit(cuda):
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, RebalancePolicy, dist_sqrt_inv_pipeline, scatter
+
+    h, s = _sp2_problem(512, 160, 2)
+    H, S = BSMatrix.from_dense(h, 32), BSMatrix.from_dense(s, 32)
+    mesh = make_worker_mesh(8)
+    kw = dict(trunc_tau=1e-5, idem_tol=1e-6)
+    d1, p1 = dist_sqrt_inv_pipeline(S, H, 160, mesh, **kw)
+    d2, _ = dist_sqrt_inv_pipeline(S, H, 160, mesh, **kw)
+    skew = _skewed(S.nnzb, 8)
+    d3, p3 = dist_sqrt_inv_pipeline(scatter(S, mesh, owner=skew), scatter(H, mesh, owner=skew),
+                                    160, cache=PlanCache(), rebalance=RebalancePolicy(), **kw)
+    assert p3.inverse.rebalances + p3.purify.rebalances >= 1
+    for d in (d2, d3):
+        assert np.array_equal(d.coords, d1.coords) and torch.equal(d.data, d1.data)
+    # against the float64 generalized eigenproblem H C = S C E
+    L = np.linalg.cholesky(s.astype(np.float64))
+    li = np.linalg.inv(L)
+    _, v = np.linalg.eigh(li @ h.astype(np.float64) @ li.T)
+    m = L.T @ d1.to_dense().astype(np.float64) @ L
+    assert abs(np.trace(m) - 160) < 1e-3
+    assert np.abs(m - v[:, :160] @ v[:, :160].T).max() < 1e-4
+
+
 # --- flash attention (kernels/csrc/flash_attention.cu) ----------------------
 
 # (B, H, HK, Sq, Sk, D, causal, window): the smoke's flash_kernel cases at a smaller S

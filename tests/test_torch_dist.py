@@ -33,6 +33,7 @@ from repro_torch.core.schedule import make_spgemm_plan  # noqa: E402
 from repro_torch.dist import (  # noqa: E402
     PlanCache,
     dist_multiply,
+    dist_sp2_purify,
     dist_spamm,
     resident_block_norms,
     scatter,
@@ -322,10 +323,10 @@ def test_dist_spgemm_unshard_matches_jax(jax_run, port, placement, exchange):
 
 def test_entry_points_refuse_what_is_not_ported(port):
     mesh, m, d = port
-    with pytest.raises(NotImplementedError):
-        dist_multiply(d["band"], d["band"], rebalance=object())
-    with pytest.raises(NotImplementedError):
-        dist_spamm(d["band"], d["band"], 0.1, rebalance=object())
+    # the drivers' observers need the JAX package's repro.obs, not ported yet
+    for kw in (dict(tracer=object()), dict(log=object()), dict(health=object())):
+        with pytest.raises(NotImplementedError):
+            dist_sp2_purify(d["band"], 10, -1.0, 1.0, **kw)
     with pytest.raises(ValueError):
         dist_multiply(d["band"], d["band"], impl="ref", precision=BF16)
     with pytest.raises(ValueError):
