@@ -37,7 +37,24 @@ Phases, one JSON line each:
                       ``sp2`` phase's limits against the float64
                       eigendecomposition of L^-1 H L^-T; then the same run
                       from a skewed layout with ``rebalance=``, bit-identical.
-9. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
+9. ``dist_outer``   — the outer-product schedule on Table 1 row 1's
+                      random-blocks structure (N = 100,000, band half-width
+                      3000, one dense block of 15,716; 2 workers, bs 128):
+                      ``choose_schedule`` picks it over the p2p plan;
+                      ``dist_spgemm_outer`` (one ``block_spmm`` launch for
+                      both workers) held per block against the resident p2p
+                      ``dist_multiply`` and bit-identical on repeat; kernel,
+                      exchange and accumulate timed; then the N = 8192 band
+                      on 8 workers against the plain version.
+10. ``dist_observatory`` — the ``dist_pipeline`` phase's skewed run with the
+                      plan verifier (``verify="always"``), tracer, event log,
+                      memory meter, locality ledger, flight recorder and
+                      health monitor on: D bit-identical to the static run,
+                      no violation, a valid trace with 8 worker tracks, the
+                      ledger conserving bytes; the host time split between
+                      plan builds, verification, dispatch and the rest; the
+                      observatory's overhead on the warm pipeline, in turns.
+11. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
                       cores) against their plain version over eight shapes
                       (qwen2-0.5b's layer, non-causal D 80, D 128 and 256
                       with one kv head, a decode-style suffix, a window,
@@ -46,18 +63,18 @@ Phases, one JSON line each:
                       beside the plain version, the bounds and SDPA (a
                       yardstick only); the ``build`` phase fails on a spill
                       in any fp32 instantiation it compiled.
-10. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
+12. ``lm_forward``   — qwen2-0.5b at full width (24 layers, d 896, vocab
                       151,936), seeded random weights, B 2 x S 4096:
                       ``apply(attn_impl="flash")`` against ``"direct"`` in fp32
                       and bf16, 24 kernel launches per forward.
-11. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
+13. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
                       32 new tokens; a flash forward over the generated
                       sequences confirms every decode step's logits and token.
-12. ``dist_pipeline_profile`` — the ``dist_pipeline`` phase's static run
+14. ``dist_pipeline_profile`` — the ``dist_pipeline`` phase's static run
                       replayed on a full plan cache under ``torch.profiler``:
                       the card's busy share and the fused kernel's time
                       (last, since a profiler session slows later launches).
-13. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
+15. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
     its launches per type), then ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
@@ -118,11 +135,15 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             sp2_n=8192, sp2_bs=128, sp2_nocc=2560,
             fused_p=8, r24_n=4800, r24_hw=600, small_n=2048,
             dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8, pipe_p=8,
+            outer=dict(n=100_000, bs=128, hw=3000, block=15716, p=2,
+                       small_n=8192, small_hw=1000, small_p=8),
             flash=FLASH_FULL, lm_reduced=False, lm_seq=4096)
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
                  dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8, pipe_p=8,
+                 outer=dict(n=4096, bs=32, hw=120, block=640, p=2,
+                            small_n=1024, small_hw=120, small_p=8),
                  flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64)
 
 
@@ -142,6 +163,7 @@ class Context:
         self.torch = torch
         self.rehearse = rehearse
         self.dev = torch.device("cpu" if rehearse else "cuda")
+        self.card = None  # nvidia-smi's name and power limit, set by main on the card
 
     def sync(self) -> None:
         if self.dev.type == "cuda":
@@ -839,7 +861,8 @@ def phase_dist_multiply(ctx, sizes) -> dict:
                b_send_caps=[int(plan.b_send[x].shape[1]) for x in plan.b_offsets],
                c_cap=plan.c_cap, c_store_gb=P * plan.c_cap * bs * bs * 4 / 1e9,
                tasks_per_worker=plan.task_count.tolist(),
-               scatter_s=scatter_s, plan_build_s=cache.build_s, first_call_s=cold_s,
+               scatter_s=scatter_s, plan_build_s=cache.build_s, verify_s=cache.verify_s,
+               plans_verified=cache.plans_verified, first_call_s=cold_s,
                warm_call_s=warm_s, exchange_ms=exchange_ms, kernel_ms=kernel_ms,
                kernel_tflops=flops / (kernel_ms * 1e-3) / 1e12, **bound,
                exchanged_bytes=float(recv.sum()), exchanged_bytes_padded=float(padded.sum()),
@@ -1027,7 +1050,8 @@ def phase_dist_pipeline(ctx, sizes) -> dict:
                     sp2_iterations=st.purify.iterations,
                     sp2_s_per_iteration=sp2_s / st.purify.iterations,
                     sp2_nnzb_history=st.purify.nnzb_history, bounds=list(st.bounds),
-                    plan_build_s=cache.build_s, symbolic_s=cache.symbolic_s,
+                    plan_build_s=cache.build_s, verify_s=cache.verify_s,
+                    symbolic_s=cache.symbolic_s,
                     cache=dict(hits=cache.hits, misses=cache.misses),
                     zero_miss_iterations=dict(
                         refinement=sum(r["cache_misses"] == 0 for r in st.inverse.per_iter),
@@ -1048,6 +1072,7 @@ def phase_dist_pipeline(ctx, sizes) -> dict:
         setattr(obj, name, value)
     try:
         d, static = run(None, None)
+        ctx.pipeline_d = d  # the observatory phase holds its D to this one, bit for bit
         skew = _skewed_owner(S.nnzb, P)
         d_reb, rebalanced = run(skew, RebalancePolicy())
     finally:
@@ -1082,6 +1107,380 @@ def phase_dist_pipeline(ctx, sizes) -> dict:
     check(out["trace_error"] <= 1e-3, "|trace(L^T D L) - nocc| > 1e-3")
     check(out["idempotency_max"] <= 1e-6, "max |M^2 - M| > 1e-6")
     check(out["max_abs_m_minus_ref"] <= 1e-4, "max |M - V_occ V_occ^T| > 1e-4")
+    return out
+
+
+def random_blocks_coords(n: int, bs: int, hw: int, block: int, seed: int = 0):
+    """Block structure of ``benchmarks/weak_scaling.py``'s ``random`` family with one block.
+
+    The band ``|I - J| <= ceil(hw / bs)`` of ``_band_block_coords`` plus the
+    blocks of one dense ``block x block`` square on the diagonal, placed as
+    ``_random_block_starts(n, block, 1, seed)`` places it, Morton-sorted.  The
+    formulas are copied here because that benchmark imports the JAX package.
+    """
+    import numpy as np
+    from repro_torch.core.quadtree import morton_sort
+
+    nb = -(-n // bs)
+    band = band_coords(nb, -(-hw // bs))
+    gaps = np.random.default_rng(seed).multinomial(n - block, np.ones(2) / 2)
+    b0, sb = int(gaps[0]) // bs, -(-block // bs)
+    r = np.arange(b0, min(b0 + sb + 1, nb))
+    square = np.stack(np.meshgrid(r, r, indexing="ij"), -1).reshape(-1, 2)
+    codes = np.unique(np.concatenate([band[:, 0] * nb + band[:, 1], square[:, 0] * nb + square[:, 1]]))
+    coords = np.stack([codes // nb, codes % nb], 1).astype(np.int64)
+    return coords[morton_sort(coords)]
+
+
+def max_block_excess(got, want, tol, chunk: int = 4096) -> float:
+    """max over blocks of ``max|got - want| / tol`` (both ``[n, bs, bs]`` on one device), in chunks."""
+    worst = 0.0
+    for k in range(0, got.shape[0], chunk):
+        err = (got[k:k + chunk].double() - want[k:k + chunk].double()).abs().amax(dim=(1, 2))
+        worst = max(worst, float((err / tol[k:k + chunk]).max()))
+    return worst
+
+
+def phase_dist_outer(ctx, sizes) -> dict:
+    """The outer-product schedule on the paper's poor-locality case.
+
+    Table 1 row 1's random-blocks structure (N = 100,000, band half-width
+    3000, one dense block of 15,716) on Table 1 row 1's 2 workers at leaf
+    128, random block values from a seed: ``choose_schedule`` must pick the
+    outer schedule; ``dist_spgemm_outer`` (one ``block_spmm`` launch for both
+    workers) is held per block against the resident p2p ``dist_multiply`` of
+    the same operands; two outer calls must agree bit for bit.  Then the
+    N = 8192 band on 8 workers, where the partials travel several offsets,
+    against the outer multiply's plain version element for element.
+    """
+    import numpy as np
+
+    torch = ctx.torch
+    import repro_torch.core.outer as outer
+    from repro_torch.core import BSMatrix
+    from repro_torch.core.distributed import (OuterSpgemmExecutable, dist_spgemm_outer,
+                                              make_worker_mesh, shard_stores, unshard_result)
+    from repro_torch.core.schedule import plan_stats
+    from repro_torch.core.spgemm import spgemm_symbolic
+    from repro_torch.dist import PlanCache, dist_multiply, scatter
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import ops
+
+    cfg = sizes["outer"]
+    n, bs, P = cfg["n"], cfg["bs"], cfg["p"]
+    coords = random_blocks_coords(n, bs, cfg["hw"], cfg["block"])
+    gen = torch.Generator(device=ctx.dev).manual_seed(300)
+    a = BSMatrix(shape=(n, n), bs=bs, coords=coords,
+                 data=torch.randn((coords.shape[0], bs, bs), generator=gen, device=ctx.dev))
+    mesh = make_worker_mesh(P, ctx.dev)
+    t0 = time.perf_counter()
+    tasks = spgemm_symbolic(coords, coords)
+    symbolic_s = time.perf_counter() - t0
+
+    # choose_schedule builds both plans; the wrappers keep them and time each
+    built, real = {}, {}
+
+    def keep(name, fn):
+        real[name] = fn
+
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            plan = fn(*a, **k)
+            built[name] = (plan, time.perf_counter() - t)
+            return plan
+        return wrapped
+
+    outer.make_spgemm_plan = keep("p2p", outer.make_spgemm_plan)
+    outer.make_outer_plan = keep("outer", outer.make_outer_plan)
+    try:
+        t0 = time.perf_counter()
+        kind, plan, stats = outer.choose_schedule(coords, coords, P, bs, tasks=tasks)
+        choose_s = time.perf_counter() - t0
+    finally:
+        outer.make_spgemm_plan, outer.make_outer_plan = real["p2p"], real["outer"]
+    p2p_plan, p2p_build_s = built["p2p"]
+    outer_build_s = built["outer"][1]
+    p2p_recv = plan_stats(p2p_plan)["recv_bytes_mean"]
+    del p2p_plan
+    check(kind == "outer", f"choose_schedule picked {kind!r} on the random-blocks structure")
+    check(stats["recv_bytes_mean"] < p2p_recv, "the outer plan receives no fewer bytes")
+
+    # the outer multiply: one-shot first call, then warm calls on laid-out stores
+    if ctx.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    expected = 0 if ctx.rehearse else 1
+    bsp.launches = 0  # the main path's count starts here
+    ctx.sync()
+    t0 = time.perf_counter()
+    c_first = dist_spgemm_outer(plan, a.data, a.data, mesh)
+    ctx.sync()
+    first_s = time.perf_counter() - t0
+    first_launches = bsp.launches
+    del c_first
+    exe = OuterSpgemmExecutable(plan, mesh)
+    a_store, b_store = shard_stores(plan, a.data, a.data)
+    t0 = time.perf_counter()
+    c1 = exe(a_store, b_store)
+    ctx.sync()
+    warm_s = time.perf_counter() - t0
+    c2 = exe(a_store, b_store)
+    ctx.sync()
+    launches = bsp.launches  # ... and is read here
+    check(first_launches == expected and launches == 3 * expected,
+          f"outer multiply: {first_launches} then {launches} block_spmm launches for 1 then 3 calls")
+    repeat_identical = bool(torch.equal(c1, c2))
+    check(repeat_identical, "two outer calls differ")
+    del c2
+    outer_peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+
+    # the kernel, the partials' exchange and the accumulate alone (CUDA events)
+    T = tasks.num_tasks
+    kernel_ms = ctx.time_ms(lambda: exe.partials(a_store, b_store), reps=2)
+    partials = exe.partials(a_store, b_store)
+    exchange_ms = ctx.time_ms(lambda: exe.exchange(partials), reps=3)
+    received = exe.exchange(partials)
+    accumulate_ms = ctx.time_ms(lambda: exe.accumulate(partials, received), reps=2)
+    bound = gemm_bound(T, bs, bs, bs, a.nnzb, a.nnzb, P * plan.p_cap, 4)
+    del partials, received, a_store, b_store, exe
+    c_outer = unshard_result(plan, c1, (n, n), bs)
+    del c1
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # the owner-computes multiply of the same operands, resident
+    d = scatter(a, mesh)
+    cache = PlanCache()
+    ctx.sync()
+    t0 = time.perf_counter()
+    c = dist_multiply(d, d, cache)
+    ctx.sync()
+    p2p_first_s = time.perf_counter() - t0
+    del c
+    t0 = time.perf_counter()
+    c = dist_multiply(d, d, cache)
+    ctx.sync()
+    p2p_warm_s = time.perf_counter() - t0
+    p2p_peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+    g = c.gather()
+    del c, d
+    check(bool(np.array_equal(g.coords, c_outer.coords)), "outer and p2p output structures differ")
+    run_ptr = torch.from_numpy(np.searchsorted(tasks.c_idx, np.arange(tasks.num_out + 1))).to(ctx.dev)
+    tol = block_tolerance(a.data, a.data, torch.from_numpy(tasks.a_idx).to(ctx.dev),
+                          torch.from_numpy(tasks.b_idx).to(ctx.dev), run_ptr)
+    worst = max_block_excess(c_outer.data, g.data, tol)
+    check(worst <= 1.0, f"outer vs p2p: a block differs by {worst} x its tolerance")
+    del g, c_outer, a
+
+    # the small case: several offsets, the launch against its plain version
+    sn, sp = cfg["small_n"], cfg["small_p"]
+    small = banded_matrix(ctx, sn, cfg["small_hw"], bs, seed=301)
+    splan = outer.make_outer_plan(small.coords, small.coords, sp, bs)
+    check(len(splan.offsets) >= 2, f"the small outer plan has offsets {splan.offsets}")
+    smesh = make_worker_mesh(sp, ctx.dev)
+    got = dist_spgemm_outer(splan, small.data, small.data, smesh)
+    want = dist_spgemm_outer(splan, small.data, small.data, smesh, impl="ref")
+    st = splan.tasks
+    srun = torch.from_numpy(np.searchsorted(st.c_idx, np.arange(st.num_out + 1))).to(ctx.dev)
+    stol = block_tolerance(small.data, small.data, torch.from_numpy(st.a_idx).to(ctx.dev),
+                           torch.from_numpy(st.b_idx).to(ctx.dev), srun)
+    got_b = unshard_result(splan, got, (sn, sn), bs).data
+    want_b = unshard_result(splan, want, (sn, sn), bs).data
+    small_excess = max_block_excess(got_b, want_b, stol)
+    small_err = float((got_b - want_b).abs().max())
+    check(small_excess <= 1.0, f"small outer case: kernel vs plain {small_excess} x tolerance")
+    check(not got[torch.from_numpy(~splan.c_store_valid).to(ctx.dev)].any(),
+          "small outer case: padding C slots are not zero")
+    out = dict(phase="dist_outer", card=ctx.card, n=n, bs=bs, workers=P, half_bandwidth=cfg["hw"],
+               dense_block=cfg["block"], a_blocks=int(coords.shape[0]),
+               a_gb=coords.shape[0] * bs * bs * 4 / 1e9, tasks=T, tflop=2.0 * T * bs**3 / 1e12,
+               c_blocks=tasks.num_out, schedule=kind,
+               outer_recv_bytes_mean=stats["recv_bytes_mean"], p2p_recv_bytes_mean=p2p_recv,
+               a_cap=plan.a_cap, p_cap=plan.p_cap, c_cap=plan.c_cap, offsets=list(plan.offsets),
+               symbolic_s=symbolic_s, choose_schedule_s=choose_s,
+               outer_plan_build_s=outer_build_s, p2p_plan_build_s=p2p_build_s,
+               outer_verify_s=None,  # neither package has a verifier for the outer plan
+               outer_first_call_s=first_s, outer_warm_call_s=warm_s,
+               kernel_ms=kernel_ms, kernel_tflops=2.0 * T * bs**3 / (kernel_ms * 1e-3) / 1e12,
+               **bound, exchange_ms=exchange_ms, accumulate_ms=accumulate_ms,
+               outer_max_memory_allocated=outer_peak,
+               p2p_first_call_s=p2p_first_s, p2p_warm_call_s=p2p_warm_s,
+               p2p_plan_build_s_in_cache=cache.build_s, p2p_verify_s=cache.verify_s,
+               p2p_plans_verified=cache.plans_verified, p2p_max_memory_allocated=p2p_peak,
+               max_err_over_tol_vs_p2p=worst, repeat_bit_identical=repeat_identical,
+               launches=launches, small=dict(n=sn, workers=sp, offsets=list(splan.offsets),
+                                             tasks=st.num_tasks, max_abs_err=small_err,
+                                             max_err_over_tol=small_excess))
+    emit(out)
+    return out
+
+
+def phase_dist_observatory(ctx, sizes) -> dict:
+    """The ``dist_pipeline`` phase's skewed run with the whole observatory on.
+
+    Plan cache with ``verify="always"``, a memory meter, a locality ledger
+    and a flight recorder; the tracer, a debug-level event log and a health
+    policy passed to the driver; ``rebalance=``.  D must equal the static
+    run's bit for bit although the health monitor refits the load balancer
+    live; no plan or payload may fail verification; the written trace must
+    validate with one track per worker; the ledger must conserve bytes on
+    every worker; the log must hold the run's events.  Then the split of the
+    host time between the spans, and the observatory's overhead: the warm
+    pipeline on the static layout with everything on against everything
+    off, in turns.
+    """
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    torch = ctx.torch
+    import repro_torch.dist.purify as pur
+    from repro_torch.core import BSMatrix
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, RebalancePolicy, scatter
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.obs import (EventLog, FlightRecorder, HealthPolicy, LocalityLedger,
+                                 MemoryMeter, Tracer, load_events, validate_chrome_trace,
+                                 write_chrome_trace)
+
+    n, bs, nocc, P = sizes["sp2_n"], sizes["sp2_bs"], sizes["sp2_nocc"], sizes["pipe_p"]
+    h, s_dense = _hamiltonian(n, nocc, seed=7)
+    mesh = make_worker_mesh(P, ctx.dev)
+    H = BSMatrix.from_dense(h, bs, device=ctx.dev)
+    S = BSMatrix.from_dense(s_dense, bs, device=ctx.dev)
+    kw = dict(trunc_tau=1e-5, idem_tol=1e-6)
+    skew = _skewed_owner(S.nnzb, P)
+
+    def observed(tmp, **cache_kw):
+        cache = PlanCache(**cache_kw)
+        meter = MemoryMeter().install(cache)
+        ledger = LocalityLedger().install(cache)
+        rec = FlightRecorder(str(Path(tmp) / "postmortem.json")).install(cache)
+        log = EventLog(str(Path(tmp) / "events.jsonl"), level="debug")
+        return cache, meter, ledger, rec, log
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache, meter, ledger, rec, log = observed(tmp, verify="always")
+        tracer = Tracer()
+        ds, dh = scatter(S, mesh, owner=skew), scatter(H, mesh, owner=skew)
+        if ctx.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        fl.launches = 0  # the main path's count starts here
+        ctx.sync()
+        t0 = time.perf_counter()
+        d, st = pur.dist_sqrt_inv_pipeline(ds, dh, nocc, cache=cache, rebalance=RebalancePolicy(),
+                                           tracer=tracer, log=log, health=HealthPolicy(), **kw)
+        ctx.sync()
+        wall = time.perf_counter() - t0
+        launches = fl.launches  # ... and is read here
+        log.close()
+        peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+        identical = (np.array_equal(d.coords, ctx.pipeline_d.coords)
+                     and bool(torch.equal(d.data, ctx.pipeline_d.data)))
+        check(identical, "D with the observatory on is not bit-identical to the static run's")
+        check(cache.verify_violations == 0 and cache.plans_verified > 0,
+              f"verifier: {cache.plans_verified} values verified, "
+              f"{cache.verify_violations} violations")
+        trace_path = str(Path(tmp) / "trace.json")
+        summary = write_chrome_trace(tracer, trace_path)
+        check(validate_chrome_trace(trace_path) == summary and summary["workers"] == P,
+              f"trace: {summary['workers']} worker tracks")
+        lsum = ledger.summary()
+        for w in lsum["per_worker"]:
+            check(w["local_bytes"] + w["shipped_bytes"] == w["referenced_bytes"],
+                  f"ledger: worker {w['worker']} local + shipped != referenced")
+        events = {e["event"] for e in load_events(str(Path(tmp) / "events.jsonl"))}
+        check({"run_start", "run_end", "iteration", "plan_build"} <= events,
+              f"event log holds {sorted(events)}")
+        diverged = bool({"sp2_divergence", "refine_divergence"} & events)
+        pm_written = (Path(tmp) / "postmortem.json").exists()
+        check(pm_written == diverged, f"postmortem written {pm_written}, divergence logged {diverged}")
+
+    # the host time between the spans: outermost spans of each kind
+    def total(names):
+        spans = tracer.spans
+        out = 0.0
+        for sp in spans:
+            if sp.name not in names:
+                continue
+            p = sp.parent
+            while p >= 0 and spans[p].name not in names:
+                p = spans[p].parent
+            if p < 0:
+                out += sp.dur
+        return out
+
+    split = dict(plan_build_s=total({"plan_build"}), plan_verify_s=total({"plan_verify"}),
+                 dispatch_s=total({"dispatch"}),
+                 symbolic_s=total({sp.name for sp in tracer.spans if sp.cat == "symbolic"}))
+    split["rest_s"] = wall - sum(split.values())
+    health = [x for x in (st.inverse.health, st.purify.health) if x is not None]
+    alerts: dict = {}
+    for hsum in health:
+        for k, v in hsum["alerts_by_kind"].items():
+            alerts[k] = alerts.get(k, 0) + v
+
+    # overhead: warm pipeline, static layout, everything on (verify="always",
+    # as above) and the observers on with the default verify="cached-once"
+    # (which verifies nothing on a warm run) against everything off, in turns
+    logs = []
+
+    def warm_runner(config, tmp):
+        extra = {}
+        if config == "off":
+            cache = PlanCache(max_entries=4096)
+        else:
+            verify = "always" if config == "on" else "cached-once"
+            cache, _, _, _, wlog = observed(tmp, max_entries=4096, verify=verify)
+            logs.append(wlog)
+            extra = dict(tracer=Tracer(), log=wlog, health=HealthPolicy())
+
+        def run():
+            return pur.dist_sqrt_inv_pipeline(scatter(S, mesh), scatter(H, mesh), nocc,
+                                              cache=cache, **extra, **kw)
+        run()  # fills the plan cache: every later run is all hits
+        return run
+
+    configs = ("off", "on", "on_cached_once")
+    walls = {c: [] for c in configs}
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in configs:
+            (Path(tmp) / c).mkdir()
+        runners = {c: warm_runner(c, str(Path(tmp) / c)) for c in configs}
+        for k in range(3):
+            for c in configs[k:] + configs[:k]:
+                ctx.sync()
+                t0 = time.perf_counter()
+                runners[c]()
+                ctx.sync()
+                walls[c].append(time.perf_counter() - t0)
+        for wlog in logs:
+            wlog.close()
+    med = {c: statistics.median(w) for c, w in walls.items()}
+    out = dict(phase="dist_observatory", card=ctx.card, n=n, bs=bs, nocc=nocc, workers=P, **kw,
+               skew="first half of the Morton order on worker 0", seconds=wall,
+               bit_identical_to_static=identical, launches=launches,
+               plans_verified=cache.plans_verified, verify_violations=cache.verify_violations,
+               verify_s=cache.verify_s, plan_build_s=cache.build_s,
+               cache=dict(hits=cache.hits, misses=cache.misses),
+               trace=dict(workers=summary["workers"], host_spans=summary["host_spans"],
+                          events=summary["events"]),
+               events=sorted(events), postmortem_written=pm_written,
+               health_alerts_by_kind=alerts, health_refits=sum(x["refits"] for x in health),
+               rebalances=st.inverse.rebalances + st.purify.rebalances,
+               meter_worker_peak_bytes=meter.worker_peak().tolist(),
+               max_memory_allocated=peak,
+               ledger=dict(locality_flops=lsum["locality_flops"],
+                           locality_bytes=lsum["locality_bytes"],
+                           local_bytes=lsum["local_bytes"], shipped_bytes=lsum["shipped_bytes"],
+                           dispatches=lsum["dispatches"]),
+               host_split=split, host_split_share={k: v / wall for k, v in split.items()},
+               overhead=dict(walls_s=walls, median_s=med,
+                             on_overhead_pct=100.0 * (med["on"] / med["off"] - 1.0),
+                             on_cached_once_overhead_pct=100.0 * (
+                                 med["on_cached_once"] / med["off"] - 1.0)))
+    emit(out)
     return out
 
 
@@ -1450,6 +1849,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx = Context(torch, args.rehearse)
+    if not args.rehearse:
+        ctx.card = smi.stdout.strip().splitlines()[0]
     sizes = REHEARSAL if args.rehearse else FULL
     t0 = time.perf_counter()
 
@@ -1467,6 +1868,9 @@ def main(argv=None) -> int:
     dmul = phase(phase_dist_multiply, ctx, sizes)
     dspamm = phase(phase_dist_spamm, ctx, sizes)
     dpipe = phase(phase_dist_pipeline, ctx, sizes)
+    douter = phase(phase_dist_outer, ctx, sizes)
+    dobs = phase(phase_dist_observatory, ctx, sizes)
+    del ctx.pipeline_d
     flash = phase(phase_flash_kernel, ctx, sizes)
     model = lm_model(ctx, sizes)
     fwd = phase(phase_lm_forward, ctx, sizes, model)
@@ -1492,14 +1896,14 @@ def main(argv=None) -> int:
     emit({"kernels": [
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
-             launches=mul["launches"] + sp2["kernel_launches"],
+             launches=mul["launches"] + sp2["kernel_launches"] + douter["launches"],
              max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
              bound_by=timing["bound_by"], library_ms=None),
         dict(name="fused_block_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
              replaces="src/repro/kernels/fused_leaf.py:71",
-             launches=dmul["launches"] + dspamm["launches"] + dpipe["launches"],
+             launches=dmul["launches"] + dspamm["launches"] + dpipe["launches"] + dobs["launches"],
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
              bound_by=ftiming["bound_by"], library_ms=None),

@@ -6,7 +6,9 @@ analogous repeated cost is the *symbolic phase*: quadtree descent, task-list
 construction, truncation selection.  :class:`SymbolicCache` memoizes those
 behind keys derived from :func:`repro_torch.core.quadtree.structure_fingerprint`
 of the operand structures — every `sp2_purify` iteration after the sparsity
-pattern stabilizes under truncation skips the symbolic phase entirely.
+pattern stabilizes under truncation skips the symbolic phase entirely,
+mirroring what :class:`repro_torch.dist.PlanCache` (a subclass) does for the
+distributed plans and their executables.
 
 Hit/miss counters are surfaced via :meth:`SymbolicCache.stats`.
 """
@@ -16,32 +18,21 @@ from __future__ import annotations
 import collections
 from typing import Any, Callable, Hashable
 
-from ..analysis.errors import PlanError, Violation
+from ..analysis.errors import PlanError
 from ..obs.log import NULL_LOG
 from ..obs.timing import timed_into
 from ..obs.tracer import NULL_TRACER
 
-__all__ = ["SymbolicCache", "verify_value"]
-
-
-def verify_value(key: Hashable, value: Any) -> list[Violation] | None:
-    """Static-verification report for a cached value, ``None`` if unverifiable.
-
-    The single-device path caches only symbolic task lists, which carry
-    nothing to verify — the JAX package's verifier
-    (``repro/analysis/verify.py``, ``verify_value``) returns ``None`` for
-    them too.  Distributed plans, which it does verify, arrive with the port
-    of the resident runtime.
-    """
-    return None
+__all__ = ["SymbolicCache"]
 
 
 class SymbolicCache:
     """LRU cache from structure keys to built symbolic results.
 
     Keys are hashable tuples (callers prefix them with a kind tag such as
-    ``"spgemm"``).  Values are whatever the builder returns — a
-    :class:`~repro_torch.core.spgemm.Tasks` list on the single-device path.
+    ``"spgemm"`` / ``"add"`` / ``"trace"``).  Values are whatever the builder
+    returns — a :class:`~repro_torch.core.spgemm.Tasks` list on the
+    single-device path, a (plan, executable) pair on the distributed path.
     """
 
     #: verification policies: "off" never verifies; "cached-once" verifies
@@ -58,6 +49,16 @@ class SymbolicCache:
         self.tracer = tracer
         self.event_log = event_log
         self.verify = verify
+        # optional observatory riders (repro_torch.obs): a FlightRecorder
+        # dumps a postmortem when plan admission raises PlanError or a
+        # driver's divergence trip fires; a MemoryMeter accounts per-worker
+        # device bytes at the dispatch sites; a LocalityLedger splits each
+        # dispatch's operand reads into locally-owned and shipped bytes.  All
+        # default off and are read back with getattr, so paths without them
+        # pay nothing.
+        self.flight_recorder = None
+        self.memory_meter = None
+        self.locality_ledger = None
         self._entries: collections.OrderedDict[Hashable, Any] = (
             collections.OrderedDict()
         )
@@ -128,11 +129,19 @@ class SymbolicCache:
         return value
 
     def _verify_value(self, key: Hashable, value: Any) -> None:
-        """Static-verification hook at cache admission.
+        """Static-verification hook at cache admission (repro_torch.analysis).
 
-        Unverifiable values (symbolic task lists) pass through; a non-empty
-        violation report raises :class:`PlanError`.
+        Unverifiable values (symbolic task lists, reductions) pass through;
+        plans and the add / compact / relayout / norm-table executables are
+        re-proved, and a non-empty violation report raises
+        :class:`PlanError` — surfaced through the tracer as
+        ``plan_verify_violation`` instants plus ``plans_verified`` /
+        ``verify_violations`` counters, through the event log as a
+        ``plan_error`` record, and through the flight recorder as a
+        postmortem.
         """
+        from ..analysis.verify import verify_value
+
         tr = self.tracer
         kind = key[0] if isinstance(key, tuple) else "?"
         with timed_into(self, "verify_s", tr, "plan_verify", cat="analysis",
@@ -141,12 +150,31 @@ class SymbolicCache:
         if report is None:
             return
         self.plans_verified += 1
+        if tr.enabled:
+            tr.counter("plans_verified").add()
         if report:
             self.verify_violations += len(report)
-            raise PlanError(
+            if tr.enabled:
+                tr.counter("verify_violations").add(len(report))
+                for viol in report[:32]:
+                    tr.instant("plan_verify_violation", cat="analysis",
+                               check=viol.check, message=viol.message,
+                               **viol.provenance)
+            message = (
                 f"{kind} plan failed static verification with "
                 f"{len(report)} violation(s); first: [{report[0].check}] "
-                f"{report[0].message}", report)
+                f"{report[0].message}")
+            lg = self._event_log
+            if lg.enabled:
+                lg.error("plan_error", kind=str(kind), message=message,
+                         violations=len(report), check=report[0].check)
+            rec = self.flight_recorder
+            if rec is not None:
+                rec.dump("plan_error", self, kind=str(kind), message=message,
+                         violations=[dict(check=v.check, message=v.message,
+                                          **v.provenance)
+                                     for v in report[:16]])
+            raise PlanError(message, report)
 
     def peek(self, key: Hashable, default: Any = None) -> Any:
         """Read an entry without touching counters or LRU order."""

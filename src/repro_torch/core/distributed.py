@@ -61,6 +61,8 @@ __all__ = [
     "MaskedSpgemmExecutable",
     "FusedSpgemmExecutable",
     "MaskedFusedSpgemmExecutable",
+    "OuterSpgemmExecutable",
+    "dist_spgemm_outer",
 ]
 
 #: the staged engines: the plain version, the block_spmm kernel, or the one
@@ -387,7 +389,9 @@ class MaskedFusedSpgemmExecutable(FusedSpgemmExecutable):
     slots referenced only by masked-out tasks ship zeros, and rounds whose
     every slot is masked are skipped.  ``task_low`` feeds the adaptive
     precision mode.  ``last_exchange`` records the pruning stats of the most
-    recent call (None when it ran the full exchange).
+    recent call and ``last_keeps`` its host keep-mask pair
+    ``(a_keeps, b_keeps)``, which the locality ledger reads to meter only the
+    blocks that shipped (both None when it ran the full exchange).
     """
 
     def __init__(self, plan: SpgemmPlan, mesh: WorkerMesh, *, impl: str = "fused",
@@ -395,6 +399,7 @@ class MaskedFusedSpgemmExecutable(FusedSpgemmExecutable):
         self._setup(plan, mesh, impl, precision)
         self.prune_exchange = prune_exchange
         self.last_exchange: dict | None = None
+        self.last_keeps: tuple | None = None
 
     def _keep_task_from_mask(self, task_on: np.ndarray) -> np.ndarray:
         plan = self.plan
@@ -409,11 +414,12 @@ class MaskedFusedSpgemmExecutable(FusedSpgemmExecutable):
         dev = self.mesh.device
         task_on = np.asarray(task_on, dtype=bool)
         keeps, live = None, (None, None)
-        self.last_exchange = None
+        self.last_exchange = self.last_keeps = None
         if self.prune_exchange and (plan.a_offsets or plan.b_offsets):
             a_keeps, b_keeps, live_a, live_b, stats = _exchange_keep_masks(
                 plan, self._keep_task_from_mask(task_on))
             self.last_exchange = stats
+            self.last_keeps = (a_keeps, b_keeps)
             keeps = ([_upload(k, dev, bool) for k in a_keeps], [_upload(k, dev, bool) for k in b_keeps])
             live = (live_a, live_b)
         low = None
@@ -448,6 +454,130 @@ def dist_spgemm(
     else:
         exe = SpgemmExecutable(plan, mesh, impl="auto" if impl == "fused" else impl)
     return exe(a_store, b_store)
+
+
+def outer_accumulate_table(plan) -> np.ndarray:
+    """``[P, c_cap, 1 + R]`` gather table of an outer plan's accumulate.
+
+    Worker ``p``'s accumulate buffer is ``[own partials (p_cap) | receive
+    buffer per offset, in offset order | one zero row]`` — the layout of the
+    plan's ``acc_idx``.  Column 0 of C slot ``j`` indexes the worker's own
+    partial of ``j``, column ``1 + r`` the partial of ``j`` that arrives in
+    round ``r``; a source that sends nothing points at the zero row.  Each
+    slot receives at most one partial from each source, so summing a row's
+    columns left to right adds its partials in ascending ``acc_idx``
+    position, the order of the JAX package's ``segment_sum``.
+    """
+    P, c_cap = plan.nparts, plan.c_cap
+    widths = [plan.p_cap] + [int(plan.send[d].shape[1]) for d in plan.offsets]
+    zero_row = sum(widths)
+    if plan.acc_idx.shape != (P, zero_row):
+        raise PlanError(f"acc_idx of shape {plan.acc_idx.shape} for an accumulate "
+                        f"buffer of {zero_row} rows")
+    col = np.repeat(np.arange(len(widths)), widths)
+    table = np.full((P, c_cap + 1, len(widths)), zero_row, dtype=np.int64)
+    for p in range(P):
+        live = np.nonzero(plan.acc_idx[p] < c_cap)[0]
+        slot, c = plan.acc_idx[p, live].astype(np.int64), col[live]
+        flat = slot * len(widths) + c
+        if np.unique(flat).size != flat.size:
+            raise PlanError(f"outer plan: worker {p} receives two partials of one C slot "
+                            "from one source")
+        table[p, slot, c] = live
+    return table[:, :c_cap]
+
+
+class OuterSpgemmExecutable:
+    """The outer-product multiply (:mod:`repro_torch.core.outer`) bound to a mesh.
+
+    Both operands of every task are local by construction, so the numeric
+    phase is one ``block_spmm`` launch over every worker's task list: the
+    stores are flattened to ``[P * a_cap]`` / ``[P * b_cap]``, worker
+    ``p``'s operand rows are offset by ``p * a_cap`` / ``p * b_cap`` and its
+    partial slots by ``p * p_cap``, and the padded task slots are dropped on
+    the host (each worker's first ``task_count[p]`` tasks are real).  Each
+    worker's partial slots are sorted, so the flat output list is sorted
+    across workers and no trash row is written.  Then one exchange round per
+    offset ships the partials to their C owners (:func:`_receive` on the
+    ``[P, p_cap]`` partial store), and the accumulate is a gather over
+    :func:`outer_accumulate_table` summed column by column — no scatter-add,
+    no atomics.  ``impl`` picks the ``block_spmm`` route as
+    :class:`SpgemmExecutable` does.  The plan's index arrays are uploaded
+    once, at construction.
+    """
+
+    def __init__(self, plan, mesh: WorkerMesh, *, impl: str = "auto"):
+        if mesh.nparts != plan.nparts:
+            raise PlanError(
+                f"plan partitions over {plan.nparts} workers but the mesh has {mesh.nparts}")
+        if impl not in STAGED_IMPLS:
+            raise ValueError(f"outer impl={impl!r} not in {STAGED_IMPLS}")
+        self.plan = plan
+        self.mesh = mesh
+        self.impl = impl
+        dev = mesh.device
+        valid = np.arange(plan.t_cap)[None, :] < plan.task_count[:, None]
+        p, t = np.nonzero(valid)  # worker-major, each worker's tasks ascending
+        self._num_out = plan.nparts * plan.p_cap
+        self._tasks = kops.task_arrays(
+            p * plan.a_cap + plan.task_a[p, t].astype(np.int64),
+            p * plan.b_cap + plan.task_b[p, t].astype(np.int64),
+            p * plan.p_cap + plan.task_c[p, t].astype(np.int64),
+            self._num_out, dev)
+        self._sends = [_upload(plan.send[d], dev) for d in plan.offsets]
+        self._p = _upload(np.arange(plan.nparts)[:, None], dev)
+        self._table = _upload(outer_accumulate_table(plan), dev)
+
+    def partials(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
+        """Every worker's partial C blocks, ``[P, p_cap, bs, bs]`` fp32: one kernel launch."""
+        flat = lambda x: x.reshape(-1, *x.shape[2:]).contiguous()  # noqa: E731
+        c = kops.block_spmm_tensors(flat(a_store), flat(b_store), *self._tasks,
+                                    self._num_out, impl=self.impl)
+        return c.reshape(self.plan.nparts, self.plan.p_cap, *c.shape[1:])
+
+    def exchange(self, partials: torch.Tensor) -> list[torch.Tensor]:
+        """One round per offset: what each worker receives, ``[P, cap_d, bs, bs]``."""
+        return [_receive(partials, d, send) for d, send in zip(self.plan.offsets, self._sends)]
+
+    def accumulate(self, partials: torch.Tensor, received: list) -> torch.Tensor:
+        """C stores ``[P, c_cap, bs, bs]`` from the own partials and the received ones."""
+        return self._sum_columns(self._buffer(partials, received))
+
+    @staticmethod
+    def _buffer(partials: torch.Tensor, received: list) -> torch.Tensor:
+        """Each worker's accumulate buffer ``[own partials | received per offset | zero row]``."""
+        P, _, bm, bn = partials.shape
+        return torch.cat([partials, *received, partials.new_zeros((P, 1, bm, bn))], dim=1)
+
+    def _sum_columns(self, buf: torch.Tensor) -> torch.Tensor:
+        table = self._table
+        c = buf[self._p, table[..., 0]]
+        for col in range(1, table.shape[2]):
+            c += buf[self._p, table[..., col]]
+        return c
+
+    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
+        """Run on per-worker operand stores (``a_store`` ``[P, a_cap, bs, bs]``,
+        ``b_store`` ``[P, b_cap, bs, bs]``); returns C stores ``[P, c_cap, bs, bs]`` fp32."""
+        partials = self.partials(a_store, b_store)
+        buf = self._buffer(partials, self.exchange(partials))
+        del partials  # the buffer holds a copy: free it before the gather allocates C
+        return self._sum_columns(buf)
+
+
+def dist_spgemm_outer(plan, a_data: torch.Tensor, b_data: torch.Tensor,
+                      mesh: WorkerMesh | None = None, *, impl: str = "auto") -> torch.Tensor:
+    """Execute an :class:`~repro_torch.core.outer.OuterPlan`.  Returns C stores
+    ``[P, c_cap, bs, bs]`` (reassemble with :func:`unshard_result`).
+
+    One-shot form: lays the global block stacks out into the plan's
+    contraction-index stores each call.  The mesh defaults to the data's
+    device; ``impl`` is ``"auto"`` (the ``block_spmm`` kernel on the card,
+    its plain version on the CPU), ``"kernel"`` or ``"ref"``.
+    """
+    mesh = mesh or WorkerMesh(plan.nparts, a_data.device)
+    a_store, b_store = shard_stores(plan, a_data.to(mesh.device), b_data.to(mesh.device))
+    return OuterSpgemmExecutable(plan, mesh, impl=impl)(a_store, b_store)
 
 
 def unshard_result(plan: SpgemmPlan, c_stores: torch.Tensor, shape, bs) -> BSMatrix:

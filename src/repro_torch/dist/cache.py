@@ -33,8 +33,12 @@ class PlanCache(SymbolicCache):
     index arrays on the device.  Every key fingerprints the operand owner
     maps, so a re-layout re-keys downstream plans automatically.
 
-    ``verify=`` is the admission policy inherited from
-    :class:`SymbolicCache`.  The port's verifier hook recognises no value
-    yet (the JAX package's plan verifier, ``repro/analysis/verify.py``, is
-    still to port), so admission proves nothing and costs nothing.
+    Admission runs the static verifier (:mod:`repro_torch.analysis`) per
+    the ``verify=`` policy inherited from :class:`SymbolicCache`: the
+    default ``"cached-once"`` re-proves every plan and every add / compact /
+    relayout / norm-table executable once, on the miss path — a zero-miss
+    replay (the stabilized steady state) never verifies and pays nothing —
+    while ``"always"`` re-verifies on every hit and ``"off"`` disables the
+    hook.  Violations raise :class:`repro_torch.analysis.PlanError` before
+    the bad plan is cached.
     """

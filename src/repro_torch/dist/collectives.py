@@ -138,8 +138,8 @@ class AddExecutable:
             dst_of = c_owner[x_pos]
             return [np.nonzero(dst_of == p)[0].astype(np.int64) for p in range(nparts)]
 
-        a_offsets, a_send, _, a_recv = plan_fetch(a.owner, a.slot, needs(pos_a), nparts)
-        b_offsets, b_send, _, b_recv = plan_fetch(b.owner, b.slot, needs(pos_b), nparts)
+        a_offsets, a_send, a_send_cnt, a_recv = plan_fetch(a.owner, a.slot, needs(pos_a), nparts)
+        b_offsets, b_send, b_send_cnt, b_recv = plan_fetch(b.owner, b.slot, needs(pos_b), nparts)
 
         # union position -> source block index (or -1)
         from_a = -np.ones(nc, dtype=np.int64)
@@ -162,6 +162,20 @@ class AddExecutable:
                     idx_b[p, local] = local_fetch_index(
                         b.owner, b.slot, b_offsets, b_send, b_recv, b.cap, gb, p)
                     val_b[p, local] = 1.0
+
+        # host-side plan copy for static verification at plan-cache
+        # admission (repro_torch.analysis.verify, kind="add") — the device
+        # arrays are not what the verifier reads
+        self._verify_plan = dict(
+            kind="add", nparts=nparts,
+            a_owner=np.asarray(a.owner), a_slot=np.asarray(a.slot), a_cap=a.cap,
+            b_owner=np.asarray(b.owner), b_slot=np.asarray(b.slot), b_cap=b.cap,
+            pos_a=pos_a, pos_b=pos_b, from_a=from_a, from_b=from_b,
+            c_owner=c_owner, c_slot=c_slot, c_cap=c_cap,
+            a_offsets=a_offsets, a_send=a_send, a_send_cnt=a_send_cnt,
+            b_offsets=b_offsets, b_send=b_send, b_send_cnt=b_send_cnt,
+            idx_a=idx_a, idx_b=idx_b, val_a=val_a, val_b=val_b,
+        )
 
         r, c = morton_decode(c_codes)
         self.c_coords = np.stack([r, c], axis=1)
@@ -202,9 +216,11 @@ def dist_add(
     build = lambda: AddExecutable(a, b)  # noqa: E731
     with tr.span("dist_add", cat="collective", nnzb_a=a.nnzb, nnzb_b=b.nnzb):
         exe = cache.get_or_build(key, build) if cache is not None else build()
-        with tr.span("dispatch", cat="kernel", op="add"):
+        with tr.span("dispatch", cat="kernel", op="add") as sp:
             store = tr.sync(exe(a.store, b.store, alpha, beta).to(
                 torch.promote_types(a.dtype, b.dtype)))
+            if tr.enabled:
+                sp.worker_costs = np.bincount(exe.c_owner, minlength=a.nparts).astype(np.float64)
     return DistBSMatrix(
         shape=tuple(a.shape), bs=a.bs, coords=exe.c_coords, owner=exe.c_owner,
         slot=exe.c_slot, cap=exe.c_cap, store=store, mesh=a.mesh,
@@ -311,7 +327,19 @@ def _compact_to_kept(
         gval[p, : len(s)] = 1.0
 
     key = (kind, _structure_key(a), structure_fingerprint(kept))
-    build = lambda: _Gather(a.device, gidx, gval)  # noqa: E731
+
+    def build():
+        exe = _Gather(a.device, gidx, gval)
+        # host-side plan copy for static verification at cache admission
+        # (repro_torch.analysis.verify, kind="compact")
+        exe._verify_plan = dict(
+            kind="compact", label=kind, nparts=a.nparts,
+            a_owner=np.asarray(a.owner), a_slot=np.asarray(a.slot), a_cap=a.cap,
+            kept=np.asarray(kept, dtype=np.int64), new_owner=new_owner,
+            new_slot=new_slot, new_cap=new_cap, gidx=gidx, gval=gval,
+        )
+        return exe
+
     exe = cache.get_or_build(key, build) if cache is not None else build()
     return DistBSMatrix(
         shape=tuple(a.shape) if shape is None else tuple(shape),
@@ -428,10 +456,11 @@ class _RelayoutExecutable:
     Blocks already local gather from the store, the rest travel in planned
     exchange rounds (:func:`repro_torch.core.schedule.plan_fetch`).
     Transpose (``src`` = the transpose permutation) and repartition (``src``
-    = identity) are both this plan.
+    = identity) are both this plan; ``label`` names which in the host copy
+    of the plan that the verifier reads at cache admission.
     """
 
-    def __init__(self, x: DistBSMatrix, out_owner: np.ndarray, src: np.ndarray):
+    def __init__(self, x: DistBSMatrix, out_owner: np.ndarray, src: np.ndarray, label: str):
         nparts = x.nparts
         out_slot, out_stores = _owner_slots(out_owner, nparts)
         out_cap = _cap(out_stores)
@@ -448,6 +477,13 @@ class _RelayoutExecutable:
                 gidx[p, local] = local_fetch_index(
                     x.owner, x.slot, offsets, send, recv, x.cap, src[o], p)
                 gval[p, local] = 1.0
+        self._verify_plan = dict(
+            kind="relayout", label=label, nparts=nparts,
+            x_owner=np.asarray(x.owner), x_slot=np.asarray(x.slot), x_cap=x.cap,
+            src=np.asarray(src), out_owner=np.asarray(out_owner),
+            out_slot=np.asarray(out_slot), out_cap=out_cap, offsets=offsets,
+            send=send, send_cnt=send_cnt, gidx=gidx, gval=gval,
+        )
         # per-source true send counts (stats attribution)
         self.sent_blocks = np.zeros(nparts, dtype=np.int64)
         for d in offsets:
@@ -478,7 +514,7 @@ class TransposeExecutable(_RelayoutExecutable):
 
     def __init__(self, a: DistBSMatrix):
         src = transpose_permutation(a.coords)  # out stack pos -> a stack idx
-        super().__init__(a, a.owner[src], src)  # inherit the operand's cut
+        super().__init__(a, a.owner[src], src, "transpose")  # inherit the operand's cut
         self.src = src
         self.out_coords = a.coords[src][:, ::-1]
 
@@ -501,8 +537,16 @@ def dist_transpose(
     build = lambda: TransposeExecutable(a)  # noqa: E731
     with tr.span("dist_transpose", cat="collective", nnzb=a.nnzb):
         exe = cache.get_or_build(key, build) if cache is not None else build()
-        with tr.span("dispatch", cat="kernel", op="transpose"):
+        with tr.span("dispatch", cat="kernel", op="transpose") as sp:
             store = tr.sync(exe(a.store))
+            if tr.enabled:
+                blk = a.bs * a.bs * a.store.element_size()
+                shipped = int(exe.sent_blocks.sum())
+                sp.args.update(sent_blocks=shipped)
+                tr.counter("send_bytes").add(shipped * blk)
+                tr.counter("recv_bytes").add(shipped * blk)
+                # cost share: blocks each source ships, plus the local gather
+                sp.worker_costs = exe.sent_blocks.astype(np.float64) + 1.0
     return DistBSMatrix(
         shape=(a.shape[1], a.shape[0]), bs=a.bs, coords=exe.out_coords,
         owner=exe.out_owner, slot=exe.out_slot, cap=exe.out_cap, store=store,
@@ -532,7 +576,7 @@ class RepartitionExecutable(_RelayoutExecutable):
         if new_owner.size and (new_owner.min() < 0 or new_owner.max() >= x.nparts):
             raise ValueError(f"owner map assigns blocks outside the mesh of {x.nparts}")
         # a re-layout, not a permutation
-        super().__init__(x, new_owner, np.arange(x.nnzb, dtype=np.int64))
+        super().__init__(x, new_owner, np.arange(x.nnzb, dtype=np.int64), "repartition")
         self.new_owner = self.out_owner
         self.new_slot = self.out_slot
         self.new_cap = self.out_cap
@@ -576,14 +620,19 @@ def dist_repartition(
     key = ("repartition", _structure_key(x), structure_fingerprint(new_owner))
     build = lambda: RepartitionExecutable(x, new_owner)  # noqa: E731
     blk = x.bs * x.bs * x.store.element_size()
-    with tr.span("dist_repartition", cat="migration", nnzb=x.nnzb):
+    with tr.span("dist_repartition", cat="migration", nnzb=x.nnzb) as msp:
         exe = cache.get_or_build(key, build) if cache is not None else build()
         if stats is not None:
             stats["migrated_blocks"] = exe.migrated_blocks
             stats["migrated_bytes"] = exe.migrated_blocks * blk
             stats["sent_blocks_per_worker"] = exe.sent_blocks.copy()
-        with tr.span("dispatch", cat="kernel", op="repartition"):
+        with tr.span("dispatch", cat="kernel", op="repartition") as sp:
             store = tr.sync(exe(x.store))
+            if tr.enabled:
+                msp.args.update(migrated_blocks=exe.migrated_blocks)
+                tr.counter("migrated_bytes").add(exe.migrated_blocks * blk)
+                # cost share: blocks each source ships, plus the local gather
+                sp.worker_costs = exe.sent_blocks.astype(np.float64) + 1.0
     return DistBSMatrix(
         shape=tuple(x.shape), bs=x.bs, coords=x.coords, owner=exe.new_owner,
         slot=exe.new_slot, cap=exe.new_cap, store=store, mesh=x.mesh,

@@ -45,6 +45,7 @@ from ..core.inverse import (
 from ..core.matrix import BSMatrix
 from ..core.schedule import plan_stats
 from ..kernels.precision import Precision
+from ..obs.health import HealthMonitor, HealthPolicy
 from ..obs.locality import locality_iteration, locality_snapshot
 from ..obs.log import log_of
 from ..obs.timing import IterationScope
@@ -77,17 +78,6 @@ __all__ = [
 ]
 
 
-def _unported_observers(tracer, log, health) -> None:
-    """The drivers' ``tracer=`` / ``log=`` / ``health=`` need the JAX
-    package's ``Tracer``, ``EventLog`` and ``HealthMonitor``, which are not
-    ported yet: anything but ``None`` raises."""
-    for name, value in (("tracer", tracer), ("log", log), ("health", health)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= needs the observability layer of the JAX package's repro.obs, "
-                "which is not ported yet")
-
-
 @dataclasses.dataclass
 class DistInverseStats:
     """Per-run and per-iteration metrics of the resident refinement loop.
@@ -114,7 +104,8 @@ class DistInverseStats:
     # wall-clock calibration of the rebalance policy's cost coefficients
     # (repro_torch.dist.balance.calibrate_policy report); None without rebalance=
     calibration: dict | None = None
-    health: dict | None = None  # always None: health= is not ported yet
+    # HealthMonitor.summary() when health monitoring was on; None otherwise
+    health: dict | None = None
     stop_reason: str | None = None
 
 
@@ -271,7 +262,7 @@ def dist_localized_inverse_factorization(
     rebalance: RebalancePolicy | None = None,
     tracer=None,
     log=None,
-    health=None,
+    health: HealthPolicy | None = None,
 ) -> tuple[DistBSMatrix, DistInverseStats]:
     """Divide-and-conquer inverse factorization, resident end to end.
 
@@ -305,13 +296,27 @@ def dist_localized_inverse_factorization(
     ``imbalance_after`` / ``migrated_bytes`` per-iteration rows.  Values are
     bit-identical to the static run.
 
-    ``tracer=``, ``log=`` and ``health=`` are not ported yet and raise
-    ``NotImplementedError`` unless ``None``.
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) turns on span tracing for
+    the whole run: it is attached to the plan cache, so every collective,
+    kernel dispatch and plan build records nested spans under one phase
+    span.  ``log`` (a :class:`repro_torch.obs.EventLog`) attaches the
+    structured event log to the cache the same way: run start/end,
+    per-iteration debug events, plan builds, rebalances and health alerts
+    all land in it.  ``health`` (a :class:`repro_torch.obs.HealthPolicy`)
+    turns on the online :class:`~repro_torch.obs.health.HealthMonitor` —
+    straggler / miss-storm / blowup / stall alerts, plus live calibration of
+    the rebalance policy when ``rebalance`` is also on; its summary lands in
+    the stats' ``health``.  All three are schedule- and report-only: results
+    stay bit-identical with them on or off.
     """
-    _unported_observers(tracer, log, health)
     cache = cache if cache is not None else PlanCache()
+    if tracer is not None:
+        cache.tracer = tracer
+    if log is not None:
+        cache.event_log = log
     trc = tracer_of(cache)
     lg = log_of(cache)
+    hm = HealthMonitor(health, cache=cache) if health is not None else None
     rec = getattr(cache, "flight_recorder", None)
     if lg.enabled:
         lg.info("run_start", driver="inverse_factorization", n=int(a.shape[0]),
@@ -464,6 +469,9 @@ def dist_localized_inverse_factorization(
                     lg.debug("iteration", driver="inverse", **{k: row[k] for k in (
                         "iteration", "nnzb", "residual", "wall_s", "cache_hits",
                         "cache_misses", "recv_bytes_mean")})
+                if hm is not None:
+                    hm.observe(row, load)
+                    hm.maybe_refit(lb)
             if stop:
                 break
     if lg.enabled:
@@ -474,5 +482,6 @@ def dist_localized_inverse_factorization(
         len(history), history, monitor.best_r, nnzbs, run_metrics(cache), per_iter,
         rebalances=lb.rebalances if lb is not None else 0,
         calibration=lb.calibration()[1] if lb is not None else None,
+        health=hm.summary() if hm is not None else None,
         stop_reason=monitor.stop_reason,
     )

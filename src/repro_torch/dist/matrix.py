@@ -147,8 +147,18 @@ class NormTableExecutable:
     """
 
     def __init__(self, x: DistBSMatrix):
-        self._owner = _upload(x.owner, x.device)
-        self._slot = _upload(x.slot, x.device)
+        # the stack position each store slot's norm lands at (padding: the
+        # trash position nnzb); the gather reads the slots in position order.
+        # The host table is kept for the verifier at cache admission
+        # (repro_torch.analysis.verify, kind="norm-table")
+        gpos = np.full((x.nparts, x.cap), x.nnzb, dtype=np.int64)
+        gpos[x.owner, x.slot] = np.arange(x.nnzb, dtype=np.int64)
+        self._verify_plan = dict(kind="norm-table", gpos=gpos, owner=np.asarray(x.owner),
+                                 slot=np.asarray(x.slot), nnzb=x.nnzb, nparts=x.nparts, cap=x.cap)
+        p, s = np.nonzero(gpos < x.nnzb)
+        order = np.argsort(gpos[p, s], kind="stable")
+        self._owner = _upload(p[order], x.device)
+        self._slot = _upload(s[order], x.device)
 
     def __call__(self, store: torch.Tensor) -> np.ndarray:
         return _to_numpy(block_frobenius_norms(store[self._owner, self._slot]))
@@ -171,6 +181,10 @@ def resident_block_norms(x: DistBSMatrix, cache=None) -> np.ndarray:
     with tr.span("norm_fetch", cat="collective", nnzb=x.nnzb):
         if tr.enabled:
             tr.counter("norm_fetch_bytes").add(x.nnzb * 4)
+        mm = getattr(cache, "memory_meter", None) if cache is not None else None
+        if mm is not None:
+            # the JAX package's [P, cap] norm table, in its account
+            mm.note_bytes("norm_table", np.full(x.nparts, x.cap * 4, dtype=np.int64), cache=cache)
         if cache is not None:
             key = (
                 "norms",

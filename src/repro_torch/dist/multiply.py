@@ -43,6 +43,7 @@ from ..core.distributed import (
 from ..core.quadtree import build_quadtree_index, quadtree_depth
 from ..core.schedule import make_spgemm_plan, structure_fingerprint
 from ..core.spgemm import spamm_symbolic, spgemm_symbolic
+from ..kernels.block_spmm import tile_engine
 from ..kernels.precision import FP32, Precision, low_precision_task_mask
 from ..obs.timing import timed_into
 from ..obs.tracer import tracer_of
@@ -91,6 +92,135 @@ def spamm_delta_plan_key(
     """Delta-plan SpAMM cache key — structure only, independent of the per-call
     prune pattern, so every call on a stable structure is a hit."""
     return _plan_key("spamm-delta", a, b, exchange, impl, precision)
+
+
+def _plan_obs_static(plan) -> dict:
+    """Per-plan static annotation payload, memoized on the plan object.
+
+    Everything here depends only on the plan (exchange bytes, ownership
+    terms of the cost model, per-round byte totals), and a warm run replays
+    the same plan hundreds of times, so it is computed once per plan.
+    """
+    st = getattr(plan, "_obs_static", None)
+    if st is None:
+        from .balance import RebalancePolicy, worker_load
+
+        load = worker_load(plan)
+        pol = RebalancePolicy()
+        blk = plan.bs * plan.bs * 4
+        rounds = []
+        if plan.exchange != "allgather":
+            for operand, offs, cnts in (
+                ("a", plan.a_offsets, plan.a_send_count),
+                ("b", plan.b_offsets, plan.b_send_count),
+            ):
+                for rnd, d in enumerate(offs):
+                    rounds.append((operand, rnd, int(d), float(np.asarray(cnts[d]).sum()) * blk))
+        base = (pol.recv_cost * load.recv_bytes / blk + pol.send_cost * load.send_bytes / blk
+                + pol.block_cost * load.blocks)
+        st = dict(
+            # the task-independent terms of the rebalancer's combined cost
+            base=base,
+            # full (unmasked) dispatch cost vector: most warm dispatches run
+            # the whole task list
+            full_costs=np.asarray(plan.task_count, np.float64) + base,
+            full_tasks=int(np.asarray(plan.task_count).sum()),
+            recv_sum=float(load.recv_bytes.sum()),
+            send_sum=float(load.send_bytes.sum()),
+            rounds=rounds,
+            rounds_tracer=None,  # exchange_round instants once per tracer
+        )
+        st["full_costs"].setflags(write=False)  # shared across spans
+        object.__setattr__(plan, "_obs_static", st)  # plan is frozen
+    return st
+
+
+def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | None = None,
+                              exe=None, stores=()) -> None:
+    """Per-worker attribution + byte/task counters on an executed multiply
+    dispatch span.  Callers guard on ``tr.enabled``: this does real work
+    (plan byte accounting, cost-model evaluation) that must cost nothing
+    with tracing off.
+
+    All workers run in one launch, so the per-worker costs are the load
+    balancer's cost model on the executed plan, as the JAX package
+    attributes them.  Where the JAX package records the autotuner's tiles,
+    the span records ``engine``: the GEMM kernels' tile engine for this
+    block size and these operand stores (:func:`~repro_torch.kernels.
+    block_spmm.tile_engine`).
+    """
+    st = _plan_obs_static(plan)
+    if precision is not None:
+        dtype = "bfloat16" if precision.mode == "bf16" else "float32"
+        sp.args.update(precision=precision.mode, dtype=dtype,
+                       engine=tile_engine(plan.bs, plan.bs, plan.bs, stores))
+    ex = getattr(exe, "last_exchange", None)
+    if ex is not None:
+        sp.args.update(send_blocks=ex["send_blocks"], kept_send_blocks=ex["kept_blocks"],
+                       dropped_rounds=ex["dropped_rounds"])
+        tr.counter("pruned_send_blocks").add(float(ex["send_blocks"] - ex["kept_blocks"]))
+    # the same combined task-equivalent cost the rebalancer weighs
+    if task_count is None or task_count is plan.task_count:
+        sp.worker_costs = st["full_costs"]
+        tasks = st["full_tasks"]
+    else:
+        tc = np.asarray(task_count)
+        sp.worker_costs = tc.astype(np.float64) + st["base"]
+        tasks = int(tc.sum())
+    sp.args.update(tasks=tasks, recv_bytes=st["recv_sum"], send_bytes=st["send_sum"])
+    tr.counter("tasks_executed").add(float(tasks))
+    tr.counter("recv_bytes").add(st["recv_sum"])
+    tr.counter("send_bytes").add(st["send_sum"])
+    # the exchange rounds run inside the dispatch: per-round markers carry
+    # planned bytes, not durations.  They are plan-static, so each plan emits
+    # them on its first dispatch a given tracer observes.
+    if st["rounds_tracer"] is not tr:
+        st["rounds_tracer"] = tr
+        for operand, rnd, d, nbytes in st["rounds"]:
+            tr.instant("exchange_round", cat="exchange", operand=operand, round=rnd, offset=d,
+                       bytes=nbytes)
+
+
+def _note_dispatch_memory(cache, plan, precision, c) -> None:
+    """Account an executed multiply against the installed
+    :class:`~repro_torch.obs.memory.MemoryMeter` (no-op when none is
+    installed): the plan's receive buffers at wire precision plus the result
+    store.  A repeat dispatch of the same plan over the same owner layout
+    yields the same account, so it is deduplicated by token."""
+    mm = getattr(cache, "memory_meter", None) if cache is not None else None
+    if mm is None:
+        return
+    tok = (id(plan), id(c.owner), c.nnzb, c.cap, getattr(precision, "mode", None))
+    seen = getattr(mm, "_dispatch_seen", None)
+    if seen is None:
+        seen = mm._dispatch_seen = set()
+    if tok in seen:
+        return
+    seen.add(tok)
+    mm.note_plan(plan, precision, cache=cache)
+    mm.note_matrix(c, "store", cache=cache)
+
+
+def _note_dispatch_locality(cache, tr, plan, precision, a, b, *, task_on=None, exe=None) -> None:
+    """Meter an executed multiply against the installed
+    :class:`~repro_torch.obs.locality.LocalityLedger` (no-op when none is
+    installed): static local/shipped residency split, wire bytes with
+    delta-mask pruning (``exe.last_keeps``) and the wire itemsize applied,
+    and per-block movement lineage keyed by the operands' Morton codes.
+    Independent of the tracer, but feeds the locality counters when one
+    listens."""
+    lld = getattr(cache, "locality_ledger", None) if cache is not None else None
+    if lld is None:
+        return
+    wire = 2 if getattr(precision, "mode", "fp32") != "fp32" else 4
+    out = lld.note_dispatch(plan, wire_itemsize=wire, task_on=task_on,
+                            keeps=getattr(exe, "last_keeps", None),
+                            a_codes=a.codes(), b_codes=b.codes())
+    if tr.enabled:
+        tr.counter("local_bytes").add(out["local_bytes"])
+        tr.counter("shipped_bytes").add(out["shipped_bytes"])
+        tr.counter("wire_recv_bytes").add(out["wire_recv_bytes"])
+        tr.counter("local_flops").add(out["local_flops"])
 
 
 def _check_operands(a: DistBSMatrix, b: DistBSMatrix, impl: str) -> None:
@@ -240,12 +370,18 @@ def dist_multiply(
                 a_norms, b_norms, full.a_idx, full.b_idx, precision.tau)
             task_on = _valid_task_slots(plan)
             task_low = _adaptive_low_table(plan, low_task)
-        with tr.span("dispatch", cat="kernel", op="spgemm"):
+        with tr.span("dispatch", cat="kernel", op="spgemm") as sp:
             if adaptive:
                 c_store = tr.sync(exe(a.store, b.store, task_on, task_low))
             else:
                 c_store = tr.sync(exe(a.store, b.store))
-    return _result(a, b, plan, c_store)
+            if tr.enabled:
+                _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe,
+                                          (a.store, b.store))
+    c = _result(a, b, plan, c_store)
+    _note_dispatch_memory(cache, plan, precision, c)
+    _note_dispatch_locality(cache, tr, plan, precision, a, b, exe=exe)
+    return c
 
 
 def _spamm_pruned_tasks(a: DistBSMatrix, b: DistBSMatrix, tau: float,
@@ -402,14 +538,21 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
             task_low = _adaptive_low_table(plan, low_task)
             err = float(err) + spent
         # measured per-worker flop load: only unmasked tasks cost work
+        masked_count = task_on.sum(axis=1).astype(np.int64)
         if cache is not None:
-            cache.last_task_count = task_on.sum(axis=1).astype(np.int64)
-        with tr.span("dispatch", cat="kernel", op="spamm-delta"):
+            cache.last_task_count = masked_count
+        with tr.span("dispatch", cat="kernel", op="spamm-delta") as sp:
             if fused:
                 c_store = tr.sync(exe(a.store, b.store, task_on, task_low))
             else:
                 c_store = tr.sync(exe(a.store, b.store, task_on))
-        return _result(a, b, plan, c_store), err
+            if tr.enabled:
+                _annotate_spgemm_dispatch(tr, sp, plan, masked_count, precision, exe,
+                                          (a.store, b.store))
+        c = _result(a, b, plan, c_store)
+        _note_dispatch_memory(cache, plan, precision, c)
+        _note_dispatch_locality(cache, tr, plan, precision, a, b, task_on=task_on, exe=exe)
+        return c, err
 
     if tasks.num_tasks == 0:
         if cache is not None:
@@ -438,6 +581,12 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
         plan, exe = cache.get_or_build(key, build)
         cache.last_plan_key = key
         cache.last_task_count = plan.task_count
-    with tr.span("dispatch", cat="kernel", op="spamm-replan"):
+    with tr.span("dispatch", cat="kernel", op="spamm-replan") as sp:
         c_store = tr.sync(exe(a.store, b.store))
-    return _result(a, b, plan, c_store), err
+        if tr.enabled:
+            _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe,
+                                      (a.store, b.store))
+    c = _result(a, b, plan, c_store)
+    _note_dispatch_memory(cache, plan, precision, c)
+    _note_dispatch_locality(cache, tr, plan, precision, a, b, exe=exe)
+    return c, err

@@ -31,6 +31,7 @@ from ..core.matrix import BSMatrix
 from ..core.purify import PurifyStats, Sp2Monitor, sp2_init_coeffs, sp2_should_square
 from ..core.schedule import plan_stats
 from ..kernels.precision import Precision
+from ..obs.health import HealthMonitor, HealthPolicy
 from ..obs.locality import locality_iteration, locality_snapshot
 from ..obs.log import log_of
 from ..obs.timing import IterationScope
@@ -52,7 +53,7 @@ from .collectives import (
     dist_truncate,
     dist_truncate_hierarchical,
 )
-from .inverse import _unported_observers, dist_localized_inverse_factorization
+from .inverse import dist_localized_inverse_factorization
 from .matrix import DistBSMatrix, resident_block_norms, scatter
 from .multiply import dist_multiply, dist_spamm
 
@@ -95,7 +96,9 @@ class DistPurifyStats:
     # wall-clock calibration of the rebalance policy's cost coefficients
     # (repro_torch.dist.balance.calibrate_policy report); None without rebalance=
     calibration: dict | None = None
-    health: dict | None = None  # always None: health= is not ported yet
+    # HealthMonitor.summary() (alerts, live-policy refits); None without
+    # health= monitoring
+    health: dict | None = None
 
     def as_purify_stats(self) -> PurifyStats:
         return PurifyStats(self.iterations, self.trace_history,
@@ -123,7 +126,7 @@ def dist_sp2_purify(
     rebalance: RebalancePolicy | None = None,
     tracer=None,
     log=None,
-    health=None,
+    health: HealthPolicy | None = None,
 ) -> tuple[BSMatrix | DistBSMatrix, DistPurifyStats]:
     """SP2 purification with every iterate resident on the worker mesh.
 
@@ -165,15 +168,29 @@ def dist_sp2_purify(
     norm are reduced in an order fixed by the structure
     (:func:`~repro_torch.dist.collectives.dist_trace`).
 
-    ``tracer=``, ``log=`` and ``health=`` are not ported yet and raise
-    ``NotImplementedError`` unless ``None``.
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) turns on span tracing for
+    the whole run: it is attached to the plan cache, so every collective,
+    kernel dispatch and plan build records nested spans under one phase
+    span.  ``log`` (a :class:`repro_torch.obs.EventLog`) attaches the
+    structured event log to the cache the same way: run start/end,
+    per-iteration debug events, plan builds, rebalances and health alerts
+    all land in it.  ``health`` (a :class:`repro_torch.obs.HealthPolicy`)
+    turns on the online :class:`~repro_torch.obs.health.HealthMonitor` —
+    straggler / miss-storm / blowup / stall alerts, plus live calibration of
+    the rebalance policy when ``rebalance`` is also on; its summary lands in
+    the stats' ``health``.  All three are schedule- and report-only: results
+    stay bit-identical with them on or off.
     """
-    _unported_observers(tracer, log, health)
     if trunc_method not in ("hierarchical", "leaf"):
         raise ValueError(f"trunc_method={trunc_method!r} not in ('hierarchical', 'leaf')")
     cache = cache if cache is not None else PlanCache()
+    if tracer is not None:
+        cache.tracer = tracer
+    if log is not None:
+        cache.event_log = log
     trc = tracer_of(cache)
     lg = log_of(cache)
+    hm = HealthMonitor(health, cache=cache) if health is not None else None
     rec = getattr(cache, "flight_recorder", None)
     if lg.enabled:
         lg.info("run_start", driver="sp2_purify", n=int(f.shape[0]),
@@ -304,6 +321,9 @@ def dist_sp2_purify(
                     lg.debug("iteration", driver="sp2", **{k: row[k] for k in (
                         "iteration", "nnzb", "idem", "wall_s", "cache_hits",
                         "cache_misses", "recv_bytes_mean")})
+                if hm is not None:
+                    hm.observe(row, load)
+                    hm.maybe_refit(lb)
             if stop:
                 break
     if lg.enabled:
@@ -314,6 +334,7 @@ def dist_sp2_purify(
         len(traces), traces, idems, nnzbs, run_metrics(cache), per_iter,
         rebalances=lb.rebalances if lb is not None else 0,
         calibration=lb.calibration()[1] if lb is not None else None,
+        health=hm.summary() if hm is not None else None,
     )
 
 
@@ -507,11 +528,20 @@ def dist_sqrt_inv_pipeline(
     enables dynamic load balancing in both iterative stages — the inverse
     refinement loop and SP2.
 
-    ``tracer=``, ``log=`` and ``health=`` are not ported yet and raise
-    ``NotImplementedError`` unless ``None``.
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) records the whole
+    workflow as one span timeline: inverse / congruence / spectral-bounds /
+    SP2 / back-transform phases with every collective, plan build and kernel
+    dispatch nested beneath — export with
+    :func:`repro_torch.obs.write_chrome_trace`.  ``log`` rides on the cache
+    the same way, and ``health`` monitors both iterative stages (each
+    stage's summary is in its stats).  Results are bit-identical with them
+    on or off.
     """
-    _unported_observers(tracer, log, health)
     cache = cache if cache is not None else PlanCache()
+    if tracer is not None:
+        cache.tracer = tracer
+    if log is not None:
+        cache.event_log = log
     trc = tracer_of(cache)
     ds = _resident(s, mesh, "S")
     dh = _resident(h, ds.mesh, "H")
@@ -521,7 +551,7 @@ def dist_sqrt_inv_pipeline(
 
     z, inv_stats = dist_localized_inverse_factorization(
         ds, cache, tol=tol, max_iter=max_iter, trunc_tau=trunc_tau,
-        spamm_tau=spamm_tau, leaf_blocks=leaf_blocks, rebalance=rebalance, **mkw)
+        spamm_tau=spamm_tau, leaf_blocks=leaf_blocks, rebalance=rebalance, health=health, **mkw)
 
     with IterationScope(cache, None, trc, name="congruence", cat="phase") as sc:
         zt = dist_transpose(z, cache)
@@ -544,7 +574,7 @@ def dist_sqrt_inv_pipeline(
     d_ortho, purify_stats = dist_sp2_purify(
         f_ortho, n_occ, lmin, lmax, max_iter=max_iter, idem_tol=idem_tol,
         trunc_tau=trunc_tau, spamm_tau=spamm_tau, cache=cache,
-        return_resident=True, rebalance=rebalance, **mkw)
+        return_resident=True, rebalance=rebalance, health=health, **mkw)
 
     back = None
     if transform_back:

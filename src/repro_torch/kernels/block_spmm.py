@@ -29,12 +29,29 @@ __all__ = [
     "launches",
     "segment_sum_sorted",
     "task_runs",
+    "tile_engine",
 ]
 
 #: kernel launches so far (see the module docstring)
 launches = 0
 
 _C_FUNCTIONS = {torch.float32: "block_spmm_f32", torch.bfloat16: "block_spmm_bf16"}
+
+
+def tile_engine(bm: int, bk: int, bn: int, tensors=()) -> str:
+    """The tile engine the GEMM kernels launch for a block shape: ``"tile128"`` or ``"tile64"``.
+
+    The host mirror of ``tile_gemm::use_tile128`` (``csrc/tile_gemm.cuh``),
+    which ``block_spmm.cu`` and ``fused_block_spmm.cu`` both apply: the 128 x
+    128 engine needs ``bm`` and ``bn`` multiples of 128, ``bk`` a multiple of
+    8 and every operand stack (``tensors``, the kernel's operand tensors)
+    16-byte aligned; anything else takes the 64 x 64 engine.
+    """
+    if bm <= 0 or bn <= 0 or bk <= 0 or bm % 128 or bn % 128 or bk % 8:
+        return "tile64"
+    if any(t.data_ptr() % 16 for t in tensors):
+        return "tile64"
+    return "tile128"
 
 
 def task_runs(c_idx: np.ndarray, num_out: int) -> np.ndarray:

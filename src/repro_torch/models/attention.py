@@ -26,6 +26,9 @@ from ..kernels.flash_attention import attention_mask
 __all__ = ["attention", "decode_attention"]
 
 _NEG = -1e30
+#: cache positions decode_attention converts to fp32 at a time: a chunk of a
+#: long cache, never the whole of it
+DECODE_CHUNK = 512
 
 
 def _repeat_kv(k: torch.Tensor, heads: int) -> torch.Tensor:
@@ -167,15 +170,21 @@ def decode_attention(
     logits and the probabilities, never to the cache.  As in the JAX
     package, q is cast to the cache's compute type (bf16 for int8) and the
     probabilities are rounded to it before the PV product; both products
-    accumulate in fp32.
+    accumulate in fp32.  The cache is read in chunks of
+    :data:`DECODE_CHUNK` positions, and only the chunk being multiplied is
+    converted to fp32, so no fp32 copy of a bf16 or int8 cache is built.
     """
     B, _, H, D = q.shape
     S, HK = cache_k.shape[1], cache_k.shape[2]
     G = H // HK
     # GQA without repeating K/V: group the q heads by kv head
     qg = q.reshape(B, HK, G, D)
-    kq = cache_k.to(torch.bfloat16) if cache_k.dtype == torch.int8 else cache_k
-    logits = torch.einsum("bhgd,bshd->bhgs", qg.to(kq.dtype).float(), kq.float())
+    compute = torch.bfloat16 if cache_k.dtype == torch.int8 else cache_k.dtype
+    qf = qg.to(compute).float()
+    logits = torch.empty((B, HK, G, S), dtype=torch.float32, device=q.device)
+    for s0 in range(0, S, DECODE_CHUNK):
+        kc = cache_k[:, s0:s0 + DECODE_CHUNK].to(compute).float()
+        logits[..., s0:s0 + DECODE_CHUNK] = torch.einsum("bhgd,bshd->bhgs", qf, kc)
     if k_scale is not None:  # [B, S, HK] -> scale logits rows
         logits = logits * k_scale.transpose(1, 2)[:, :, None, :] / 127.0
     logits = logits * D**-0.5
@@ -187,6 +196,10 @@ def decode_attention(
     p = torch.softmax(logits, dim=-1)
     if v_scale is not None:
         p = p * v_scale.transpose(1, 2)[:, :, None, :] / 127.0
-    vq = cache_v.to(torch.bfloat16) if cache_v.dtype == torch.int8 else cache_v
-    out = torch.einsum("bhgs,bshd->bhgd", p.to(vq.dtype).float(), vq.float())
+    vcompute = torch.bfloat16 if cache_v.dtype == torch.int8 else cache_v.dtype
+    pf = p.to(vcompute).float()
+    out = torch.zeros((B, HK, G, D), dtype=torch.float32, device=q.device)
+    for s0 in range(0, S, DECODE_CHUNK):
+        vc = cache_v[:, s0:s0 + DECODE_CHUNK].to(vcompute).float()
+        out += torch.einsum("bhgs,bshd->bhgd", pf[..., s0:s0 + DECODE_CHUNK], vc)
     return out.reshape(B, 1, H, D).to(q.dtype)

@@ -148,6 +148,16 @@ class IterationScope:
             self._handle = None
         return None
 
+    def annotate(self, **args) -> None:
+        """Attach extra attrs to the iteration span (before scope exit).
+
+        The span handle is released on ``__exit__``, so per-iteration
+        annotations (the locality ledger's fraction fields) must land while
+        the scope is still open; a no-op when tracing is disabled.
+        """
+        if self._handle is not None:
+            self._handle._span.args.update(args)
+
     def delta(self) -> dict:
         """wall seconds + cache counter deltas accumulated in this scope."""
         out = dict(wall_s=perf_counter() - self._t0)

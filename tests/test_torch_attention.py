@@ -416,3 +416,26 @@ def test_decode_attention_matches_jax(cache_dtype, window, ring):
     else:
         v_values = v if vs is None else v * vs[..., None] / 127.0  # dequantised int8
         assert np.abs(got - want).max() <= 2.0**-7 * float(np.abs(v_values).max())
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_decode_attention_over_several_chunks_matches_jax(cache_dtype):
+    """A bf16 and an int8 cache longer than two chunks (and not a multiple of
+    one): the port converts one chunk of the cache to fp32 at a time and sums
+    the PV product chunk by chunk; held to the bf16 tolerance above."""
+    rng = np.random.default_rng(9)
+    S = 2 * tattn.DECODE_CHUNK + 37
+    q, k, v, ks, vs = _decode_inputs(rng, cache_dtype, B=1, S=S, H=4, HK=2, D=16)
+    pos = S - 5
+    jdt = {"bfloat16": jnp.bfloat16, "int8": jnp.int8}[cache_dtype]
+    tdt = {"bfloat16": torch.bfloat16, "int8": torch.int8}[cache_dtype]
+    want = np.asarray(jattn.decode_attention(
+        jnp.asarray(q), jnp.asarray(k).astype(jdt), jnp.asarray(v).astype(jdt), pos,
+        k_scale=None if ks is None else jnp.asarray(ks, jnp.bfloat16),
+        v_scale=None if vs is None else jnp.asarray(vs, jnp.bfloat16)))
+    got = tattn.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt), pos,
+        k_scale=None if ks is None else torch.from_numpy(ks).to(torch.bfloat16),
+        v_scale=None if vs is None else torch.from_numpy(vs).to(torch.bfloat16)).numpy()
+    v_values = v if vs is None else v * vs[..., None] / 127.0  # dequantised int8
+    assert np.abs(got - want).max() <= 2.0**-7 * float(np.abs(v_values).max())

@@ -252,6 +252,102 @@ def test_dist_multiply_goes_through_the_fused_kernel(cuda):
 
 
 
+def test_outer_launch_matches_plain_version_on_the_card(cuda):
+    """The outer multiply's one flattened ``block_spmm`` launch for all 8
+    workers against ``impl="ref"``, element for element within the GEMM
+    tolerance, with several exchange offsets; bit-identical on repeat."""
+    from repro_torch.core.distributed import dist_spgemm_outer, make_worker_mesh, unshard_result
+    from repro_torch.core.outer import make_outer_plan
+
+    rng = np.random.default_rng(8)
+    dist = np.abs(np.subtract.outer(np.arange(768), np.arange(768)))
+    dense = (rng.standard_normal((768, 768)) * (dist <= 100)).astype(np.float32)
+    a = BSMatrix.from_dense(dense, 32)
+    plan = make_outer_plan(a.coords, a.coords, 8, 32)
+    assert len(plan.offsets) >= 2
+    mesh = make_worker_mesh(8)
+    before = bsp.launches
+    got = dist_spgemm_outer(plan, a.data, a.data, mesh)
+    again = dist_spgemm_outer(plan, a.data, a.data, mesh)
+    torch.cuda.synchronize()
+    assert bsp.launches == before + 2
+    assert torch.equal(got, again)
+    want = dist_spgemm_outer(plan, a.data, a.data, mesh, impl="ref")
+    assert bsp.launches == before + 2
+    t = plan.tasks
+    na = torch.linalg.matrix_norm(a.data.double()).cpu().numpy()
+    tol = np.zeros(t.num_out)
+    np.add.at(tol, t.c_idx, REL * na[t.a_idx] * na[t.b_idx])
+    g = unshard_result(plan, got, a.shape, 32).data
+    w = unshard_result(plan, want, a.shape, 32).data
+    err = (g - w).abs().flatten(1).amax(dim=1).double().cpu().numpy()
+    assert (err <= tol).all(), err.max()
+
+
+def test_tracer_sync_spans_measure_the_kernel(cuda):
+    """A span around a kernel launch measures the kernel with ``sync=True``
+    and only the launch with ``sync=False``."""
+    from repro_torch.obs import Tracer
+
+    rng = np.random.default_rng(9)
+    A = torch.randn((64, 128, 128), device=cuda)
+    a, b, c = _tasks(rng, 64, 64, 512, 24576)
+    args = (A, A, *ops.task_arrays(a, b, c, 512, cuda), 512)
+    bsp.block_spmm_cuda(*args)
+    torch.cuda.synchronize()
+
+    def span_s(sync):
+        tr = Tracer(sync=sync)
+        durs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            with tr.span("dispatch") as sp:
+                tr.sync(bsp.block_spmm_cuda(*args))
+            durs.append(sp.dur)
+        torch.cuda.synchronize()
+        return float(np.median(durs))
+
+    synced, unsynced = span_s(True), span_s(False)
+    assert synced > 2 * unsynced, (synced, unsynced)
+
+
+def test_cuda_memory_stats_reads_the_allocator(cuda):
+    from repro_torch.obs import cuda_memory_stats
+
+    x = torch.empty(1 << 24, device=cuda)  # 64 MiB
+    stats = cuda_memory_stats()
+    assert [s["device"] for s in stats] == list(range(torch.cuda.device_count()))
+    mine = stats[cuda.index or 0]
+    assert mine["allocated_bytes.all.current"] == torch.cuda.memory_allocated(cuda)
+    assert mine["allocated_bytes.all.peak"] >= x.numel() * 4
+    del x
+
+
+@pytest.mark.parametrize("bm,bk,bn,offset", [(64, 64, 64, 0), (96, 96, 96, 0), (128, 128, 128, 0),
+                                             (130, 130, 130, 0), (128, 256, 128, 0),
+                                             (256, 256, 256, 0), (128, 128, 128, 1)])
+def test_tile_engine_mirror_matches_the_kernel(cuda, bm, bk, bn, offset):
+    """The host mirror of ``tile_gemm::use_tile128`` names the engine the
+    kernel launched, read from the kernel's name in a ``torch.profiler``
+    trace (``Tile128`` / ``Tile64`` template arguments); ``offset`` shifts A
+    by one float so its stack is no longer 16-byte aligned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(10)
+    base = torch.randn(8 * bm * bk + offset, device=cuda)
+    A = base[offset:].view(8, bm, bk)
+    B = torch.randn((8, bk, bn), device=cuda)
+    a, b, c = _tasks(rng, 8, 8, 16, 40)
+    args = (A, B, *ops.task_arrays(a, b, c, 16, cuda), 16)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bsp.block_spmm_cuda(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "block_spmm" in e.name]
+    launched = {"tile128" if "Tile128" in nm else "tile64" for nm in names
+                if "Tile128" in nm or "Tile64" in nm}
+    assert launched == {bsp.tile_engine(bm, bk, bn, (A, B))}, names
+
+
 def _sp2_problem(n, nocc, seed):
     """A gapped banded Hamiltonian and its overlap S = I + 0.01 |H| (the smoke's)."""
     rng = np.random.default_rng(seed)

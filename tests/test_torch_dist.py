@@ -323,10 +323,13 @@ def test_dist_spgemm_unshard_matches_jax(jax_run, port, placement, exchange):
 
 def test_entry_points_refuse_what_is_not_ported(port):
     mesh, m, d = port
-    # the drivers' observers need the JAX package's repro.obs, not ported yet
-    for kw in (dict(tracer=object()), dict(log=object()), dict(health=object())):
-        with pytest.raises(NotImplementedError):
-            dist_sp2_purify(d["band"], 10, -1.0, 1.0, **kw)
+    # the drivers' observers are ported: they ride on the plan cache
+    from repro_torch.obs import EventLog, HealthPolicy, Tracer
+
+    cache, tr, lg = PlanCache(), Tracer(sync=False), EventLog()
+    _, st = dist_sp2_purify(d["band"], 10, -1.0, 1.0, cache=cache, max_iter=2, tracer=tr, log=lg,
+                            health=HealthPolicy())
+    assert cache.tracer is tr and cache.event_log is lg and st.health["iterations"] >= 1
     with pytest.raises(ValueError):
         dist_multiply(d["band"], d["band"], impl="ref", precision=BF16)
     with pytest.raises(ValueError):

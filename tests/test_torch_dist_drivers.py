@@ -387,10 +387,15 @@ def test_drivers_need_a_mesh_and_refuse_what_is_not_ported(jax_run, mesh):
     ds = scatter(s, mesh)
     with pytest.raises(ValueError):
         dist_sqrt_inv_pipeline(ds, h, PIPE_OCC, make_worker_mesh(4, "cpu"))
-    for kw in (dict(tracer=object()), dict(log=object()), dict(health=object())):
-        with pytest.raises(NotImplementedError):
-            dist_sqrt_inv_pipeline(ds, h, PIPE_OCC, **kw)
-        with pytest.raises(NotImplementedError):
-            dist_sp2_purify(ds, PIPE_OCC, -2.0, 2.0, **kw)
-        with pytest.raises(NotImplementedError):
-            dist_localized_inverse_factorization(ds, **kw)
+    # the observers are ported: each driver attaches them to its plan cache
+    from repro_torch.obs import EventLog, HealthPolicy, Tracer
+
+    for driver in (lambda **kw: dist_sqrt_inv_pipeline(ds, h, PIPE_OCC, max_iter=2, **kw),
+                   lambda **kw: dist_sp2_purify(ds, PIPE_OCC, -2.0, 2.0, max_iter=2, **kw),
+                   lambda **kw: dist_localized_inverse_factorization(ds, max_iter=2, **kw)):
+        cache, tr, lg = PlanCache(), Tracer(sync=False), EventLog()
+        _, st = driver(cache=cache, tracer=tr, log=lg, health=HealthPolicy())
+        assert cache.tracer is tr and cache.event_log is lg
+        assert tr.spans and lg.events_of("run_start")
+        health = [st.inverse.health, st.purify.health] if hasattr(st, "purify") else [st.health]
+        assert all(x is not None and x["iterations"] >= 1 for x in health)
