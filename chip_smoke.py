@@ -8,6 +8,10 @@ Phases, one JSON line each:
 
 1. ``build``        — ``nvcc`` builds every kernel of the path from
                       ``src/repro_torch``, one process per source, all at once.
+   ``analysis``     — ``python -m repro_torch.analysis --selftest`` in-process
+                      (host numpy, no JAX): 24 benchmark-structure plans
+                      verified clean, every seeded corruption caught, the
+                      repo lint clean against its baseline.
 2. ``kernel``       — the ``block_spmm`` kernel on the card against its plain
                       PyTorch version on the same inputs (bit-identical on
                       repeat, within tolerance; its 128 x 128 engine
@@ -54,6 +58,14 @@ Phases, one JSON line each:
                       ledger conserving bytes; the host time split between
                       plan builds, verification, dispatch and the rest; the
                       observatory's overhead on the warm pipeline, in turns.
+    ``sequences``   — the paper's three structure families (banded,
+                      exp-decay, random-offdiag at N = 8192, bs 128) through
+                      resident SP2 on 8 workers from the all-on-worker-0
+                      layout, static and with ``rebalance=``, a locality
+                      ledger on: D bit-identical, the rebalanced locality
+                      above the static one, one fused launch per non-empty
+                      resident multiply, |trace(D) - n_occ| <= 1e-3 on a
+                      family with a spectral gap.
 11. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
                       cores) against their plain version over eight shapes
                       (qwen2-0.5b's layer, non-causal D 80, D 128 and 256
@@ -101,6 +113,9 @@ HBM_BYTES_PER_S = 3.35e12
 # per output block: |dC|_max <= REL * sum over its tasks of ||A_t||_F ||B_t||_F,
 # because the kernel and the plain version sum each element in another order
 REL = 1e-5
+# the sequences phase: a family whose HOMO-LUMO gap is below this share of its
+# spectral width has no spectral gap, and fp32 SP2 a trace floor on it
+GAP_MIN_REL = 1e-3
 
 # bf16 rounding of both operands of a task: |fl(A)fl(B) - AB|_F <= (2u + u^2) |A|_F |B|_F
 ROUND2_BOUND = 2.0 * 2.0**-8 + 2.0**-16
@@ -137,6 +152,7 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8, pipe_p=8,
             outer=dict(n=100_000, bs=128, hw=3000, block=15716, p=2,
                        small_n=8192, small_hw=1000, small_p=8),
+            seq_n=8192, seq_bs=128, seq_p=8, seq_max_iter=10,
             flash=FLASH_FULL, lm_reduced=False, lm_seq=4096)
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
@@ -144,6 +160,7 @@ REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8, pipe_p=8,
                  outer=dict(n=4096, bs=32, hw=120, block=640, p=2,
                             small_n=1024, small_hw=120, small_p=8),
+                 seq_n=256, seq_bs=16, seq_p=8, seq_max_iter=40,
                  flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64)
 
 
@@ -1484,6 +1501,149 @@ def phase_dist_observatory(ctx, sizes) -> dict:
     return out
 
 
+def phase_analysis(ctx) -> dict:
+    """``python -m repro_torch.analysis --selftest`` in this process: the plan
+    verifier on the benchmark structures, the repo lint and the seeded
+    corruptions, all host numpy, on a machine without JAX."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.analysis.mutate import CORRUPTIONS
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--selftest"])
+    lines = buf.getvalue().splitlines()
+    plans = [ln for ln in lines if "/P=" in ln and ln.startswith(("ok ", "FAIL "))]
+    caught = [ln for ln in lines if ln.startswith("ok ") and ": caught as " in ln]
+    missed = [ln for ln in lines if ln.startswith("MISS ")]
+    findings, waived = lint_paths()
+    out = dict(phase="analysis", seconds=time.perf_counter() - t0, rc=rc,
+               plans_verified=len(plans), plan_violations=sum(ln.startswith("FAIL") for ln in plans),
+               corruptions=len(CORRUPTIONS), corruptions_caught=len(caught),
+               corruptions_missed=len(missed), lint_findings=len(findings),
+               lint_waived=sorted({f.key for f in waived}), summary=lines[-1])
+    emit(out)
+    check(rc == 0, f"python -m repro_torch.analysis --selftest returned {rc}")
+    check(out["plans_verified"] == 24 and out["plan_violations"] == 0,
+          f"{out['plans_verified']} plans verified, {out['plan_violations']} with violations")
+    check(out["corruptions_caught"] == len(CORRUPTIONS) and not missed,
+          f"{len(caught)} of {len(CORRUPTIONS)} corruptions caught")
+    check(not findings, f"lint: {[str(f) for f in findings]}")
+    return out
+
+
+def phase_sequences(ctx, sizes) -> dict:
+    """The paper's three structure families (``benchmarks/torch_spamm_sequences.py``:
+    banded, exp-decay, random-offdiag) through resident SP2 on 8 workers,
+    each from the all-on-worker-0 layout, static and with
+    ``RebalancePolicy()``, a locality ledger on the plan cache: the
+    ``--card`` problem of ``benchmarks/torch_dist_balance.py`` /
+    ``torch_locality.py``.  D must be bit-identical between the modes, the
+    rebalanced locality fraction (flops) above the static one, and the fused
+    launches equal to the non-empty resident multiplies.  |trace(D) - n_occ|
+    must be <= 1e-3, except on a family without a spectral gap (the HOMO-LUMO
+    gap below GAP_MIN_REL of the spectral width), where fp32 SP2 has a floor:
+    that family's trace error is recorded and it is held to bit identity.
+    """
+    import numpy as np
+
+    torch = ctx.torch
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import repro_torch.core.distributed as cdist
+    import torch_dist_balance as tdb
+    import torch_locality as tloc
+    from torch_spamm_sequences import sequences
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import RebalancePolicy
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.obs.locality import LocalityLedger
+
+    n, bs, P, max_iter = sizes["seq_n"], sizes["seq_bs"], sizes["seq_p"], sizes["seq_max_iter"]
+    nocc = int(0.3 * n)
+    mesh = make_worker_mesh(P, ctx.dev)
+    calls = [0, 0]
+    real_run = cdist.FusedSpgemmExecutable._run
+
+    def counting_run(self, *a, **k):
+        calls[0] += 1
+        calls[1] += self.plan.tasks.num_tasks > 0
+        return real_run(self, *a, **k)
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    fams = sequences(n, bs, device=ctx.dev)
+    gen_s = time.perf_counter() - t0
+    families, launches_total = {}, 0
+    for name, f in fams.items():
+        t0 = time.perf_counter()
+        lmin, lmax = tdb.spectral_bounds(f, mesh, exact=False)
+        bounds_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w = torch.linalg.eigvalsh(dense_on_device(f, torch.float32))
+        gap = float(w[nocc] - w[nocc - 1])
+        width = float(w[-1] - w[0])
+        row = dict(nnzb=f.nnzb, bounds=[lmin, lmax], bounds_s=bounds_s,
+                   spectrum=[float(w[0]), float(w[-1])], eigvalsh_s=time.perf_counter() - t0,
+                   homo_lumo_gap=gap, gapless=gap < GAP_MIN_REL * width)
+        del w
+        ds = {}
+        cdist.FusedSpgemmExecutable._run = counting_run
+        try:
+            for mode, policy in (("static", None), ("rebalanced", RebalancePolicy())):
+                calls[0] = calls[1] = 0
+                ledger = LocalityLedger()
+                fl.launches = 0  # the main path's count starts here
+                d, r, st, cache = tdb.run_mode(f, nocc, lmin, lmax, mesh, policy, max_iter,
+                                               ledger=ledger)
+                launches = fl.launches  # ... and is read here
+                loc = ledger.summary()
+                expected = 0 if ctx.rehearse else calls[1]
+                check(launches == expected,
+                      f"{name}/{mode}: fused launches {launches}, non-empty resident "
+                      f"multiplies {calls[1]} of {calls[0]}")
+                diag = np.nonzero(d.coords[:, 0] == d.coords[:, 1])[0]
+                trace = float(d.data[torch.from_numpy(diag).to(d.device)].double()
+                              .diagonal(dim1=1, dim2=2).sum())
+                ds[mode] = d
+                launches_total += launches
+                row[mode] = dict(
+                    iterations=r["iterations"], s_per_iteration=r["wall_s_per_iter"],
+                    seconds=r["wall_s_total"], imbalance_peak=r["imbalance_max"],
+                    imbalance_mean=r["imbalance_mean"], imbalance_tail=r["imbalance_tail"],
+                    migrated_bytes=r["migrated_bytes_total"], rebalances=r["rebalances"],
+                    plan_hits=r["cache"]["hits"], plan_misses=r["cache"]["misses"],
+                    plan_build_s=r["plan_build_s"], verify_s=r["verify_s"],
+                    locality_flops=loc["locality_flops"], locality_bytes=loc["locality_bytes"],
+                    resident_multiplies=calls[0], nonempty_multiplies=calls[1],
+                    fused_launches=launches, trace_error=abs(trace - nocc),
+                    idempotency=st.idempotency_history[-1], d_blocks=d.nnzb)
+        finally:
+            cdist.FusedSpgemmExecutable._run = real_run
+        row["bit_identical"] = tdb.bit_identical(ds["static"], ds["rebalanced"])
+        row["taskgraph_predicted_gain"] = tloc.taskgraph_row(f, bs)["predicted_gain"]
+        row["locality_gain"] = (row["rebalanced"]["locality_flops"]
+                                / max(row["static"]["locality_flops"], 1e-12))
+        families[name] = row
+        del ds
+        check(row["bit_identical"], f"{name}: the rebalanced D is not bit-identical to the static D")
+        check(row["rebalanced"]["locality_flops"] > row["static"]["locality_flops"],
+              f"{name}: rebalancing did not raise the locality fraction")
+        err = row["static"]["trace_error"]
+        check(err <= 1e-3 or row["gapless"],
+              f"{name}: |trace(D) - n_occ| = {err:.3e} > 1e-3 with a spectral gap of {gap:.3e}")
+    out = dict(phase="sequences", card=ctx.card, n=n, bs=bs, workers=P, nocc=nocc,
+               max_iter=max_iter, idem_tol=tdb.IDEM_TOL, trunc_tau=tdb.TRUNC_TAU,
+               spamm_tau=tdb.SPAMM_TAU, gap_min_rel=GAP_MIN_REL,
+               initial_layout="all blocks on worker 0", generate_s=gen_s,
+               seconds=time.perf_counter() - t_all, launches=launches_total, families=families)
+    emit(out)
+    return out
+
+
 def phase_dist_pipeline_profile(ctx, sizes) -> dict:
     """Where a warm resident pipeline's time goes: the ``dist_pipeline`` phase's
     static run, once to fill the plan cache, then replayed on it under
@@ -1861,6 +2021,7 @@ def main(argv=None) -> int:
         return out
 
     phase(phase_build, ctx)
+    phase(phase_analysis, ctx)
     kern = phase(phase_kernel, ctx, sizes)
     fused = phase(phase_fused_kernel, ctx, sizes)
     mul = phase(phase_multiply, ctx, sizes)
@@ -1871,6 +2032,7 @@ def main(argv=None) -> int:
     douter = phase(phase_dist_outer, ctx, sizes)
     dobs = phase(phase_dist_observatory, ctx, sizes)
     del ctx.pipeline_d
+    seqs = phase(phase_sequences, ctx, sizes)
     flash = phase(phase_flash_kernel, ctx, sizes)
     model = lm_model(ctx, sizes)
     fwd = phase(phase_lm_forward, ctx, sizes, model)
@@ -1903,7 +2065,8 @@ def main(argv=None) -> int:
         dict(name="fused_block_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
              replaces="src/repro/kernels/fused_leaf.py:71",
-             launches=dmul["launches"] + dspamm["launches"] + dpipe["launches"] + dobs["launches"],
+             launches=(dmul["launches"] + dspamm["launches"] + dpipe["launches"] + dobs["launches"]
+                       + seqs["launches"]),
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
              bound_by=ftiming["bound_by"], library_ms=None),

@@ -1,10 +1,11 @@
-"""Static analysis for the resident runtime — the plan verifier and its
-seeded corruptions.
+"""Static analysis for the resident runtime — the plan verifier, its
+seeded corruptions and the repo-custom lint.
 
 Only :mod:`repro_torch.analysis.errors` (pure dataclasses) is imported
 eagerly so low layers (``repro_torch.core.schedule``) can raise
-:class:`PlanError` without a cycle; the verifier and the corruptions load
-lazily on first attribute access.
+:class:`PlanError` without a cycle; the verifier, the corruptions and the
+lint load lazily on first attribute access.  See
+``python -m repro_torch.analysis`` for the CLI.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ __all__ = [
     "verify_relayout_plan",
     "verify_norm_table",
     "verify_value",
+    "lint_paths",
     "CORRUPTIONS",
 ]
 
@@ -28,6 +30,7 @@ _LAZY = {
     "verify_relayout_plan": "verify",
     "verify_norm_table": "verify",
     "verify_value": "verify",
+    "lint_paths": "lint",
     "CORRUPTIONS": "mutate",
 }
 

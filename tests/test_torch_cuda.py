@@ -560,3 +560,49 @@ def test_lm_forward_and_generate_go_through_the_flash_kernel(cuda):
     full = transformer.apply(params, cfg, {"tokens": torch.from_numpy(seqs).to(cuda)},
                              attn_impl="flash")[:, :-1]
     assert float((full - steps).abs().max()) <= 1e-4 * float(full.abs().max())
+
+
+# -- benchmarks/torch_kernel_micro.py on the card ------------------------------
+
+
+def _kernel_micro():
+    import importlib
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "benchmarks"))
+    return importlib.import_module("torch_kernel_micro")
+
+
+def test_kernel_micro_rows_match_the_plain_versions(cuda):
+    km = _kernel_micro()
+    rng = np.random.default_rng(0)
+    for bs, T, nout in ((64, 32, 8), (128, 256, 64)):
+        gen = torch.Generator(device=cuda).manual_seed(bs)
+        A = torch.randn((32, bs, bs), generator=gen, device=cuda)
+        B = torch.randn((32, bs, bs), generator=gen, device=cuda)
+        a, b, c = km._random_tasks(rng, 32, T, nout)
+        _check(A, B, a, b, c, nout)  # the kernel the rows time, against block_spmm_ref
+    rows = km.bench_block_spmm(cuda, 128, 256, 64)
+    assert [r["name"] for r in rows] == ["block_spmm_cuda_bs128", "block_spmm_plain_bs128",
+                                         "bmm_pregathered_bs128"]
+    assert all(r["us"] > 0 and not r["smoke_only"] for r in rows)
+    fvs = km.bench_fused_vs_staged(cuda, 128, 512)
+    assert fvs["bit_identical"]
+    p = km.fused_problem(cuda, 64, 256)
+    got = km._fused(p)
+    want = fl.fused_block_spmm_ref(p["a_store"], p["a_recv"], p["b_store"], p["b_recv"],
+                                   *p["idx"], p["run_ptr"], p["nout"])[0]
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= REL * 64 * scale
+    prec = km.bench_precision_modes(cuda, 128, 512)
+    assert prec["within_bounds"]
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128, 256])
+def test_kernel_micro_engines_agree_bit_for_bit(cuda, bs):
+    km = _kernel_micro()
+    (row,) = km.bench_engines(cuda, T=256, nout=64, n_blocks=32, bs_list=(bs,))
+    assert row["bit_identical"], row
+    assert row["picked"] == ("tile128" if bs % 128 == 0 else "tile64")
+    assert (row["tile128_us"] is None) == (bs % 128 != 0)

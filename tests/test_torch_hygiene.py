@@ -51,11 +51,32 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+# the port's benchmarks run on the card's machine, which has no JAX; the one
+# that times the port against the JAX package on the CPU is the exception
+MIRRORS = sorted(p for p in (ROOT / "benchmarks").glob("torch_*.py")
+                 if p.name != "torch_verify_speed.py")
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + MIRRORS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path}: imports {bad}"
+
+
+def test_benchmark_mirrors_import_with_jax_and_repro_blocked():
+    head = _BLOCKED_IMPORT.format(forbidden=set(FORBIDDEN)).split("import repro_torch")[0]
+    code = head + (
+        f"sys.path.insert(0, {str(ROOT / 'benchmarks')!r})\n"
+        f"for name in {[p.stem for p in MIRRORS]!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"assert not any(n.split('.')[0] in {set(FORBIDDEN)!r} for n in sys.modules)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(MIRRORS) >= 10  # the eight mirrors, the shared helper, the kernel comparison
 
 
 def test_constructors_need_a_card_unless_asked_for_the_cpu():
