@@ -82,12 +82,33 @@ Phases, one JSON line each:
 13. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
                       32 new tokens; a flash forward over the generated
                       sequences confirms every decode step's logits and token.
+    ``moe_layer``   — one MoE layer of qwen3-moe-235b-a22b at full width (d
+                      4096, 128 experts, d_ff 1536, top 8, SwiGLU) on B 2 x S
+                      4096 tokens at capacity factor 1.25 (640 rows an
+                      expert): ``moe_apply(gemm_impl="block_spmm")``, three
+                      kernel launches, bit-identical on repeat, within
+                      1e-4 * max|out| of the einsum route; each expert GEMM
+                      held to the kernel's plain version and timed beside
+                      ``torch.bmm`` and its bound; then the layer's 65,536
+                      dropless pairs through ``grouped_gemm_varsize`` (bm 8),
+                      held to a per-group product and timed beside its bound.
+    ``lm_families`` — qwen3-moe-235b-a22b (2 of 94 layers), recurrentgemma-9b
+                      (5 of 38: rec, rec, local, rec, rec) and mamba2-370m
+                      (all 48) at full width, seeded weights, one after the
+                      other: a forward at B 2 x S 4096 (qwen3-moe's flash
+                      against direct), then ``generate`` (4 requests, prompt
+                      8, 32 new tokens, fp32) confirmed by a forward over the
+                      generated sequences (dropless for the MoE); positions
+                      where a router's 8th and 9th probabilities tie to fp32
+                      rounding are counted and left out.
 14. ``dist_pipeline_profile`` — the ``dist_pipeline`` phase's static run
                       replayed on a full plan cache under ``torch.profiler``:
                       the card's busy share and the fused kernel's time
                       (last, since a profiler session slows later launches).
 15. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
-    its launches per type), then ``{"ok": true, "device": {...}}``.
+    its launches per type; ``block_spmm`` with its MoE expert GEMMs beside
+    ``torch.bmm`` and its grouped GEMM beside its bound), then
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
 Without ``--rehearse`` it needs a CUDA card and exits non-zero without one.
@@ -1990,6 +2011,334 @@ def phase_lm_serve(ctx, model) -> dict:
     return out
 
 
+# the serving families (the MoE, RG-LRU and SSD blocks): (arch, layers at full
+# width, layers in the rehearsal); qwen3-moe and recurrentgemma are cut in depth
+FAMILIES = (("qwen3-moe-235b-a22b", 2, 2), ("recurrentgemma-9b", 5, 5), ("mamba2-370m", 48, 4))
+# a router margin between a token's k-th and (k+1)-th probability below this
+# share of the k-th is within fp32 rounding: decode and the forward may pick
+# either expert there
+NEAR_TIE_REL = 1e-6
+# decode-step logits against the forward, as a share of max|logits|, for
+# every family: the scan families' recurrences against their parallel forms
+# held it too (2.2e-6 and 4.2e-6 of max|logits| on an H100 80GB HBM3)
+STEP_REL = 1e-4
+
+
+def grouped_gemm_plain(x, sizes, w):
+    """The dropless grouped GEMM's plain version: ``x[rows of g] @ w[g]`` per group."""
+    import torch
+
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=torch.float32, device=x.device)
+    lo = 0
+    for g, n in enumerate(sizes):
+        out[lo:lo + n] = torch.matmul(x[lo:lo + n].float(), w[g].float())
+        lo += n
+    return out
+
+
+def phase_moe_layer(ctx, sizes) -> dict:
+    """One MoE layer of qwen3-moe-235b-a22b at full width (d 4096, 128 experts,
+    d_ff 1536, top 8, SwiGLU) on B 2 x S 4096 tokens at capacity factor 1.25:
+    the expert GEMMs through ``block_spmm`` (one task per expert), then the
+    same layer's dropless pairs through ``grouped_gemm_varsize``."""
+    import math
+
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    arch = "qwen3-moe-235b-a22b"
+    cfg = reduced_config(arch) if sizes["lm_reduced"] else get_config(arch)
+    D, F, E, K = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.top_k
+    B, S = LM_BATCH, sizes["lm_seq"]
+    T = B * S
+    cap = math.ceil(T * K * 1.25 / E)
+    gen = torch.Generator(device=ctx.dev).manual_seed(19)
+    p = moe.moe_init(gen, D, F, E, cfg.mlp_act)
+    x = torch.randn((B, S, D), generator=gen, device=ctx.dev)
+    kw = dict(num_experts=E, top_k=K, act=cfg.mlp_act, capacity_factor=1.25)
+    calls = []
+    block_spmm = ops.block_spmm
+
+    def recording(a_data, b_data, *args, **kwargs):
+        out = block_spmm(a_data, b_data, *args, **kwargs)
+        calls.append((a_data, b_data, args, out))
+        return out
+
+    ops.block_spmm = recording
+    try:
+        with torch.inference_mode():
+            bsp.launches = 0  # the main path's count starts here
+            out = moe.moe_apply(p, x, gemm_impl="block_spmm", **kw)
+            ctx.sync()
+            launches = bsp.launches  # ... and is read here
+            gemms = list(calls)
+            again = moe.moe_apply(p, x, gemm_impl="block_spmm", **kw)
+            ref = moe.moe_apply(p, x, gemm_impl="einsum", **kw)
+            ctx.sync()
+            identical = bool(torch.equal(out, again))
+            omax = float(out.abs().max())
+            layer_err = float((out - ref).abs().max())
+            del again, ref
+            check(launches == (0 if ctx.rehearse else 3),
+                  f"moe_layer: the block_spmm route launched {launches} kernels, expected 3")
+            check(identical, "moe_layer: two block_spmm MoE layers differ")
+            check(bool(torch.isfinite(out).all()) and layer_err <= 1e-4 * omax,
+                  f"moe_layer: block_spmm route off the einsum route by {layer_err} > 1e-4 * {omax}")
+
+            # each expert GEMM against the kernel's plain version, and timed beside torch.bmm
+            kernel = bsp.block_spmm_ref if ctx.rehearse else bsp.block_spmm_cuda
+            idx = np.arange(E)
+            tasks = ops.task_arrays(idx, idx, idx, E, ctx.dev)
+            rows = []
+            for name, (a, b, _, got) in zip(("w1", "wg", "w2"), gemms, strict=True):
+                want = bsp.block_spmm_ref(a, b, *tasks, E)
+                tol = block_tolerance(a, b, *tasks)
+                excess = float(((got - want).abs().flatten(1).amax(1).double() / tol).max())
+                err = float((got - want).abs().max())
+                del want
+                check(excess <= 1.0, f"moe_layer {name}: kernel off its plain version by {excess} of the limit")
+                ms = ctx.time_ms(lambda a=a, b=b: kernel(a, b, *tasks, E), reps=5)
+                bmm_ms = ctx.time_ms(lambda a=a, b=b: torch.bmm(a, b), reps=5)
+                M, Kd, N = a.shape[1], a.shape[2], b.shape[2]
+                bound = gemm_bound(E, M, Kd, N, E, E, E, a.element_size())
+                rows.append(dict(gemm=name, shape=f"[{E}, {M}, {Kd}] x [{E}, {Kd}, {N}]",
+                                 engine=bsp.tile_engine(M, Kd, N, (a, b)),
+                                 max_abs_err=err, err_over_limit=excess, ms=ms, bmm_ms=bmm_ms,
+                                 bmm="torch.bmm on the same operands (one task per expert)",
+                                 bound_share=bound["bound_ms"] / ms, **bound))
+            calls.clear()
+            del gemms, out
+
+            # the same layer's dropless pairs, sorted by expert, through the grouped GEMM
+            gates, experts = moe.route(x, p["router"], K)
+            pe = experts.reshape(-1)
+            order = torch.argsort(pe, stable=True)
+            tokens = x.reshape(T, D)[torch.arange(T, device=ctx.dev).repeat_interleave(K)[order]]
+            group_sizes = torch.bincount(pe, minlength=E).cpu().numpy()
+            bsp.launches = 0  # the main path's count starts here
+            grouped = ops.grouped_gemm_varsize(tokens, group_sizes, p["w1"])
+            ctx.sync()
+            grouped_launches = bsp.launches  # ... and is read here
+            check(grouped_launches == (0 if ctx.rehearse else 1),
+                  f"moe_layer: grouped_gemm_varsize launched {grouped_launches} kernels, expected 1")
+            (a_data, b_data, (a_idx, b_idx, c_idx, nt), _), = calls
+            g_again = ops.grouped_gemm_varsize(tokens, group_sizes, p["w1"])
+            plain = grouped_gemm_plain(tokens, group_sizes, p["w1"])
+            ctx.sync()
+            g_identical = bool(torch.equal(grouped, g_again))
+            # per row: REL * ||x_r|| ||w_g||_F, the block limit of a one-row task
+            wnorm = torch.linalg.matrix_norm(p["w1"].double())
+            row_group = torch.repeat_interleave(torch.arange(E, device=ctx.dev),
+                                                torch.from_numpy(group_sizes).to(ctx.dev))
+            row_tol = REL * torch.linalg.vector_norm(tokens.double(), dim=1) * wnorm[row_group]
+            g_excess = float(((grouped - plain).abs().amax(1).double() / row_tol).max())
+            g_err = float((grouped - plain).abs().max())
+            del g_again, plain
+            check(g_identical, "moe_layer: two grouped GEMMs differ")
+            check(g_excess <= 1.0, f"moe_layer: grouped GEMM off its plain version by {g_excess} of the limit")
+            g_tasks = ops.task_arrays(np.arange(len(b_idx)), b_idx, c_idx, nt, ctx.dev)
+            g_ms = ctx.time_ms(lambda: kernel(a_data, b_data, *g_tasks, nt), reps=3)
+            g_call_ms = ctx.time_ms(lambda: ops.grouped_gemm_varsize(tokens, group_sizes, p["w1"]), reps=3)
+            loop_ms = ctx.time_ms(lambda: grouped_gemm_plain(tokens, group_sizes, p["w1"]), reps=3)
+            # the work this run's rows need: T * K real rows, x read and out written once
+            ops_ = 2.0 * T * K * D * F
+            nbytes = 4 * (T * K * D + E * D * F + T * K * F)
+            t_ops, t_bytes = ops_ / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+            tiles = int(nt)
+            boundary = int(len(b_idx) - np.unique(np.asarray(c_idx)).size)
+    finally:
+        ops.block_spmm = block_spmm
+    out = dict(phase="moe_layer", arch=cfg.name, d_model=D, experts=E, d_ff=F, top_k=K,
+               act=cfg.mlp_act, tokens=T, capacity=cap, launches=launches + grouped_launches,
+               block_spmm_route_launches=launches, max_abs_out=omax,
+               max_abs_block_spmm_minus_einsum=layer_err, tol=1e-4 * omax,
+               bit_identical_on_repeat=identical, gemms=rows,
+               grouped=dict(rows=T * K, groups=E, empty_groups=int((group_sizes == 0).sum()),
+                            tile_m=8, tiles=tiles, tasks=len(b_idx), extra_boundary_tasks=boundary,
+                            engine=bsp.tile_engine(8, D, F, (a_data, b_data)),
+                            launches=grouped_launches, bit_identical_on_repeat=g_identical,
+                            max_abs_err=g_err, err_over_limit=g_excess, kernel_ms=g_ms,
+                            call_ms=g_call_ms, per_group_matmul_ms=loop_ms,
+                            per_group_matmul=f"{E} torch.matmul calls, yardstick only",
+                            bound_ms=max(t_ops, t_bytes) * 1e3,
+                            bound_by="operations" if t_ops >= t_bytes else "bytes",
+                            bound_arithmetic=(f"max(2*{T * K}*{D}*{F} op / 67e12 op/s = "
+                                              f"{t_ops * 1e3:.4f} ms, {nbytes} B / 3.35e12 B/s = "
+                                              f"{t_bytes * 1e3:.4f} ms)"),
+                            bound_share=max(t_ops, t_bytes) * 1e3 / g_ms))
+    emit(out)
+    return out
+
+
+def family_config(arch: str, layers: int, reduced: bool):
+    """The serving family's config, cut to ``layers`` in depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def router_margins(calls, top_k: int):
+    """``[B, S]`` bool: a position where some MoE layer's k-th and (k+1)-th
+    router probabilities lie within :data:`NEAR_TIE_REL` of each other."""
+    import torch
+
+    near = None
+    for x, router in calls:
+        xf = x.reshape(-1, x.shape[-1])
+        probs = torch.softmax((xf @ router.to(xf.dtype)).float(), dim=-1)
+        top = probs.topk(top_k + 1, dim=-1).values
+        tie = (top[:, top_k - 1] - top[:, top_k]) <= NEAR_TIE_REL * top[:, top_k - 1]
+        tie = tie.reshape(x.shape[:2])
+        near = tie if near is None else near | tie
+    return near
+
+
+def phase_lm_families(ctx, sizes) -> dict:
+    """The MoE, RG-LRU and SSD families at full width: a forward at B 2 x S 4096,
+    then ``generate`` (4 requests, prompt 8, 32 new tokens, fp32) confirmed by
+    a forward over the generated sequences."""
+    import dataclasses
+
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+    from repro_torch.models import transformer
+
+    B, S = LM_BATCH, sizes["lm_seq"]
+    R, P, G = SERVE
+    rows, launches = [], 0
+    for arch, full_layers, rehearsal_layers in FAMILIES:
+        cfg = family_config(arch, rehearsal_layers if sizes["lm_reduced"] else full_layers,
+                            sizes["lm_reduced"])
+        kinds = transformer.layer_kinds(cfg)
+        per_flash = 0 if ctx.rehearse else kinds.count("attn")
+        if ctx.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=0, device=ctx.dev)
+        ctx.sync()
+        init_s = time.perf_counter() - t0
+        numels = []
+        transformer.tree_map(lambda t: numels.append(t.numel()), params)
+        row = dict(arch=cfg.name, layers=cfg.num_layers, kinds=sorted(set(kinds)),
+                   d_model=cfg.d_model, vocab=cfg.vocab_size, params=sum(numels),
+                   param_bytes=4 * sum(numels), init_s=init_s, batch=B, seq=S)
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+        inputs = {"tokens": torch.from_numpy(tokens).to(ctx.dev)}
+        with torch.inference_mode():
+            fa.launches = 0  # the main path's count starts here
+            fa.launches_by_dtype.update(float32=0, bfloat16=0)
+            transformer.apply(params, cfg, inputs, attn_impl="flash")  # warm: allocator, cuBLAS
+            ctx.sync()
+            t0 = time.perf_counter()
+            logits = transformer.apply(params, cfg, inputs, attn_impl="flash")
+            ctx.sync()
+            row["forward_s"] = time.perf_counter() - t0
+            fwd_launches = fa.launches
+            check(fwd_launches == 2 * per_flash,
+                  f"{arch}: two flash forwards launched the flash kernel {fwd_launches} times, "
+                  f"expected {2 * per_flash}")
+            lmax = float(logits.abs().max())
+            row.update(forward_tokens_per_s=B * S / row["forward_s"], max_abs_logit=lmax,
+                       finite=bool(torch.isfinite(logits).all()),
+                       shape=list(logits.shape))
+            check(row["finite"] and row["shape"] == [B, S, cfg.vocab_size],
+                  f"{arch} forward: non-finite logits or shape {row['shape']}")
+            if "attn" in kinds:
+                direct = transformer.apply(params, cfg, inputs, attn_impl="direct")
+                err = float((logits - direct).abs().max())
+                del direct
+                row.update(max_abs_flash_minus_direct=err, flash_tol=1e-4 * lmax)
+                check(err <= 1e-4 * lmax, f"{arch} forward: flash off direct by {err} > 1e-4 * {lmax}")
+            del logits
+            row["forward_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                         if ctx.dev.type == "cuda" else None)
+
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (R, P))
+        generate(cfg, params, prompts[:, :2], 2, device=ctx.dev)  # warm-up
+        ctx.sync()
+        t0 = time.perf_counter()
+        seqs, steps = generate(cfg, params, prompts, G, dtype=torch.float32, device=ctx.dev,
+                               return_logits=True)
+        ctx.sync()
+        secs = time.perf_counter() - t0
+        n_steps = P + G - 1
+        check(seqs.shape == (R, P + G) and np.array_equal(seqs[:, :P], prompts),
+              f"{arch}: generate returned {seqs.shape}, or not the prompts")
+        # the confirming forward is dropless, as decode is
+        confirm_cfg = (dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts / cfg.top_k)
+                       if cfg.is_moe else cfg)
+        calls = []
+        moe_apply = moe.moe_apply
+
+        def recording(p, x, **kw):
+            calls.append((x, p["router"]))
+            return moe_apply(p, x, **kw)
+
+        moe.moe_apply = recording
+        try:
+            with torch.inference_mode():
+                before = fa.launches
+                full = transformer.apply(params, confirm_cfg,
+                                         {"tokens": torch.from_numpy(seqs).to(ctx.dev)},
+                                         attn_impl="flash")[:, :-1].float()
+                ctx.sync()
+                near = (router_margins(calls, cfg.top_k)[:, :-1] if calls
+                        else torch.zeros(full.shape[:2], dtype=torch.bool, device=ctx.dev))
+        finally:
+            moe.moe_apply = moe_apply
+        check(fa.launches - before == per_flash,
+              f"{arch}: the confirming forward launched {fa.launches - before} flash kernels")
+        fam_launches = fa.launches  # ... and is read here
+        check(fa.launches_by_dtype["float32"] == fam_launches,
+              f"{arch}: flash launches by type {dict(fa.launches_by_dtype)}, all fp32 expected")
+        launches += fam_launches
+        lmax = float(full.abs().max())
+        keep = ~near
+        err = float((full - steps).abs().amax(-1)[keep].max())
+        check(err <= STEP_REL * lmax,
+              f"{arch}: decode-step logits off the forward by {err} > {STEP_REL} * {lmax}")
+        gen_logits = full[:, P - 1:]
+        top2 = gen_logits.topk(2, dim=-1).values
+        decided = ((top2[..., 0] - top2[..., 1]) > STEP_REL * lmax) & keep[:, P - 1:]
+        agree = gen_logits.argmax(-1).cpu().numpy() == seqs[:, P:]
+        decided = decided.cpu().numpy()
+        check(bool(agree[decided].all()), f"{arch}: a generated token is not the forward's argmax")
+        row.update(gen=dict(batch=R, prompt_len=P, new_tokens=G, dtype="float32", seconds=secs,
+                            decode_steps=n_steps, ms_per_decode_step=secs * 1e3 / n_steps,
+                            generated_tokens_per_s=R * G / secs,
+                            confirming_forward=("dropless: moe_capacity_factor = num_experts / "
+                                                f"top_k = {confirm_cfg.moe_capacity_factor}")
+                            if cfg.is_moe else "as the forward",
+                            near_tie_positions=int(near.sum()), positions=int(near.numel()),
+                            near_tie_rel=NEAR_TIE_REL, excluded_positions=int(near.sum()),
+                            max_abs_logit=lmax, max_abs_step_minus_forward=err,
+                            step_err_over_max_logit=err / lmax, limit_rel=STEP_REL,
+                            tokens_checked=int(decided.sum()), tokens_total=int(decided.size),
+                            first_sequence=seqs[0].tolist()),
+                   flash_launches=fam_launches,
+                   peak_bytes=torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None)
+        rows.append(row)
+        del params, full, steps
+        if ctx.dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out = dict(phase="lm_families", launches=launches, launches_by_dtype=dict(float32=launches),
+               families=rows)
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rehearse", action="store_true",
@@ -2038,6 +2387,8 @@ def main(argv=None) -> int:
     fwd = phase(phase_lm_forward, ctx, sizes, model)
     serve = phase(phase_lm_serve, ctx, model)
     del model
+    moe_layer = phase(phase_moe_layer, ctx, sizes)
+    families = phase(phase_lm_families, ctx, sizes)
     phase(phase_dist_pipeline_profile, ctx, sizes)
 
     timing, ftiming = kern["timing"], fused["timing"]
@@ -2049,7 +2400,8 @@ def main(argv=None) -> int:
         return dict(name=f"flash_attention_{'bf16' if bf16 else 'f32'}", route="cuda",
                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:31",
-                    launches=fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype],
+                    launches=(fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype]
+                              + families["launches_by_dtype"].get(dtype, 0)),
                     max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
@@ -2058,10 +2410,18 @@ def main(argv=None) -> int:
     emit({"kernels": [
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
-             launches=mul["launches"] + sp2["kernel_launches"] + douter["launches"],
+             launches=(mul["launches"] + sp2["kernel_launches"] + douter["launches"]
+                       + moe_layer["launches"]),
              max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-             bound_by=timing["bound_by"], library_ms=None),
+             bound_by=timing["bound_by"], library_ms=None,
+             moe_expert_gemms=[dict(gemm=g["gemm"], shape=g["shape"], ms=g["ms"],
+                                    library_ms=g["bmm_ms"], bound_ms=g["bound_ms"],
+                                    bound_by=g["bound_by"], max_abs_err=g["max_abs_err"])
+                               for g in moe_layer["gemms"]],
+             grouped_gemm_varsize={k: moe_layer["grouped"][k] for k in (
+                 "tasks", "launches", "kernel_ms", "call_ms", "per_group_matmul_ms", "bound_ms",
+                 "bound_by", "max_abs_err")}),
         dict(name="fused_block_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
              replaces="src/repro/kernels/fused_leaf.py:71",

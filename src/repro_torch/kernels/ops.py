@@ -14,7 +14,15 @@ from . import block_spmm as _bsp
 from . import flash_attention as _fa
 from . import fused_leaf as _fl
 
-__all__ = ["block_spmm", "block_spmm_tensors", "flash_attention", "fused_block_spmm", "task_arrays"]
+__all__ = [
+    "block_spmm",
+    "block_spmm_tensors",
+    "flash_attention",
+    "fused_block_spmm",
+    "grouped_gemm_tasks",
+    "grouped_gemm_varsize",
+    "task_arrays",
+]
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -88,6 +96,58 @@ def block_spmm_tensors(
     if _route(a_data.device, impl, "block_spmm") == "kernel":
         return _bsp.block_spmm_cuda(*args)
     return _bsp.block_spmm_ref(*args)
+
+
+def grouped_gemm_tasks(group_sizes, tile_m: int):
+    """Host symbolic phase of :func:`grouped_gemm_varsize`: one task per (row tile, group) pair.
+
+    Rows ``[0, T)`` are sorted by group (``group_sizes`` rows each, empty
+    groups allowed) and padded to a multiple of ``tile_m``; the padded rows
+    belong to the last group.  Returns int64 ``(a_idx, b_idx, c_idx,
+    mask_lo, mask_hi)``: task ``i`` multiplies rows ``[mask_lo, mask_hi)`` of
+    tile ``a_idx[i]`` by group ``b_idx[i]``'s weight into output tile
+    ``c_idx[i] = a_idx[i]``; a tile that spans several groups has one task
+    per group, in ascending group order.
+    """
+    sizes = np.asarray(group_sizes, dtype=np.int64)
+    G, T = sizes.size, int(sizes.sum())
+    pad = (-T) % tile_m
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    row_group = np.concatenate([np.repeat(np.arange(G), sizes), np.full(pad, G - 1)])
+    pairs = np.unique(np.arange(T + pad) // tile_m * G + row_group)  # tile-major, then group
+    tile, group = pairs // G, pairs % G
+    lo = tile * tile_m
+    g_hi = np.where(group < G - 1, starts[group + 1], T + pad)
+    mask_lo = np.maximum(starts[group] - lo, 0)
+    mask_hi = np.minimum(g_hi - lo, tile_m)
+    return tile, group, tile.copy(), mask_lo, mask_hi
+
+
+def grouped_gemm_varsize(x: torch.Tensor, group_sizes, w: torch.Tensor, *,
+                         tile_m: int = 8) -> torch.Tensor:
+    """Dropless grouped GEMM (MegaBlocks) through :func:`block_spmm`: ``[T, N]``.
+
+    x ``[T, K]`` rows sorted by group (tokens sorted by expert);
+    ``group_sizes`` host sizes summing to T; w ``[G, K, N]``.  Row t is
+    multiplied by its group's weight.  x is cut into ``tile_m``-row tiles,
+    and each task's tile is masked to the rows of its group
+    (:func:`grouped_gemm_tasks`), so a boundary tile appears once per group
+    it spans and no row is dropped or padded to a capacity.  A CUDA tensor
+    launches the ``block_spmm`` kernel, a CPU tensor takes its plain version.
+    """
+    T, K = x.shape
+    if int(np.sum(group_sizes)) != T:
+        raise ValueError(f"group sizes sum to {int(np.sum(group_sizes))}, x has {T} rows")
+    a_idx, b_idx, c_idx, mask_lo, mask_hi = grouped_gemm_tasks(group_sizes, tile_m)
+    nt = -(-T // tile_m)
+    xt = torch.nn.functional.pad(x, (0, 0, 0, nt * tile_m - T)).reshape(nt, tile_m, K)
+    dev = x.device
+    rows = torch.arange(tile_m, device=dev)
+    lo, hi = (torch.from_numpy(m).to(dev) for m in (mask_lo, mask_hi))
+    sel = (rows[None, :] >= lo[:, None]) & (rows[None, :] < hi[:, None])
+    a_data = xt[torch.from_numpy(a_idx).to(dev)] * sel[:, :, None].to(x.dtype)
+    out = block_spmm(a_data, w.to(x.dtype), np.arange(a_idx.size), b_idx, c_idx, nt)
+    return out.reshape(nt * tile_m, -1)[:T].to(x.dtype)
 
 
 def fused_block_spmm(

@@ -1,1 +1,1 @@
-"""The dense-attention LMs: layers, attention (with the flash kernel), transformer, serve step."""
+"""The LMs: layers, attention (with the flash kernel), the MoE FFN, the RG-LRU and SSD blocks, transformer, serve step."""

@@ -17,9 +17,11 @@ import torch.nn.functional as F
 
 __all__ = [
     "apply_norm",
+    "causal_conv",
     "dense",
     "dense_init",
     "embed_init",
+    "linspace_f32",
     "mlp_apply",
     "mlp_init",
     "norm_init",
@@ -33,6 +35,17 @@ __all__ = [
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * scale
+
+
+def linspace_f32(start: float, stop: float, num: int, device) -> torch.Tensor:
+    """``jnp.linspace``'s fp32 arithmetic: ``start * (1 - s) + stop * s`` with
+    ``s = i / (num - 1)``, and ``stop`` itself last, so that constants built
+    on it round as the JAX package's do."""
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
 
 
 def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False, scale=None):
@@ -124,6 +137,24 @@ def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["wo"].to(x.dtype)
+
+
+def causal_conv(w: torch.Tensor, x: torch.Tensor, tail: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv: ``w [W, D]`` over x ``[B, S, D]``; ``tail [B, W - 1, D]``
+    holds the inputs before x (zeros when ``None``).
+
+    Tap j reads the input j steps back; the taps are summed j = 0 .. W - 1 in
+    order, in the type ``jnp`` would promote the tail and x to (the JAX
+    package's RG-LRU and SSD blocks).
+    """
+    W, S = w.shape[0], x.shape[1]
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
+    ctx = torch.cat([tail, x], dim=1)
+    out = w[0].to(x.dtype) * x
+    for j in range(1, W):
+        out = out + w[j].to(x.dtype) * ctx[:, W - 1 - j:W - 1 - j + S]
+    return out
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:

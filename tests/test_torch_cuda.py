@@ -562,6 +562,66 @@ def test_lm_forward_and_generate_go_through_the_flash_kernel(cuda):
     assert float((full - steps).abs().max()) <= 1e-4 * float(full.abs().max())
 
 
+# -- the MoE FFN, the dropless grouped GEMM and the scan families ----------------
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 4.0])
+def test_moe_block_spmm_route_matches_the_cpu_and_repeats(cuda, capacity_factor):
+    """Ce = 40 (the 64 x 64 engine) and 128 (the 128 x 128 one): three kernel
+    launches a call, bit-identical on repeat, within 1e-4 * max|out| of the
+    CPU's plain route on the same inputs."""
+    from repro_torch.models import moe
+
+    D, F, E, K = 128, 256, 8, 2
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(gen, D, F, E, "silu")
+    x = torch.randn((2, 64, D), generator=gen)
+    kw = dict(num_experts=E, top_k=K, act="silu", capacity_factor=capacity_factor,
+              gemm_impl="block_spmm")
+    want = moe.moe_apply(p, x, **kw)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    before = bsp.launches
+    got = moe.moe_apply(pc, x.to(cuda), **kw)
+    again = moe.moe_apply(pc, x.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert bsp.launches == before + 6
+    assert torch.equal(got, again)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_grouped_gemm_varsize_on_the_card_matches_its_plain_version(cuda):
+    """Tile 0 spans groups 0, 1 and 2 (three tasks); group 3 is empty."""
+    sizes = [3, 2, 11, 0, 30]
+    a, b, c, lo, hi = ops.grouped_gemm_tasks(sizes, 8)
+    assert list(b[a == 0]) == [0, 1, 2]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((sum(sizes), 64), generator=gen)
+    w = torch.randn((len(sizes), 64, 96), generator=gen)
+    want = ops.grouped_gemm_varsize(x, sizes, w)
+    before = bsp.launches
+    got = ops.grouped_gemm_varsize(x.to(cuda), sizes, w.to(cuda))
+    again = ops.grouped_gemm_varsize(x.to(cuda), sizes, w.to(cuda))
+    torch.cuda.synchronize()
+    assert bsp.launches == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "recurrentgemma-9b", "mamba2-370m"])
+def test_every_family_decodes_like_its_forward_on_the_card(cuda, arch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+
+    cfg = reduced_config(arch)
+    params = transformer.init_params(cfg, seed=0)  # on the card by default
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 5))
+    seqs, steps = generate(cfg, params, prompts, 20, return_logits=True)
+    full = transformer.apply(params, cfg, {"tokens": torch.from_numpy(seqs).to(cuda)},
+                             attn_impl="flash")[:, :-1]
+    assert float((full - steps).abs().max()) <= 1e-4 * float(full.abs().max())
+
+
 # -- benchmarks/torch_kernel_micro.py on the card ------------------------------
 
 

@@ -1,4 +1,4 @@
-"""The port's dense-attention LMs against the JAX package's, at reduced size.
+"""The port's LMs (every architecture) against the JAX package's, at reduced size.
 
 Parameters are drawn by the JAX package, given random biases and norm scales
 (they start at 0 and 1, so a dropped bias or scale would pass on fresh
@@ -27,21 +27,24 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-DENSE_ARCHS = ["qwen2-0.5b", "qwen2-72b", "olmo-1b", "stablelm-1.6b", "hubert-xlarge", "paligemma-3b"]
+ARCHS = list(ARCH_IDS)
+DECODERS = [a for a in ARCHS if get_config(a).kind == "decoder"]
+# the block families ported after the dense ones: MoE FFN, RG-LRU, SSD
+FAMILIES = ["kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "mamba2-370m"]
 # every fp32 logit within REL * max|logits| of the JAX package's
 REL = 1e-5
 
 
 def _randomize(tree, rng):
-    """Random values for every bias and norm scale (0 and 1 at init)."""
+    """Random values for every bias, norm scale and SSD skip / dt bias (0 and 1 at init)."""
     def visit(node, name=""):
         if isinstance(node, dict):
             return {k: visit(v, k) for k, v in node.items()}
         if isinstance(node, list):
             return [visit(v) for v in node]
-        if name in ("b", "bias"):
+        if name in ("b", "bias", "dt_bias"):
             return (0.5 * rng.standard_normal(node.shape)).astype(np.float32)
-        if name == "scale":
+        if name in ("scale", "norm_scale", "d_skip"):
             return (1.0 + 0.5 * rng.standard_normal(node.shape)).astype(np.float32)
         return node
     return visit(tree)
@@ -76,7 +79,7 @@ def _assert_logits_close(got, want):
 
 
 @pytest.mark.parametrize("impl", ["flash", "chunked"])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_jax(arch, impl):
     cfg, jcfg = reduced_config(arch), jax_reduced_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -231,8 +234,8 @@ def test_convert_round_trip_is_exact():
 
 
 def test_init_params_shapes_match_jax():
-    """Same tree, shapes and zero/one initialisations as the JAX package."""
-    for arch in DENSE_ARCHS:
+    """Same tree, shapes, zero/one initialisations and constants as the JAX package."""
+    for arch in ARCHS:
         cfg, jcfg = reduced_config(arch), jax_reduced_config(arch)
         tree = jax.tree.map(np.asarray, jt.init_params(jax.random.key(0), jcfg)[0])
         params = tt.init_params(cfg, seed=0, device="cpu")
@@ -242,10 +245,12 @@ def test_init_params_shapes_match_jax():
                                 strict=True):
             assert a.shape == b.shape, (arch, path)
             name = jax.tree_util.keystr(path)
-            if name.endswith("['b']") or name.endswith("['bias']"):
+            if name.endswith(("['b']", "['bias']", "['dt_bias']")):
                 assert not a.any()
-            elif name.endswith("['scale']"):
+            elif name.endswith(("['scale']", "['norm_scale']", "['d_skip']")):
                 assert (a == 1).all()
+            elif name.endswith(("['lam']", "['a_log']")):  # fp32 rounding: test_torch_ssd_rglru.py
+                np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=f"{arch} {name}")
             else:  # the normal draws have the JAX package's scale
                 assert abs(a.std() / b.std() - 1) < 0.2, (arch, name)
 
@@ -262,16 +267,115 @@ def test_init_params_needs_a_card_unless_asked_for_the_cpu():
         tt.init_params(cfg, device="cpu")  # neither a seed nor a generator
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(DENSE_ARCHS)))
-def test_moe_hybrid_and_ssm_archs_are_not_ported_yet(arch):
-    cfg = reduced_config(arch)
-    assert cfg.is_moe or set(cfg.block_pattern) - {"attn", "local"}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tt.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tt.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tt.apply({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+def _port_decode(cfg, params, tokens, cache_dtype):
+    """Per-step logits of the port's serve step fed ``tokens`` one by one."""
+    B, S = tokens.shape
+    cache = tt.init_cache(cfg, B, S, cache_dtype, device="cpu")
+    serve = tmodel.make_serve_step(cfg, compute_dtype=torch.float32)
+    steps = []
+    for pos in range(S):
+        logits, cache = serve(params, cache, torch.from_numpy(tokens[:, pos:pos + 1]).long(), pos)
+        steps.append(logits[:, 0].numpy())
+    return np.stack(steps, 1), cache
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_every_decoder_decodes_like_jax_and_its_forward(arch):
+    """Per-step logits equal the JAX serve step's and the port's own forward
+    within REL, the scan families' recurrences against their parallel forms
+    included (measured at most 7e-7 of max|logits|).  recurrentgemma's local
+    layers (window 16) run 40 steps round their ring."""
+    cfg, jcfg = reduced_config(arch), jax_reduced_config(arch)
+    tree = _jax_params(jcfg, seed=11)
+    S = 40 if arch == "recurrentgemma-9b" else 16
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    params = convert.lm_params_from_arrays(tree, cfg, device="cpu")
+    got, cache = _port_decode(cfg, params, tokens, torch.float32)
+    _assert_logits_close(got, _jax_decode(jcfg, tree, tokens, jnp.float32))
+    if arch == "recurrentgemma-9b":
+        assert [tuple(c) for c in cache["layers"]] == [("h", "conv")] * 2 + [("k", "v")] + [("h", "conv")] * 2
+        assert cache["layers"][2]["k"].shape[1] == cfg.window < S
+    if cfg.frontend == "vision_stub":
+        return  # the forward's inputs start with the image patches, decode's do not
+    full = tt.apply(params, cfg, {"tokens": torch.from_numpy(tokens)}, attn_impl="flash").numpy()
+    assert np.isfinite(full).all()
+    _assert_logits_close(got, full)
+
+
+def test_int8_cache_recurrent_decode_matches_jax():
+    """recurrentgemma with an int8 cache: its local layer quantises keys and
+    values, its recurrent layers keep fp32 h and a bf16 conv tail (fp32 after
+    the first step, as jnp.concatenate promotes it); the limit is
+    test_int8_cache_decode_matches_jax's, 2^-7 of max|logits|."""
+    cfg, jcfg = reduced_config("recurrentgemma-9b"), jax_reduced_config("recurrentgemma-9b")
+    tree = _jax_params(jcfg, seed=13)
+    tokens = np.random.default_rng(14).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    want = _jax_decode(jcfg, tree, tokens, jnp.int8)
+    cache = tt.init_cache(cfg, 2, 20, torch.int8, device="cpu")
+    assert cache["layers"][0]["h"].dtype == torch.float32
+    assert cache["layers"][0]["conv"].dtype == torch.bfloat16
+    assert cache["layers"][2]["k"].dtype == torch.int8
+    got, _ = _port_decode(cfg, convert.lm_params_from_arrays(tree, cfg, device="cpu"), tokens, torch.int8)
+    assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_generates_like_jax(arch):
+    """Greedy tokens equal the JAX package's and every step's logits are within REL."""
+    cfg, jcfg = reduced_config(arch), jax_reduced_config(arch)
+    tree = _jax_params(jcfg, seed=15)
+    prompts = np.random.default_rng(16).integers(0, cfg.vocab_size, (2, 5)).astype(np.int32)
+    want = jserve.generate(jcfg, jax.tree.map(jnp.asarray, tree), prompts, 8)
+    params = convert.lm_params_from_arrays(tree, cfg, device="cpu")
+    got, logits = tserve.generate(cfg, params, prompts, 8, device="cpu", return_logits=True)
+    np.testing.assert_array_equal(got, want)
+    _assert_logits_close(logits.numpy(), _jax_decode(jcfg, tree, want[:, :-1], jnp.float32))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_converts_exactly(arch):
+    """The round trip through the JAX package's stacked tree (``blocks.p{j}``
+    by pattern position, ``tail`` for recurrentgemma's rec, rec remainder)."""
+    cfg, jcfg = reduced_config(arch), jax_reduced_config(arch)
+    tree = _jax_params(jcfg, seed=17)
+    params = convert.lm_params_from_arrays(tree, cfg, device="cpu")
+    assert tt.layer_kinds(cfg) == [cfg.block_pattern[i % len(cfg.block_pattern)]
+                                   for i in range(cfg.num_layers)]
+    if arch == "recurrentgemma-9b":
+        assert len(tree["tail"]) == 2 and [sorted(p) for p in params["layers"][3:]] == [
+            ["ln1", "ln2", "mix", "mlp"]] * 2
+    back = convert.lm_params_to_arrays(params, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree), strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+class _MetaGenerator:
+    """Stands in for a torch.Generator so that init_params builds shapes only."""
+    device = torch.device("meta")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_count_matches_the_config_at_full_width(arch, monkeypatch):
+    """Every architecture at its published size, on the meta device (no
+    memory, no draws): the port's parameters number within 2 % of
+    ``cfg.param_count()``, which leaves out norms, biases, convs and the
+    recurrent constants."""
+    monkeypatch.setattr(torch, "randn", lambda shape, generator, device, dtype:
+                        torch.empty(shape, device=device, dtype=dtype))
+    cfg = get_config(arch)
+    params = tt.init_params(cfg, generator=_MetaGenerator())
+    numels = []
+    tt.tree_map(lambda t: numels.append(t.numel()), params)
+    assert abs(sum(numels) / cfg.param_count() - 1) < 0.02, (sum(numels), cfg.param_count())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "recurrentgemma-9b", "mamba2-370m"])
+def test_generate_cli_runs_every_family_on_the_cpu(arch, capsys):
+    tserve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "3",
+                 "--gen", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "generated (2, 7)" in out
 
 
 def test_full_size_configs_equal_the_jax_package():
