@@ -82,6 +82,23 @@ Phases, one JSON line each:
 13. ``lm_serve``    — ``generate`` at full width, fp32, 4 requests, prompt 8,
                       32 new tokens; a flash forward over the generated
                       sequences confirms every decode step's logits and token.
+    ``lm_train``    — the training path: qwen2-0.5b at full width cut to 2
+                      layers, fp32, B 2 x S 640 (two kv chunks, the last
+                      ragged): one step's loss and gradients on the card
+                      against the CPU's, and the AdamW update of the CPU's
+                      gradients on the card against the CPU's; then all 24
+                      layers, B 4 x S 1024, bf16 compute with fp32 params and
+                      AdamW, 8 steps through ``TrainLoop`` from
+                      ``TokenPipeline`` (seed 0) with a checkpoint every 4
+                      into a temporary directory: the loss at step 7, and
+                      batch 0's loss at the final parameters, below 0.95 of
+                      step 0's; a new loop
+                      resumed from the step-4 checkpoint ends bit-identical,
+                      one step run twice is bit-identical, and the train step
+                      launches none of the three kernels (no kernel has a
+                      gradient rule); tokens/s and MFU over the whole 8-step
+                      window, the median ms a step, peak memory, checkpoint
+                      seconds and the card's busy share.
     ``moe_layer``   — one MoE layer of qwen3-moe-235b-a22b at full width (d
                       4096, 128 experts, d_ff 1536, top 8, SwiGLU) on B 2 x S
                       4096 tokens at capacity factor 1.25 (640 rows an
@@ -118,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -142,6 +160,15 @@ GAP_MIN_REL = 1e-3
 ROUND2_BOUND = 2.0 * 2.0**-8 + 2.0**-16
 
 LM_BATCH = 2  # lm_forward: B 2 x S lm_seq
+# lm_train: the parity step's limits (loss relative; per leaf, of its max|x|)
+# and the full-width run's peak rate (the training CLI's default)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_UPDATE_REL = 1e-6
+TRAIN_LR = 1e-3
+# lm_train learns when its loss ends below this share of the loss at the initial
+# parameters (step 0's): 5 %, far above the 0.3 % by which two batches differ there
+TRAIN_LEARN_SHARE = 0.95
 SERVE = (4, 8, 32)  # lm_serve: requests, prompt length, new tokens (the JAX CLI's defaults)
 
 # flash-attention cases: (B, H, HK, Sq, Sk, D, causal, window); FLASH_TIMED are timed
@@ -174,7 +201,9 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             outer=dict(n=100_000, bs=128, hw=3000, block=15716, p=2,
                        small_n=8192, small_hw=1000, small_p=8),
             seq_n=8192, seq_bs=128, seq_p=8, seq_max_iter=10,
-            flash=FLASH_FULL, lm_reduced=False, lm_seq=4096)
+            flash=FLASH_FULL, lm_reduced=False, lm_seq=4096,
+            train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=1024,
+                       steps=8, ckpt_every=4))
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
@@ -182,7 +211,9 @@ REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  outer=dict(n=4096, bs=32, hw=120, block=640, p=2,
                             small_n=1024, small_hw=120, small_p=8),
                  seq_n=256, seq_bs=16, seq_p=8, seq_max_iter=40,
-                 flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64)
+                 flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64,
+                 train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=64,
+                            steps=8, ckpt_every=4))
 
 
 def emit(obj: dict) -> None:
@@ -1852,6 +1883,7 @@ def phase_lm_forward(ctx, sizes, model) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
 
     cfg, params, init_s = model
     B, S = LM_BATCH, sizes["lm_seq"]
@@ -1895,8 +1927,7 @@ def phase_lm_forward(ctx, sizes, model) -> dict:
             check(err <= rel * lmax, f"{name} forward: flash off direct by {err} > {rel} * {lmax}")
     launches = fa.launches  # ... and is read here
     by_dtype = dict(fa.launches_by_dtype)
-    numels = []
-    transformer.tree_map(lambda t: numels.append(t.numel()), params)
+    numels = [t.numel() for t in tree_leaves(params)]
     check(launches == 4 * per_forward, f"lm_forward: {launches} flash launches in 4 flash forwards")
     check(by_dtype == dict(float32=2 * per_forward, bfloat16=2 * per_forward),
           f"lm_forward: flash launches by type {by_dtype}, expected {2 * per_forward} of each")
@@ -1910,11 +1941,12 @@ def phase_lm_forward(ctx, sizes, model) -> dict:
     return out
 
 
-def profile_device(ctx, fn, kernel: str | None = None) -> dict:
+def profile_device(ctx, fn, kernel: str | None = None, top: int = 0) -> dict:
     """``fn()`` under ``torch.profiler``: the PyTorch calls the host makes, the
     kernels the card runs and their summed device time, against the wall time
     with the profiler on; ``kernel`` also sums the device time of the kernels
-    whose name holds it."""
+    whose name holds it, and ``top`` lists that many kernel names with the
+    most device time (ms, launches; names cut to 90 characters)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1933,6 +1965,14 @@ def profile_device(ctx, fn, kernel: str | None = None) -> dict:
                device_kernels=len(kernels) if ctx.dev.type == "cuda" else None,
                device_ms=device_s * 1e3 if kernels else None,
                device_busy_share=device_s / wall if kernels else None)
+    if top:
+        by_name = {}
+        for e in kernels:
+            ms_n = by_name.setdefault(e.name[:90], [0.0, 0])
+            ms_n[0] += e.time_range.elapsed_us() * 1e-3
+            ms_n[1] += 1
+        out["top_kernels"] = sorted(([n, ms_, k] for n, (ms_, k) in by_name.items()),
+                                    key=lambda r: -r[1])[:top]
     if kernel is not None:
         mine = [e for e in kernels if kernel in e.name]
         out.update({f"{kernel}_launches": len(mine),
@@ -2007,6 +2047,199 @@ def phase_lm_serve(ctx, model) -> dict:
                launches=launches, launches_by_dtype=by_dtype, max_abs_logit=lmax, max_abs_step_minus_forward=err, tol=tol,
                tokens_checked=int(decided.sum()), tokens_total=int(decided.size),
                first_sequence=seqs[0].tolist())
+    emit(out)
+    return out
+
+
+def _tree_excess(got, want, rel: float) -> float:
+    """The largest ``max|got - want| / (rel * max|want|)`` over the leaves of two
+    trees of one structure (``want`` on the host): at most 1 where every leaf
+    is within its limit."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        w = w.double()
+        err = float((g.cpu().double() - w).abs().max())
+        scale = float(w.abs().max())
+        worst = max(worst, err / (rel * scale) if scale > 0 else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def train_parity(ctx, cfg, t) -> dict:
+    """One fp32 train step of ``cfg`` on the device against the same step on the
+    CPU, from one seeded state and batch: the loss within TRAIN_LOSS_REL, each
+    gradient leaf within TRAIN_GRAD_REL * max|g| of the CPU's, and the AdamW
+    update of the CPU's gradients on the device within TRAIN_UPDATE_REL of the
+    CPU's update (at the peak rate: ``warmup=0``)."""
+    torch = ctx.torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as model_mod
+    from repro_torch.tree import tree_map
+
+    cpu = torch.device("cpu")
+    state = model_mod.init_train_state(cfg, seed=0, device=ctx.dev)
+    cpu_state = tree_map(lambda x: x.to(cpu), state)
+    batch = TokenPipeline(cfg, batch=t["parity_batch"], seq=t["parity_seq"], seed=0).global_batch(0)
+    grad_fn = model_mod.make_grad_fn(cfg, compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    loss, grads = grad_fn(state["params"], batch)
+    ctx.sync()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = grad_fn(cpu_state["params"], batch)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_excess = _tree_excess(grads, cpu_grads, TRAIN_GRAD_REL)
+    del grads
+    update = model_mod.make_update_fn(warmup=0)
+    want, _ = update(cpu_state, cpu_grads)
+    got, _ = update(state, tree_map(lambda g: g.to(ctx.dev), cpu_grads))
+    update_excess = _tree_excess(got, want, TRAIN_UPDATE_REL)
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+               batch=t["parity_batch"], seq=t["parity_seq"], compute="float32",
+               loss=float(loss), cpu_loss=float(cpu_loss), loss_rel_err=loss_rel,
+               loss_rel_limit=TRAIN_LOSS_REL, grad_err_over_limit=grad_excess,
+               grad_limit=f"{TRAIN_GRAD_REL} * max|g| per leaf",
+               update_err_over_limit=update_excess,
+               update_limit=f"{TRAIN_UPDATE_REL} * max|x| per leaf of params, mu, nu",
+               device_grad_s=dev_s, cpu_grad_s=cpu_s)
+    check(loss_rel <= TRAIN_LOSS_REL, f"lm_train parity: loss off the CPU's by {loss_rel} relative")
+    check(grad_excess <= 1.0, f"lm_train parity: a gradient leaf is {grad_excess}x its limit")
+    check(update_excess <= 1.0, f"lm_train parity: an updated leaf is {update_excess}x its limit")
+    return out
+
+
+def phase_lm_train(ctx, sizes) -> dict:
+    """The training path (:mod:`repro_torch.models.model`, ``optim``, ``data``,
+    ``checkpoint``, ``runtime``): the parity step (qwen2-0.5b cut to 2 layers,
+    fp32, B 2 x S 640: two kv chunks, the last ragged) against the CPU; then
+    all 24 layers at B 4 x S 1024 in bf16 compute through ``TrainLoop`` for 8
+    steps with a checkpoint every 4, a restart from the step-4 checkpoint
+    bit-identical to the uninterrupted run, one step run twice bit-identical,
+    and no kernel launched by the train step."""
+    import dataclasses
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    torch = ctx.torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.models import model as model_mod
+    from repro_torch.runtime import TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    t = sizes["train"]
+    cfg = reduced_config("qwen2-0.5b") if sizes["lm_reduced"] else get_config("qwen2-0.5b")
+    parity = train_parity(ctx, dataclasses.replace(cfg, num_layers=t["parity_layers"]), t)
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    B, S, steps, every = t["batch"], t["seq"], t["steps"], t["ckpt_every"]
+    pipe = TokenPipeline(cfg, batch=B, seq=S, seed=0)
+    step = model_mod.make_train_step(cfg, compute_dtype=torch.bfloat16, lr_peak=TRAIN_LR,
+                                     warmup=1, total_steps=steps)
+    quiet = dict(log_every=steps, log=lambda *_: None)
+    ckpt = tempfile.mkdtemp(prefix="lm_train_ckpt_")  # outside the repo: each save is the state
+    run_dir = os.path.join(ckpt, "run")
+    try:
+        t0 = time.perf_counter()
+        state = model_mod.init_train_state(cfg, seed=0, device=ctx.dev)
+        ctx.sync()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+        bsp.launches = fl.launches = fa.launches = 0  # the main path's count starts here
+        loop = TrainLoop(step, pipe, run_dir, ckpt_every=every)
+        t0 = time.perf_counter()
+        final, hist = loop.run(state, 0, steps, **quiet)
+        run_s = time.perf_counter() - t0
+        launches = dict(block_spmm=bsp.launches, fused_block_spmm=fl.launches,
+                        flash_attention=fa.launches)  # ... and is read here
+        peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+        del state
+        losses = [h["loss"] for h in hist]
+        gnorms = [h["grad_norm"] for h in hist]
+        check(launches == dict(block_spmm=0, fused_block_spmm=0, flash_attention=0),
+              f"lm_train: the train step launched kernels {launches}")
+        check(all(map(math.isfinite, losses + gnorms)), "lm_train: a non-finite loss or norm")
+        check(losses[-1] < TRAIN_LEARN_SHARE * losses[0],
+              f"lm_train: loss {losses[0]} at step 0, {losses[-1]} at step {steps - 1}")
+        # per-step statistics beside the whole window's rate
+        median_ms = statistics.median(loop.step_seconds[1:]) * 1e3
+        # steps 1 .. every - 1 run with no checkpoint being written beside them
+        quiet_ms = statistics.median(loop.step_seconds[1:every]) * 1e3
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(run_dir) for f in fs)
+        free_bytes = shutil.disk_usage(ckpt).free
+
+        # a crash after step `every`'s checkpoint: a new loop resumes there
+        for name in os.listdir(run_dir):
+            if int(name.split("_")[1]) > every:
+                shutil.rmtree(os.path.join(run_dir, name))
+        check(latest_step(run_dir) == every, f"lm_train: latest checkpoint {latest_step(run_dir)}")
+        loop2 = TrainLoop(step, pipe, run_dir, ckpt_every=every)
+        t0 = time.perf_counter()
+        resumed, start = loop2.resume_or_init(final)  # the final state: only its shapes count
+        ctx.sync()
+        restore_s = time.perf_counter() - t0
+        check(start == every, f"lm_train: resumed at step {start}, expected {every}")
+        resumed, hist2 = loop2.run(resumed, start, steps - start, **quiet)
+        restart_identical = all(torch.equal(a, b) for a, b in zip(tree_leaves(final),
+                                                                   tree_leaves(resumed)))
+        check(restart_identical, "lm_train: the resumed run does not end bit-identical")
+        check([h["loss"] for h in hist2] == losses[start:], "lm_train: resumed losses differ")
+        del resumed
+
+        # step 0's batch scored again at the final parameters: one batch, before and after
+        loss_fn = model_mod.make_loss_fn(cfg, compute_dtype=torch.bfloat16)
+        with torch.no_grad():
+            batch0 = {k: torch.from_numpy(v).to(ctx.dev) for k, v in pipe.global_batch(0).items()}
+            batch0_after = float(loss_fn(final["params"], batch0)[0])
+        del batch0
+        check(batch0_after < TRAIN_LEARN_SHARE * losses[0],
+              f"lm_train: batch 0's loss {losses[0]} at the initial parameters, "
+              f"{batch0_after} at the final ones")
+
+        batch = pipe.global_batch(steps)
+        a, ma = step(final, batch)
+        b, mb = step(final, batch)
+        repeat_identical = all(torch.equal(x, y) for x, y in zip(tree_leaves([a, ma]),
+                                                                  tree_leaves([b, mb])))
+        check(repeat_identical, "lm_train: two runs of one step differ")
+        del a, b
+        prof = profile_device(ctx, lambda: step(final, batch), top=12)
+        del final
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    tokens = B * S
+    tokens_per_s = steps * tokens / run_s  # the whole window: step 0 and the checkpoints in it
+    out = dict(phase="lm_train", parity=parity, arch=cfg.name, layers=cfg.num_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params, state_bytes=state_bytes,
+               batch=B, seq=S, tokens_per_step=tokens, compute="bfloat16", params_dtype="float32",
+               lr_peak=TRAIN_LR, steps=steps, ckpt_every=every, init_s=init_s, run_s=run_s,
+               losses=losses, batch0_loss_after=batch0_after, learn_share=TRAIN_LEARN_SHARE,
+               grad_norms=gnorms, step_ms=[x * 1e3 for x in loop.step_seconds],
+               tokens_per_s=tokens_per_s, ms_per_step=run_s / steps * 1e3,
+               ms_per_step_median=median_ms, ms_per_step_no_ckpt_write=quiet_ms,
+               mfu=6 * n_params * tokens_per_s / BF16_FLOPS if not ctx.rehearse else None,
+               mfu_formula=f"6 * {n_params} params * {steps} * {tokens} tokens / run_s / "
+                           f"{BF16_FLOPS:.3g}",
+               max_memory_allocated=peak, launches=launches,
+               ckpt=dict(bytes=ckpt_bytes, free_bytes=free_bytes,
+                         snapshot_s=loop.manager.snapshot_seconds,
+                         write_s=loop.manager.write_seconds, restore_s=restore_s,
+                         dir_under=os.path.dirname(ckpt)),
+               restart_bit_identical=restart_identical, resumed_at=start,
+               repeat_bit_identical=repeat_identical, profiled_step=prof,
+               retries=loop.retries + loop2.retries, stragglers=loop.straggler.events)
     emit(out)
     return out
 
@@ -2214,6 +2447,7 @@ def phase_lm_families(ctx, sizes) -> dict:
     from repro_torch.launch.serve import generate
     from repro_torch.models import moe
     from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
 
     B, S = LM_BATCH, sizes["lm_seq"]
     R, P, G = SERVE
@@ -2229,8 +2463,7 @@ def phase_lm_families(ctx, sizes) -> dict:
         params = transformer.init_params(cfg, seed=0, device=ctx.dev)
         ctx.sync()
         init_s = time.perf_counter() - t0
-        numels = []
-        transformer.tree_map(lambda t: numels.append(t.numel()), params)
+        numels = [t.numel() for t in tree_leaves(params)]
         row = dict(arch=cfg.name, layers=cfg.num_layers, kinds=sorted(set(kinds)),
                    d_model=cfg.d_model, vocab=cfg.vocab_size, params=sum(numels),
                    param_bytes=4 * sum(numels), init_s=init_s, batch=B, seq=S)
@@ -2387,6 +2620,7 @@ def main(argv=None) -> int:
     fwd = phase(phase_lm_forward, ctx, sizes, model)
     serve = phase(phase_lm_serve, ctx, model)
     del model
+    phase(phase_lm_train, ctx, sizes)
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
     phase(phase_dist_pipeline_profile, ctx, sizes)

@@ -7,7 +7,9 @@ as the JAX package's fields (``shape``, ``bs``, ``coords``, ``owner``,
 LM's state is its parameter tree: :func:`lm_params_from_arrays` takes the
 JAX package's tree as numpy arrays (``jax.tree.map(np.asarray, params)``)
 and :func:`lm_params_to_arrays` gives it back, so neither package imports
-the other.
+the other.  A train state (parameters, AdamW moments, ``count``, an optional
+fp32 ``master`` copy, ``step``) crosses with :func:`train_state_from_arrays`
+and :func:`train_state_to_arrays` the same way.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from .core.matrix import BSMatrix, _to_numpy, resolve_device
 from .dist.matrix import DistBSMatrix
-from .models.transformer import tree_map
+from .tree import tree_map
 
 __all__ = [
     "bsmatrix_from_arrays",
@@ -26,6 +28,8 @@ __all__ = [
     "distmatrix_to_arrays",
     "lm_params_from_arrays",
     "lm_params_to_arrays",
+    "train_state_from_arrays",
+    "train_state_to_arrays",
 ]
 
 
@@ -130,3 +134,34 @@ def lm_params_to_arrays(params, cfg) -> dict:
     if tail:
         out["tail"] = tail
     return out
+
+
+# the entries of a train state's "opt" that mirror the parameter tree
+_PARAM_SLOTS = ("mu", "nu", "master")
+
+
+def train_state_from_arrays(tree, cfg, *, device) -> dict:
+    """The port's train state (:func:`repro_torch.models.model.init_train_state`)
+    from the JAX package's as numpy arrays (``jax.tree.map(np.asarray, state)``).
+
+    The parameters and every optimizer slot that mirrors them (``mu``,
+    ``nu``, an optional ``master``) cross with :func:`lm_params_from_arrays`;
+    ``count`` and ``step`` arrive as int32 0-d tensors on ``device``.
+    """
+    dev = resolve_device(device)
+    scalar = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=dev)  # noqa: E731
+    opt = {k: (lm_params_from_arrays(v, cfg, device=dev) if k in _PARAM_SLOTS else scalar(v))
+           for k, v in tree["opt"].items()}
+    return {"params": lm_params_from_arrays(tree["params"], cfg, device=dev), "opt": opt,
+            "step": scalar(tree["step"])}
+
+
+def train_state_to_arrays(state, cfg) -> dict:
+    """The inverse of :func:`train_state_from_arrays`: the JAX package's train
+    state as numpy arrays (bf16 comes back as fp32, ``count`` and ``step`` as
+    int32 0-d arrays)."""
+    scalar = lambda t: np.asarray(int(t), dtype=np.int32)  # noqa: E731
+    opt = {k: (lm_params_to_arrays(v, cfg) if k in _PARAM_SLOTS else scalar(v))
+           for k, v in state["opt"].items()}
+    return {"params": lm_params_to_arrays(state["params"], cfg), "opt": opt,
+            "step": scalar(state["step"])}

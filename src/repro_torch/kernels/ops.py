@@ -3,6 +3,12 @@
 A tensor on the CPU takes the kernel's plain PyTorch version; a tensor on a
 CUDA card launches the hand-written kernel or raises.  Nothing falls back
 from the card to the plain version, and no shape escapes the kernel.
+
+The kernels have no gradient rule, as the JAX package's Pallas calls have
+none: with grad mode on, an operand that requires grad makes every entry
+point raise ``TypeError``, on the card and on the CPU alike (whatever
+``impl``), so a gradient never silently leaves a kernel's inputs out on one
+device and reaches them through the plain version on the other.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ def block_spmm(
     """
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
+    _no_grad("block_spmm", a_data, b_data)
     dev = a_data.device
     if len(a_idx) == 0:
         return torch.zeros((num_out, a_data.shape[1], b_data.shape[2]), dtype=torch.float32, device=dev)
@@ -68,8 +75,17 @@ def block_spmm(
                               *task_arrays(a_idx, b_idx, c_idx, num_out, dev), num_out, impl=impl)
 
 
-def _route(dev: torch.device, impl: str, what: str) -> str:
-    """``"kernel"`` or ``"ref"`` for ``impl`` on a tensor of device ``dev``."""
+def _no_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a call through the kernel (see the module docstring)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise TypeError(f"{what} has no gradient rule: call it under torch.no_grad(), or take "
+                        "a differentiable path (the LM's attn_impl='chunked', gemm_impl='einsum')")
+
+
+def _route(dev: torch.device, impl: str, what: str, *tensors) -> str:
+    """``"kernel"`` or ``"ref"`` for ``impl`` on a tensor of device ``dev``;
+    raises under autograd for any of ``tensors`` (:func:`_no_grad`)."""
+    _no_grad(what, *tensors)
     if impl != "auto":
         return impl
     if dev.type == "cuda":
@@ -93,7 +109,7 @@ def block_spmm_tensors(
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
     args = (a_data, b_data, a_idx, b_idx, run_ptr, num_out)
-    if _route(a_data.device, impl, "block_spmm") == "kernel":
+    if _route(a_data.device, impl, "block_spmm", a_data, b_data) == "kernel":
         return _bsp.block_spmm_cuda(*args)
     return _bsp.block_spmm_ref(*args)
 
@@ -135,6 +151,7 @@ def grouped_gemm_varsize(x: torch.Tensor, group_sizes, w: torch.Tensor, *,
     it spans and no row is dropped or padded to a capacity.  A CUDA tensor
     launches the ``block_spmm`` kernel, a CPU tensor takes its plain version.
     """
+    _no_grad("grouped_gemm_varsize", x, w)
     T, K = x.shape
     if int(np.sum(group_sizes)) != T:
         raise ValueError(f"group sizes sum to {int(np.sum(group_sizes))}, x has {T} rows")
@@ -180,7 +197,8 @@ def fused_block_spmm(
     """
     args = (a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, run_ptr, num_out)
     kw = dict(on=on, low=low, adaptive=adaptive)
-    if _route(a_store.device, "auto", "fused_block_spmm") == "kernel":
+    if _route(a_store.device, "auto", "fused_block_spmm", a_store, a_recv, b_store,
+              b_recv) == "kernel":
         return _fl.fused_block_spmm_cuda(*args, **kw)
     return _fl.fused_block_spmm_ref(*args, **kw)
 
@@ -204,6 +222,6 @@ def flash_attention(
     """
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
-    if _route(q.device, impl, "flash_attention") == "kernel":
+    if _route(q.device, impl, "flash_attention", q, k, v) == "kernel":
         return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     return _fa.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -32,10 +32,17 @@ DECODE_CHUNK = 512
 
 
 def _repeat_kv(k: torch.Tensor, heads: int) -> torch.Tensor:
-    hk = k.shape[2]
+    """Each kv head repeated for its ``heads // HK`` query heads (``jnp.repeat``'s order).
+
+    An expanded view reshaped, not ``repeat_interleave``: that one gathers
+    with ``index_select``, whose CUDA backward adds with atomics, so a
+    gradient's bits would change from run to run.  This one's backward sums
+    the group in one order.
+    """
+    B, S, hk, D = k.shape
     if hk == heads:
         return k
-    return k.repeat_interleave(heads // hk, dim=2)
+    return k[:, :, :, None].expand(B, S, hk, heads // hk, D).reshape(B, S, heads, D)
 
 
 def _direct(q, k, v, qpos, kpos, *, causal, window, prefix_len, scale):

@@ -23,9 +23,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.matrix import resolve_device
+from ..tree import tree_map
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rec_mod
@@ -45,16 +47,7 @@ from .layers import (
     rope,
 )
 
-__all__ = ["apply", "decode_step", "init_cache", "init_params", "layer_kinds", "tree_map"]
-
-
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a parameter or cache tree (dicts and lists), structure kept."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+__all__ = ["apply", "decode_step", "init_cache", "init_params", "layer_kinds"]
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -175,10 +168,12 @@ def _embed_inputs(p, cfg: ArchConfig, inputs):
     if cfg.frontend == "audio_stub":
         x = dense(p["frontend"], inputs["frames"])
     elif cfg.frontend == "vision_stub":
-        tok = table[inputs["tokens"]]
+        tok = F.embedding(inputs["tokens"], table)
         x = torch.cat([inputs["patches"].to(tok.dtype), tok], dim=1)
     else:
-        x = table[inputs["tokens"]]
+        # F.embedding: its CUDA backward sorts the indices, so a repeated token's
+        # gradient rows are summed in one order from run to run (no atomics)
+        x = F.embedding(inputs["tokens"], table)
     if cfg.positions == "sinusoidal":
         x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     return x

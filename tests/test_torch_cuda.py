@@ -666,3 +666,94 @@ def test_kernel_micro_engines_agree_bit_for_bit(cuda, bs):
     assert row["bit_identical"], row
     assert row["picked"] == ("tile128" if bs % 128 == 0 else "tile64")
     assert (row["tile128_us"] is None) == (bs % 128 != 0)
+
+
+# --- the training path on the card -------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["block_spmm", "block_spmm_tensors", "grouped_gemm_varsize",
+                                  "fused_block_spmm", "flash_attention"])
+def test_kernel_entry_points_raise_under_autograd_on_the_card(cuda, name):
+    from test_torch_kernel_autograd import _calls
+
+    launches = (bsp.launches, fl.launches)
+    with pytest.raises(TypeError, match="no gradient rule"):
+        _calls(True, cuda)[name]()
+    assert (bsp.launches, fl.launches) == launches
+    with torch.no_grad():
+        out = _calls(True, cuda)[name]()
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+
+
+def _train_setup(device, arch="qwen2-0.5b"):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as model_mod
+
+    cfg = reduced_config(arch)
+    state = model_mod.init_train_state(cfg, seed=0, device=device)
+    return cfg, state, TokenPipeline(cfg, batch=2, seq=640, seed=0), model_mod
+
+
+def _on(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Reduced qwen2-0.5b at S 640 (two kv chunks, the last ragged), fp32: the
+    loss within 1e-5 relative, each gradient leaf within 1e-4 * max|g| of the
+    CPU's; the update of the CPU's gradients on the card within 1e-6 of the
+    leaf's largest magnitude."""
+    from repro_torch.tree import tree_leaves
+
+    cfg, state, pipe, model_mod = _train_setup("cpu")
+    batch = pipe.global_batch(0)
+    grad_fn = model_mod.make_grad_fn(cfg, compute_dtype=torch.float32)
+    loss, grads = grad_fn(state["params"], batch)
+    card_state = _on(state, cuda)
+    card_loss, card_grads = grad_fn(card_state["params"], batch)
+    assert abs(float(card_loss) - float(loss)) <= 1e-5 * abs(float(loss))
+    for g, w in zip(tree_leaves(card_grads), tree_leaves(grads)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    update = model_mod.make_update_fn(warmup=0)
+    want, _ = update(state, grads)
+    got, _ = update(card_state, _on(grads, cuda))
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert float((g.cpu().double() - w.double()).abs().max()) <= 1e-6 * max(
+            float(w.double().abs().max()), 1e-30)
+
+
+def test_train_step_is_bit_identical_on_repeat_on_the_card(cuda):
+    """bf16 compute: two runs of one step from one state give the same bits
+    (no backward on the path accumulates with atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.tree import tree_leaves
+
+    for arch in ("qwen2-0.5b", "qwen3-moe-235b-a22b"):
+        cfg, state, pipe, model_mod = _train_setup(cuda, arch)
+        step = model_mod.make_train_step(cfg, warmup=0)
+        launches = (bsp.launches, fl.launches, fa.launches)
+        a, ma = step(state, pipe.global_batch(0))
+        b, mb = step(state, pipe.global_batch(0))
+        torch.cuda.synchronize()
+        assert (bsp.launches, fl.launches, fa.launches) == launches  # no kernel on the path
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves([a, ma]), tree_leaves([b, mb])))
+
+
+def test_restart_is_bitwise_identical_on_the_card(cuda, tmp_path):
+    from repro_torch.runtime import TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    cfg, state, pipe, model_mod = _train_setup(cuda)
+    step = model_mod.make_train_step(cfg, lr_peak=1e-3, warmup=1, total_steps=6)
+    quiet = dict(log_every=100, log=lambda *_: None)
+    straight, _ = TrainLoop(step, pipe, str(tmp_path / "a"), ckpt_every=3).run(state, 0, 6, **quiet)
+    TrainLoop(step, pipe, str(tmp_path / "b"), ckpt_every=3).run(state, 0, 3, **quiet)
+    loop = TrainLoop(step, pipe, str(tmp_path / "b"), ckpt_every=3)
+    resumed, start = loop.resume_or_init(state)
+    assert start == 3 and all(t.device.type == "cuda" for t in tree_leaves(resumed))
+    resumed, _ = loop.run(resumed, start, 3, **quiet)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(straight), tree_leaves(resumed)))

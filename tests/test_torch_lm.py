@@ -26,6 +26,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_parity import randomize_lm  # noqa: E402
 
 ARCHS = list(ARCH_IDS)
 DECODERS = [a for a in ARCHS if get_config(a).kind == "decoder"]
@@ -35,24 +37,9 @@ FAMILIES = ["kimi-k2-1t-a32b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "mamb
 REL = 1e-5
 
 
-def _randomize(tree, rng):
-    """Random values for every bias, norm scale and SSD skip / dt bias (0 and 1 at init)."""
-    def visit(node, name=""):
-        if isinstance(node, dict):
-            return {k: visit(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [visit(v) for v in node]
-        if name in ("b", "bias", "dt_bias"):
-            return (0.5 * rng.standard_normal(node.shape)).astype(np.float32)
-        if name in ("scale", "norm_scale", "d_skip"):
-            return (1.0 + 0.5 * rng.standard_normal(node.shape)).astype(np.float32)
-        return node
-    return visit(tree)
-
-
 def _jax_params(cfg, seed=0):
     params, _ = jt.init_params(jax.random.key(seed), cfg)
-    return _randomize(jax.tree.map(np.asarray, params), np.random.default_rng(seed + 100))
+    return randomize_lm(jax.tree.map(np.asarray, params), np.random.default_rng(seed + 100))
 
 
 def _inputs(cfg, B, S, rng):
@@ -365,8 +352,7 @@ def test_param_count_matches_the_config_at_full_width(arch, monkeypatch):
                         torch.empty(shape, device=device, dtype=dtype))
     cfg = get_config(arch)
     params = tt.init_params(cfg, generator=_MetaGenerator())
-    numels = []
-    tt.tree_map(lambda t: numels.append(t.numel()), params)
+    numels = [t.numel() for t in tree_leaves(params)]
     assert abs(sum(numels) / cfg.param_count() - 1) < 0.02, (sum(numels), cfg.param_count())
 
 

@@ -18,6 +18,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "benchmarks"))
 import spamm_sequences  # noqa: E402
 
 
+def randomize_lm(tree, rng):
+    """Random values for every bias, norm scale and SSD skip / dt bias of an LM's
+    parameter tree of numpy arrays (0 and 1 at init, so a dropped bias or
+    scale would pass on fresh parameters)."""
+    def visit(node, name=""):
+        if isinstance(node, dict):
+            return {k: visit(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v) for v in node]
+        if name in ("b", "bias", "dt_bias"):
+            return (0.5 * rng.standard_normal(node.shape)).astype(np.float32)
+        if name in ("scale", "norm_scale", "d_skip"):
+            return (1.0 + 0.5 * rng.standard_normal(node.shape)).astype(np.float32)
+        return node
+    return visit(tree)
+
+
 def to_port(m: JaxBSMatrix, device: str = "cpu"):
     return bsmatrix_from_arrays(m.shape, m.bs, m.coords, np.asarray(m.data), device=device)
 
