@@ -22,6 +22,13 @@ migrations appear in the trace), three ways:
   trace (``trace_pipeline_torch.json``) carries the plan-build spans and
   feeds the per-worker utilization + peak-memory report.
 
+Beside the gate, the first ``repeats`` rounds also run each observer alone
+(tracer, event log, health policy, memory meter, locality ledger) against
+the same bare arm: ``per_observer`` holds each one's paired medians of
+process CPU, wall and main-thread CPU (``time.thread_time``).  ``threads``
+splits the bare and full arms' process CPU by thread (``/proc/self/task``),
+which shows what else burns CPU beside the main thread.
+
 On the card, process CPU time includes the host's wait for the device
 (PyTorch synchronises by spinning), in both arms alike.  The gate runs last,
 so a failing run still leaves ``BENCH_trace_torch.json`` and the trace on
@@ -37,6 +44,7 @@ import gc
 import math
 import os
 import statistics
+import threading
 import time
 
 import numpy as np
@@ -138,6 +146,80 @@ def full_observatory(sync: bool) -> dict:
     )
 
 
+#: each observer alone: its key in :func:`full_observatory`
+OBSERVERS = ("tracer", "log", "health", "memory", "locality")
+
+
+def one_observer(name: str) -> dict:
+    """:func:`full_observatory`'s ``name`` alone (an unsynchronised tracer)."""
+    return {name: full_observatory(sync=False)[name]}
+
+
+def thread_cpu() -> dict:
+    """``{tid: (name, user + system seconds)}`` of this process's threads."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as fh:
+                stat = fh.read()
+        except OSError:  # the thread ended
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[int(tid)] = (stat[stat.index("(") + 1:stat.rindex(")")],
+                         (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def _threads_report(by_tid: dict, runs: int) -> list:
+    """Per thread, its CPU seconds per run, costliest first (main thread named)."""
+    main = threading.get_native_id()
+    rows = [dict(tid=tid, name="main" if tid == main else name, cpu_s_per_run=sec / runs)
+            for tid, (name, sec) in by_tid.items() if sec > 0]
+    return sorted(rows, key=lambda r: -r["cpu_s_per_run"])
+
+
+def cpu_op_census(fn) -> dict:
+    """``fn()`` under a ``TorchDispatchMode``: each ATen op that took a tensor
+    on the host, with its calls and the largest such tensor (``numel``).  On
+    the card these are the ops that can wake torch's intra-op pool."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    ops: dict = {}
+
+    class Census(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            host = [t.numel() for t in tree_leaves((args, kwargs or {}))
+                    if isinstance(t, torch.Tensor) and t.device.type == "cpu"]
+            if host:
+                calls, numel = ops.get(str(func), (0, 0))
+                ops[str(func)] = (calls + 1, max(numel, max(host)))
+            return func(*args, **(kwargs or {}))
+
+    with Census():
+        fn()
+    return {k: dict(calls=c, max_numel=m) for k, (c, m) in sorted(ops.items(), key=lambda kv: -kv[1][0])}
+
+
+def thread_pools() -> dict:
+    """The host thread pools that can burn CPU beside the main thread."""
+    import torch
+
+    out = dict(torch_intra_op=torch.get_num_threads(),
+               torch_inter_op=torch.get_num_interop_threads(), cpus=os.cpu_count())
+    try:
+        import threadpoolctl
+    except ImportError:
+        out["blas"] = "threadpoolctl not installed"
+    else:
+        out["blas"] = [dict(api=i.get("internal_api"), threads=i.get("num_threads"),
+                            library=os.path.basename(i.get("filepath", "")))
+                       for i in threadpoolctl.threadpool_info()]
+    return out
+
+
 def run(n: int, bs: int, repeats: int, sync_repeats: int, dev, *, smoke: bool,
         size: str, trace_path: str = TRACE_PATH) -> dict:
     """The three arms and the cold traced run; returns the BENCH payload."""
@@ -174,38 +256,69 @@ def run(n: int, bs: int, repeats: int, sync_repeats: int, dev, *, smoke: bool,
         gc.collect()
         gc.disable()
         try:
+            th0 = thread_cpu()
+            m0 = time.thread_time()
             c0 = time.process_time()
             t0 = time.perf_counter()
             d, _ = run_once(dS, dH, nocc, mesh, cache, **kw)
             wall = time.perf_counter() - t0
             cpu = time.process_time() - c0
+            main_cpu = time.thread_time() - m0
+            th1 = thread_cpu()
         finally:
             gc.enable()
         assert torch_bench.bit_identical(d, d_ref), "repeat diverged from reference"
-        return wall, cpu
+        by_tid = {tid: (name, sec - th0.get(tid, ("", 0.0))[1]) for tid, (name, sec) in th1.items()}
+        return wall, cpu, main_cpu, by_tid
 
     # bare and observatory arms every round (the paired median tightens with
-    # N); the sync arm rides the first few rounds only
-    arms = (None, lambda: full_observatory(sync=False), lambda: full_observatory(sync=True))
-    walls = ([], [], [])
+    # N); the sync arm rides the first few rounds only, each observer alone
+    # the first `repeats`
+    arms = (None, lambda: full_observatory(sync=False), lambda: full_observatory(sync=True),
+            *((lambda name=name: one_observer(name)) for name in OBSERVERS))
+    walls = tuple([] for _ in arms)
+    threads = ({}, {})  # bare, observatory: tid -> (name, CPU seconds over all runs)
     max_rounds = repeats if smoke else 4 * repeats
     rounds = 0
     while True:
         idxs = (0, 1, 2) if rounds < sync_repeats else (0, 1)
+        if rounds < repeats:
+            idxs = idxs + tuple(range(3, len(arms)))
         for i in (idxs if rounds % 2 == 0 else idxs[::-1]):
-            walls[i].append(one_run(arms[i]))
+            wall, cpu, main_cpu, by_tid = one_run(arms[i])
+            walls[i].append((wall, cpu, main_cpu))
+            if i < 2:
+                for tid, (name, sec) in by_tid.items():
+                    threads[i][tid] = (name, threads[i].get(tid, (name, 0.0))[1] + sec)
         rounds += 1
         if rounds < repeats:
             continue
-        pcts = [(on - off) / off * 100.0 for (_, off), (_, on) in zip(walls[0], walls[1])]
+        pcts = [(on[1] - off[1]) / off[1] * 100.0 for off, on in zip(walls[0], walls[1])]
         ci_lo, ci_hi = _median_ci(pcts)
         if ci_hi < OVERHEAD_CAP_PCT or ci_lo >= OVERHEAD_CAP_PCT or rounds >= max_rounds:
             break
     if rounds > repeats:
         print(f"noisy host: paired-overhead 95% CI straddled the {OVERHEAD_CAP_PCT}% cap "
               f"at n={repeats}, extended sampling to n={rounds}")
-    off_s, on_s, sync_s = ([w for w, _ in arm] for arm in walls)
-    off_c, on_c, sync_c = ([c for _, c in arm] for arm in walls)
+    off_s, on_s, sync_s = ([w[0] for w in arm] for arm in walls[:3])
+    off_c, on_c, sync_c = ([w[1] for w in arm] for arm in walls[:3])
+    off_m, on_m = ([w[2] for w in arm] for arm in walls[:2])
+
+    def paired(arm, k):  # median over rounds of (arm - bare) / bare, in %
+        return float(statistics.median((w[k] - b[k]) / b[k] * 100.0
+                                       for b, w in zip(walls[0], arm)))
+
+    per_observer = {
+        name: dict(wall_s=[w[0] for w in arm], cpu_s=[w[1] for w in arm],
+                   main_cpu_s=[w[2] for w in arm], cpu_pct=paired(arm, 1),
+                   wall_pct=paired(arm, 0), main_cpu_pct=paired(arm, 2),
+                   main_cpu_ms=float(statistics.median(
+                       (w[2] - b[2]) * 1e3 for b, w in zip(walls[0], arm))))
+        for name, arm in zip(OBSERVERS, walls[3:])}
+    per_observer["all"] = dict(cpu_pct=paired(walls[1], 1), wall_pct=paired(walls[1], 0),
+                               main_cpu_pct=paired(walls[1], 2), main_cpu_ms=float(
+                                   statistics.median((w[2] - b[2]) * 1e3
+                                                     for b, w in zip(walls[0], walls[1]))))
     min_off, min_on, min_sync = min(off_s), min(on_s), min(sync_s)
     cmin_off, cmin_on, cmin_sync = min(off_c), min(on_c), min(sync_c)
     overhead_pct = statistics.median(pcts)
@@ -219,6 +332,22 @@ def run(n: int, bs: int, repeats: int, sync_repeats: int, dev, *, smoke: bool,
           f"{overhead_cpu_min_pct:+.2f}%, unguarded)")
     print(f"warm wall (best of {rounds}): bare {min_off*1e3:.1f} ms  observatory "
           f"{min_on*1e3:.1f} ms  ({overhead_wall_pct:+.2f}%, unguarded)  bit-identical: True")
+    print(f"process CPU / wall, bare: {statistics.median(c / w for c, w in zip(off_c, off_s)):.2f}; "
+          f"main-thread CPU / wall: {statistics.median(m / w for m, w in zip(off_m, off_s)):.2f}")
+    for name, ob in per_observer.items():
+        print(f"  {name:9s} paired medians: process CPU {ob['cpu_pct']:+.2f}%  wall "
+              f"{ob['wall_pct']:+.2f}%  main-thread CPU {ob['main_cpu_pct']:+.2f}% "
+              f"({ob['main_cpu_ms']:+.1f} ms)")
+    thread_rows = dict(bare=_threads_report(threads[0], len(walls[0])),
+                       observatory=_threads_report(threads[1], len(walls[1])))
+    for row in thread_rows["bare"][:8]:
+        print(f"  bare thread {row['tid']} {row['name']!r}: {row['cpu_s_per_run']:.3f} s CPU a run")
+
+    host_ops = cpu_op_census(lambda: one_run(None))
+    print(f"ATen ops on host tensors in one bare run: {sum(v['calls'] for v in host_ops.values())} "
+          f"calls of {len(host_ops)} ops; most called: "
+          + ", ".join(f"{k} x{v['calls']} (numel <= {v['max_numel']})"
+                      for k, v in list(host_ops.items())[:5]))
 
     # -- cold observed run -> exported trace + utilization/memory report ----
     tracer = Tracer()
@@ -280,6 +409,12 @@ def run(n: int, bs: int, repeats: int, sync_repeats: int, dev, *, smoke: bool,
             overhead_cpu_min_pct=float(overhead_cpu_min_pct),
             overhead_wall_pct=float(overhead_wall_pct),
             bit_identical=True,
+            untraced_main_cpu_s=[float(t) for t in off_m],
+            traced_main_cpu_s=[float(t) for t in on_m],
+            per_observer=per_observer,
+            threads=thread_rows,
+            thread_pools=thread_pools(),
+            host_ops=host_ops,
         ),
         trace=dict(path=os.path.basename(trace_path), summary=summary,
                    spans_by_cat=cats, counter_totals=tracer.metrics_flat()),

@@ -32,6 +32,11 @@ Phases, one JSON line each:
 6. ``dist_multiply`` — the paper's Table 1 second row (N = 200,000, 4 workers):
                       ``scatter`` -> ``dist_multiply`` (cold and warm plan
                       cache) -> ``gather``, bit-identical to ``multiply(A, A)``.
+   ``weak_scaling`` — the largest Table 1 band row that fits the card (row
+                      3: N = 400,000, 8 workers, bs 128) through
+                      ``benchmarks/torch_weak_scaling.py``'s resident row:
+                      one fused launch a call, 64 sampled output blocks
+                      against float64 products, peak memory under 80 GB.
 7. ``dist_spamm``   — delta-plan SpAMM at N = 8192 on 8 workers, two ``tau``
                       and three precisions, each within its returned bound.
 8. ``dist_pipeline`` — the ``sp2`` phase's S and H resident on 8 workers:
@@ -57,7 +62,9 @@ Phases, one JSON line each:
                       no violation, a valid trace with 8 worker tracks, the
                       ledger conserving bytes; the host time split between
                       plan builds, verification, dispatch and the rest; the
-                      observatory's overhead on the warm pipeline, in turns.
+                      observatory's overhead on the warm pipeline, in turns,
+                      and each observer's alone (wall, process and
+                      main-thread CPU).
     ``sequences``   — the paper's three structure families (banded,
                       exp-decay, random-offdiag at N = 8192, bs 128) through
                       resident SP2 on 8 workers from the all-on-worker-0
@@ -98,7 +105,11 @@ Phases, one JSON line each:
                       launches none of the three kernels (no kernel has a
                       gradient rule); tokens/s and MFU over the whole 8-step
                       window, the median ms a step, peak memory, checkpoint
-                      seconds and the card's busy share.
+                      seconds and the card's busy share.  Before the loop,
+                      the same shape under ``remat="none"`` and ``"full"``
+                      (every full config's): ms a step and peak memory of
+                      each, ``"full"``'s peak below ``"none"``'s, and the
+                      first step's loss and gradients bit-identical.
     ``moe_layer``   — one MoE layer of qwen3-moe-235b-a22b at full width (d
                       4096, 128 experts, d_ff 1536, top 8, SwiGLU) on B 2 x S
                       4096 tokens at capacity factor 1.25 (640 rows an
@@ -118,6 +129,11 @@ Phases, one JSON line each:
                       generated sequences (dropless for the MoE); positions
                       where a router's 8th and 9th probabilities tie to fp32
                       rounding are counted and left out.
+    ``examples``    — every ``examples/torch_*.py`` with ``--device cuda``,
+                      all seven at once, each in its own process: each checks
+                      its own result (against the dense oracle, the
+                      single-host driver, the prompt, a falling loss) and
+                      must exit 0.
 14. ``dist_pipeline_profile`` — the ``dist_pipeline`` phase's static run
                       replayed on a full plan cache under ``torch.profiler``:
                       the card's busy share and the fused kernel's time
@@ -201,6 +217,7 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             outer=dict(n=100_000, bs=128, hw=3000, block=15716, p=2,
                        small_n=8192, small_hw=1000, small_p=8),
             seq_n=8192, seq_bs=128, seq_p=8, seq_max_iter=10,
+            weak_scaling=dict(n=400_000, hw=3000, bs=128, workers=8, table1_row=3),
             flash=FLASH_FULL, lm_reduced=False, lm_seq=4096,
             train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=1024,
                        steps=8, ckpt_every=4))
@@ -211,6 +228,7 @@ REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  outer=dict(n=4096, bs=32, hw=120, block=640, p=2,
                             small_n=1024, small_hw=120, small_p=8),
                  seq_n=256, seq_bs=16, seq_p=8, seq_max_iter=40,
+                 weak_scaling=dict(n=4096, hw=300, bs=32, workers=8),
                  flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64,
                  train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=64,
                             steps=8, ckpt_every=4))
@@ -943,6 +961,34 @@ def phase_dist_multiply(ctx, sizes) -> dict:
     return out
 
 
+def phase_weak_scaling(ctx, sizes) -> dict:
+    """The largest Table 1 band row that fits one card (``benchmarks/
+    torch_weak_scaling.py``'s ``--card`` row: N = 400,000, half-bandwidth
+    3000, 8 workers sharing the card, bs 128) through ``scatter`` ->
+    ``dist_multiply`` cold and warm: sampled output blocks against float64
+    products, one fused launch a call, peak memory under the card's 80 GB."""
+    torch = ctx.torch
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import torch_weak_scaling as tws
+    from repro_torch.kernels import fused_leaf as fl
+
+    w = sizes["weak_scaling"]
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fl.launches = 0  # the main path's count starts here, and is read inside
+    row = tws.table1_row(ctx.dev, w["n"], w["hw"], w["bs"], w["workers"])
+    launches = row["fused_launches"]  # the two calls' launches, not the timing runs'
+    expected = 0 if ctx.rehearse else 2
+    check(launches == expected, f"weak_scaling: {launches} fused launches, expected {expected}")
+    check(row["max_err_over_tol"] <= 1.0, f"weak_scaling: error {row['max_err_over_tol']}x its limit")
+    peak = row["max_memory_allocated"]
+    check(peak is None or peak < 80e9, f"weak_scaling: peak {peak} bytes")
+    out = dict(phase="weak_scaling", card=ctx.card, table1_row=w.get("table1_row"), **row,
+               launches=launches)
+    emit(out)
+    return out
+
+
 def phase_dist_spamm(ctx, sizes) -> dict:
     import numpy as np
 
@@ -1497,13 +1543,23 @@ def phase_dist_observatory(ctx, sizes) -> dict:
 
     def warm_runner(config, tmp):
         extra = {}
-        if config == "off":
-            cache = PlanCache(max_entries=4096)
-        else:
+        cache = PlanCache(max_entries=4096)
+        if config in ("on", "on_cached_once"):
             verify = "always" if config == "on" else "cached-once"
             cache, _, _, _, wlog = observed(tmp, max_entries=4096, verify=verify)
             logs.append(wlog)
             extra = dict(tracer=Tracer(), log=wlog, health=HealthPolicy())
+        elif config == "tracer":
+            extra = dict(tracer=Tracer())
+        elif config == "log":
+            logs.append(EventLog(str(Path(tmp) / "events.jsonl"), level="debug"))
+            extra = dict(log=logs[-1])
+        elif config == "health":
+            extra = dict(health=HealthPolicy())
+        elif config == "memory":
+            MemoryMeter().install(cache)
+        elif config == "locality":
+            LocalityLedger().install(cache)
 
         def run():
             return pur.dist_sqrt_inv_pipeline(scatter(S, mesh), scatter(H, mesh), nocc,
@@ -1511,8 +1567,12 @@ def phase_dist_observatory(ctx, sizes) -> dict:
         run()  # fills the plan cache: every later run is all hits
         return run
 
-    configs = ("off", "on", "on_cached_once")
+    # each observer alone too, as in benchmarks/torch_trace_overhead.py's split
+    # (the tracer here waits for the card in dispatch spans, as in "on")
+    observers = ("tracer", "log", "health", "memory", "locality")
+    configs = ("off", "on", "on_cached_once") + observers
     walls = {c: [] for c in configs}
+    cpus = {c: [] for c in configs}  # (process CPU s, main-thread CPU s)
     with tempfile.TemporaryDirectory() as tmp:
         for c in configs:
             (Path(tmp) / c).mkdir()
@@ -1520,13 +1580,26 @@ def phase_dist_observatory(ctx, sizes) -> dict:
         for k in range(3):
             for c in configs[k:] + configs[:k]:
                 ctx.sync()
-                t0 = time.perf_counter()
+                c0, m0, t0 = time.process_time(), time.thread_time(), time.perf_counter()
                 runners[c]()
                 ctx.sync()
                 walls[c].append(time.perf_counter() - t0)
+                cpus[c].append((time.process_time() - c0, time.thread_time() - m0))
         for wlog in logs:
             wlog.close()
     med = {c: statistics.median(w) for c, w in walls.items()}
+
+    def paired(c, k):  # median over rounds of (config - off) / off, in %
+        base = [(w, *cp) for w, cp in zip(walls["off"], cpus["off"])]
+        arm = [(w, *cp) for w, cp in zip(walls[c], cpus[c])]
+        return statistics.median((a[k] - b[k]) / b[k] * 100.0 for b, a in zip(base, arm))
+
+    per_observer = {c: dict(wall_pct=paired(c, 0), cpu_pct=paired(c, 1), main_cpu_pct=paired(c, 2))
+                    for c in observers + ("on_cached_once",)}
+    print("dist_observatory per-observer overhead, paired medians of 3 (wall / process CPU / "
+          "main-thread CPU): " + "; ".join(
+              f"{c} {v['wall_pct']:+.2f} / {v['cpu_pct']:+.2f} / {v['main_cpu_pct']:+.2f} %"
+              for c, v in per_observer.items()), file=sys.stderr, flush=True)
     out = dict(phase="dist_observatory", card=ctx.card, n=n, bs=bs, nocc=nocc, workers=P, **kw,
                skew="first half of the Morton order on worker 0", seconds=wall,
                bit_identical_to_static=identical, launches=launches,
@@ -1548,7 +1621,8 @@ def phase_dist_observatory(ctx, sizes) -> dict:
                overhead=dict(walls_s=walls, median_s=med,
                              on_overhead_pct=100.0 * (med["on"] / med["off"] - 1.0),
                              on_cached_once_overhead_pct=100.0 * (
-                                 med["on_cached_once"] / med["off"] - 1.0)))
+                                 med["on_cached_once"] / med["off"] - 1.0),
+                             cpu_s=cpus, per_observer=per_observer))
     emit(out)
     return out
 
@@ -1693,6 +1767,48 @@ def phase_sequences(ctx, sizes) -> dict:
                initial_layout="all blocks on worker 0", generate_s=gen_s,
                seconds=time.perf_counter() - t_all, launches=launches_total, families=families)
     emit(out)
+    return out
+
+
+EXAMPLES = ("quickstart", "purification", "distributed_spgemm", "distributed_purification",
+            "distributed_inverse", "serve_lm", "train_lm")
+
+
+def phase_examples(ctx) -> dict:
+    """Every ``examples/torch_*.py`` with ``--device cuda`` (``cpu`` in the
+    rehearsal), all at once, each in its own process: each checks its own
+    result and must exit 0 (the training example runs 20 steps into a
+    temporary checkpoint directory)."""
+    import os
+    import tempfile
+
+    dev = "cpu" if ctx.rehearse else "cuda"
+    # seven processes share the host's cores: one intra-op thread each
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        procs = {}
+        try:
+            for name in EXAMPLES:
+                argv = [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"), "--device", dev]
+                if name == "train_lm":
+                    argv += ["--steps", "20", "--ckpt-dir", str(Path(tmp) / "ckpt")]
+                procs[name] = subprocess.Popen(argv, env=dict(env, TMPDIR=tmp), text=True,
+                                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for name, proc in procs.items():
+                out, _ = proc.communicate(timeout=300)
+                results[name] = dict(rc=proc.returncode, seconds=time.perf_counter() - t0,
+                                     tail=out.strip().splitlines()[-3:])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    out = dict(phase="examples", device=dev, seconds=time.perf_counter() - t0, examples=results)
+    emit(out)
+    bad = {k: v for k, v in results.items() if v["rc"] != 0}
+    check(not bad and len(results) == len(EXAMPLES), f"examples failed: {bad}")
     return out
 
 
@@ -2110,6 +2226,55 @@ def train_parity(ctx, cfg, t) -> dict:
     return out
 
 
+def train_remat(ctx, cfg, state, batch, steps: int = 3) -> dict:
+    """The train step at ``cfg``'s shape under ``remat="none"`` and ``"full"``
+    (every full config's): per mode the median ms of ``steps`` warm steps and
+    the peak memory over them; then the first step's loss and gradients of
+    both modes, which must be bit-identical."""
+    import dataclasses
+    import statistics
+
+    torch = ctx.torch
+    from repro_torch.models import model as model_mod
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for remat in ("none", "full"):
+        c = dataclasses.replace(cfg, remat=remat)
+        step = model_mod.make_train_step(c, compute_dtype=torch.bfloat16, lr_peak=TRAIN_LR,
+                                         warmup=1, total_steps=steps)
+        float(step(state, batch)[1]["loss"])  # warm
+        if ctx.dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+            del new, m
+        peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+        out[remat] = dict(ms_per_step=statistics.median(times) * 1e3,
+                          step_ms=[x * 1e3 for x in times], max_memory_allocated=peak)
+    first = {}
+    for remat in ("none", "full"):
+        grad_fn = model_mod.make_grad_fn(dataclasses.replace(cfg, remat=remat),
+                                         compute_dtype=torch.bfloat16)
+        first[remat] = grad_fn(state["params"], batch)
+    (l0, g0), (l1, g1) = first["none"], first["full"]
+    identical = bool(torch.equal(l0, l1)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(g1), strict=True))
+    del first, g0, g1
+    check(identical, "lm_train: remat 'full' is not bit-identical to 'none' on the first step")
+    if ctx.dev.type == "cuda":
+        check(out["full"]["max_memory_allocated"] < out["none"]["max_memory_allocated"],
+              f"lm_train: remat 'full' peaks at {out['full']['max_memory_allocated']} bytes, "
+              f"'none' at {out['none']['max_memory_allocated']}")
+    out.update(first_step_bit_identical=identical, steps=steps, loss=float(l0))
+    return out
+
+
 def phase_lm_train(ctx, sizes) -> dict:
     """The training path (:mod:`repro_torch.models.model`, ``optim``, ``data``,
     ``checkpoint``, ``runtime``): the parity step (qwen2-0.5b cut to 2 layers,
@@ -2156,6 +2321,9 @@ def phase_lm_train(ctx, sizes) -> dict:
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in tree_leaves(state["params"]))
         state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+        remat = train_remat(ctx, cfg, state, pipe.global_batch(0))
+        if ctx.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         bsp.launches = fl.launches = fa.launches = 0  # the main path's count starts here
         loop = TrainLoop(step, pipe, run_dir, ckpt_every=every)
         t0 = time.perf_counter()
@@ -2223,6 +2391,7 @@ def phase_lm_train(ctx, sizes) -> dict:
     tokens_per_s = steps * tokens / run_s  # the whole window: step 0 and the checkpoints in it
     out = dict(phase="lm_train", parity=parity, arch=cfg.name, layers=cfg.num_layers,
                d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params, state_bytes=state_bytes,
+               remat_config=cfg.remat, remat=remat,
                batch=B, seq=S, tokens_per_step=tokens, compute="bfloat16", params_dtype="float32",
                lr_peak=TRAIN_LR, steps=steps, ckpt_every=every, init_s=init_s, run_s=run_s,
                losses=losses, batch0_loss_after=batch0_after, learn_share=TRAIN_LEARN_SHARE,
@@ -2609,6 +2778,7 @@ def main(argv=None) -> int:
     mul = phase(phase_multiply, ctx, sizes)
     sp2 = phase(phase_sp2, ctx, sizes)
     dmul = phase(phase_dist_multiply, ctx, sizes)
+    wscale = phase(phase_weak_scaling, ctx, sizes)
     dspamm = phase(phase_dist_spamm, ctx, sizes)
     dpipe = phase(phase_dist_pipeline, ctx, sizes)
     douter = phase(phase_dist_outer, ctx, sizes)
@@ -2623,6 +2793,7 @@ def main(argv=None) -> int:
     phase(phase_lm_train, ctx, sizes)
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
+    phase(phase_examples, ctx)
     phase(phase_dist_pipeline_profile, ctx, sizes)
 
     timing, ftiming = kern["timing"], fused["timing"]
@@ -2659,8 +2830,8 @@ def main(argv=None) -> int:
         dict(name="fused_block_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
              replaces="src/repro/kernels/fused_leaf.py:71",
-             launches=(dmul["launches"] + dspamm["launches"] + dpipe["launches"] + dobs["launches"]
-                       + seqs["launches"]),
+             launches=(dmul["launches"] + wscale["launches"] + dspamm["launches"]
+                       + dpipe["launches"] + dobs["launches"] + seqs["launches"]),
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
              bound_by=ftiming["bound_by"], library_ms=None),

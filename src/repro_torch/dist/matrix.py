@@ -97,7 +97,15 @@ class DistBSMatrix:
         return self.store.device
 
     def codes(self) -> np.ndarray:
-        return morton_encode(self.coords[:, 0], self.coords[:, 1])
+        """The blocks' Morton codes, read-only.  The structure of a resident
+        matrix never changes, so they are encoded once per matrix: plan keys,
+        collectives and the locality ledger ask for them on every dispatch."""
+        codes = self.__dict__.get("_codes")
+        if codes is None:
+            codes = morton_encode(self.coords[:, 0], self.coords[:, 1])
+            codes.setflags(write=False)
+            object.__setattr__(self, "_codes", codes)  # frozen: a cache, not a field
+        return codes
 
     def store_maps(self) -> tuple[np.ndarray, np.ndarray]:
         """(store_idx [P, cap] global block per slot, store_valid [P, cap])."""

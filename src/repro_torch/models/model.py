@@ -13,9 +13,11 @@ A train state is ``{"params", "opt": {"mu", "nu", "count"[, "master"]},
 device.  A train step returns a new state and modifies none of the one it is
 given, so a failed step can be retried on the same state.  The JAX package's
 ``abstract_train_state`` and ``grad_reshard`` are XLA sharding tools with no
-counterpart on one card; they wait with its dry run.  Its ``cfg.remat``
-(``jax.checkpoint`` of each layer period) is not applied: the backward
-keeps every layer's activations, the same values at a higher peak memory.
+counterpart on one card; they wait with its dry run.  ``cfg.remat`` is
+applied as the JAX package applies it (:func:`transformer.apply`): each
+period of layers is one ``torch.utils.checkpoint`` unit (``"full"``: recompute
+everything, ``"dots"``: keep the unbatched matrix products), with gradients
+bit-identical to ``"none"``'s.
 """
 
 from __future__ import annotations

@@ -185,6 +185,31 @@ def _head(p, cfg: ArchConfig, x):
     return dense(p["head"], x)
 
 
+#: the products ``"dots"`` keeps for the backward: matrix products with no
+#: batch dimension (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
+#: A projection ``[B, S, d] @ [d, f]`` folds to ``mm``; attention's and the
+#: experts' batched products (``bmm``) are recomputed.
+_DOTS_SAVED = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(remat: str, fn, x):
+    """``fn(x)`` under ``cfg.remat``: ``"full"`` keeps only ``x`` for the
+    backward and recomputes the rest, ``"dots"`` also keeps the outputs of
+    the unbatched matrix products (:data:`_DOTS_SAVED`)."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if remat == "full":
+        return checkpoint(fn, x, use_reentrant=False)
+    return checkpoint(fn, x, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(_save_dots))
+
+
 def apply(params, cfg: ArchConfig, inputs, *, attn_impl: str = "chunked") -> torch.Tensor:
     """Full forward -> logits ``[B, S, vocab]``.
 
@@ -192,14 +217,36 @@ def apply(params, cfg: ArchConfig, inputs, *, attn_impl: str = "chunked") -> tor
     (audio) or ``{"patches": [B, P, d], "tokens": [B, S - P]}`` (vision,
     the patches a bidirectional prefix).  ``attn_impl``: ``"chunked"``,
     ``"direct"`` or ``"flash"`` (the CUDA kernel on the card).
+
+    While autograd records, ``cfg.remat`` (``"none"``, ``"full"`` or
+    ``"dots"``) checkpoints each period of ``len(block_pattern)`` layers as
+    one unit, as the JAX package wraps its scan body in ``jax.checkpoint``;
+    the ``num_layers % len(block_pattern)`` tail layers are not wrapped.
+    The values, and the gradients, are those of ``"none"``.
     """
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: 'none', 'full' or 'dots'")
     x = _embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     prefix_len = cfg.num_patches if cfg.frontend == "vision_stub" else None
-    for p, kind in zip(params["layers"], layer_kinds(cfg), strict=True):
-        x = _apply_block(p, x, cfg, kind, positions=positions, prefix_len=prefix_len,
-                         attn_impl=attn_impl)
+    layers, kinds = params["layers"], layer_kinds(cfg)
+
+    def run(lo: int, hi: int):
+        def layers_lo_hi(x):
+            for p, kind in zip(layers[lo:hi], kinds[lo:hi], strict=True):
+                x = _apply_block(p, x, cfg, kind, positions=positions, prefix_len=prefix_len,
+                                 attn_impl=attn_impl)
+            return x
+        return layers_lo_hi
+
+    period = len(cfg.block_pattern)
+    wrapped = 0  # layers in checkpointed periods: none unless autograd records
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        wrapped = cfg.num_layers // period * period
+    for lo in range(0, wrapped, period):
+        x = _checkpointed(cfg.remat, run(lo, lo + period), x)
+    x = run(wrapped, cfg.num_layers)(x)
     x = apply_norm(_final_norm_kind(cfg), params["final_norm"], x)
     return _head(params, cfg, x)
 

@@ -62,6 +62,7 @@ __all__ = [
 #: rider attribute memoizing a plan's static byte provenance (computed once
 #: per plan, like the dispatch annotations' ``_obs_static`` rider)
 _PROV_ATTR = "_obs_locality"
+_STATIC_ATTR = "_obs_locality_dispatch"
 
 #: the per-iteration fields locality_iteration() appends to driver rows —
 #: schema-stable like SHARED_ITER_KEYS
@@ -164,42 +165,20 @@ class LocalityLedger:
                 "referenced", "local", "shipped", "wire_recv", "wire_send",
                 "local_flops", "total_flops")}
         pw = self._pw
-
-        pw["referenced"] += prov["referenced"]
-        pw["local"] += prov["local"]
-        pw["shipped"] += prov["shipped"]
-
-        flop = 2.0 * float(plan.bs) ** 3
-        if task_on is None:
-            counts = plan.task_count.astype(np.float64)
-            lcounts = prov["local_tasks"].astype(np.float64)
+        if task_on is None and keeps is None:
+            # the whole plan ran over its full exchange: every number is a
+            # property of the plan and the wire type, computed once
+            static = _plan_dispatch_static(plan, prov, wire_itemsize)
+            vec, out = static["per_worker"], static["out"]
         else:
-            counts = task_on.sum(axis=1).astype(np.float64)
-            lcounts = (prov["task_local"] & task_on).sum(axis=1).astype(np.float64)
-        pw["total_flops"] += counts * flop
-        pw["local_flops"] += lcounts * flop
-
-        scale = wire_itemsize / 4.0
-        if keeps is None:
-            wrecv = prov["wire_recv"] * scale
-            wsend = prov["wire_send"] * scale
-        else:
-            wrecv, wsend = _kept_wire(plan, keeps, wire_itemsize)
-        pw["wire_recv"] += wrecv
-        pw["wire_send"] += wsend
+            vec, out = _dispatch_account(plan, prov, wire_itemsize, task_on, keeps)
+        for k, v in vec.items():
+            pw[k] += v
 
         self._note_lineage(plan, prov, keeps, a_codes, b_codes)
 
         self.dispatches += 1
-        out = dict(
-            referenced_bytes=float(prov["referenced"].sum()),
-            local_bytes=float(prov["local"].sum()),
-            shipped_bytes=float(prov["shipped"].sum()),
-            wire_recv_bytes=float(wrecv.sum()),
-            wire_send_bytes=float(wsend.sum()),
-            local_flops=float(lcounts.sum() * flop),
-            total_flops=float(counts.sum() * flop),
-        )
+        out = dict(out)
         self.referenced_bytes += out["referenced_bytes"]
         self.local_bytes += out["local_bytes"]
         self.shipped_bytes += out["shipped_bytes"]
@@ -210,16 +189,16 @@ class LocalityLedger:
         return out
 
     def _note_lineage(self, plan, prov, keeps, a_codes, b_codes) -> None:
+        """Append each operand's fetches; their Morton keys are looked up
+        only when :meth:`moved_blocks` aggregates (the arrays are kept by
+        reference: a plan's fetches and a matrix's codes never change)."""
         for name, codes, keep_i in (("a", a_codes, 0), ("b", b_codes, 1)):
             if keeps is None:
                 gids, src, dst = prov[f"fetch_{name}"]
             else:
                 gids, src, dst = _kept_fetches(plan, name, keeps[keep_i])
-            if not gids.size:
-                continue
-            key = codes[gids] if codes is not None else gids
-            self._lineage.append((name, np.asarray(key, dtype=np.int64),
-                                  src, dst))
+            if gids.size:
+                self._lineage.append((name, codes, gids, src, dst))
 
     # -- per-iteration deltas -------------------------------------------------
     def snapshot(self) -> tuple:
@@ -256,7 +235,8 @@ class LocalityLedger:
         top_k = self.top_k if top_k is None else int(top_k)
         out = []
         for op in ("a", "b"):
-            chunks = [(c, s, d) for (o, c, s, d) in self._lineage if o == op]
+            chunks = [(np.asarray(gids if codes is None else codes[gids], dtype=np.int64), s, d)
+                      for (o, codes, gids, s, d) in self._lineage if o == op]
             if not chunks:
                 continue
             codes = np.concatenate([c for c, _, _ in chunks])
@@ -316,6 +296,52 @@ class LocalityLedger:
         return path
 
 
+def _dispatch_account(plan: SpgemmPlan, prov: dict, wire_itemsize: int, task_on, keeps):
+    """One dispatch's per-worker increments and scalar deltas: the executed
+    tasks (``task_on``, else all of the plan's) and the kept wire (``keeps``,
+    else the whole planned exchange at ``wire_itemsize``)."""
+    flop = 2.0 * float(plan.bs) ** 3
+    if task_on is None:
+        counts = plan.task_count.astype(np.float64)
+        lcounts = prov["local_tasks"].astype(np.float64)
+    else:
+        counts = task_on.sum(axis=1).astype(np.float64)
+        lcounts = (prov["task_local"] & task_on).sum(axis=1).astype(np.float64)
+    if keeps is None:
+        scale = wire_itemsize / 4.0
+        wrecv = prov["wire_recv"] * scale
+        wsend = prov["wire_send"] * scale
+    else:
+        wrecv, wsend = _kept_wire(plan, keeps, wire_itemsize)
+    vec = dict(referenced=prov["referenced"], local=prov["local"], shipped=prov["shipped"],
+               total_flops=counts * flop, local_flops=lcounts * flop,
+               wire_recv=wrecv, wire_send=wsend)
+    out = dict(
+        referenced_bytes=float(prov["referenced"].sum()),
+        local_bytes=float(prov["local"].sum()),
+        shipped_bytes=float(prov["shipped"].sum()),
+        wire_recv_bytes=float(wrecv.sum()),
+        wire_send_bytes=float(wsend.sum()),
+        local_flops=float(lcounts.sum() * flop),
+        total_flops=float(counts.sum() * flop),
+    )
+    return vec, out
+
+
+def _plan_dispatch_static(plan: SpgemmPlan, prov: dict, wire_itemsize: int) -> dict:
+    """:func:`_dispatch_account` of a dispatch that ran the whole plan, memoized
+    on the frozen plan per wire itemsize, as :func:`plan_provenance` is."""
+    memo = getattr(plan, _STATIC_ATTR, None)
+    if memo is None:
+        memo = {}
+        object.__setattr__(plan, _STATIC_ATTR, memo)
+    st = memo.get(wire_itemsize)
+    if st is None:
+        vec, out = _dispatch_account(plan, prov, wire_itemsize, None, None)
+        st = memo[wire_itemsize] = dict(per_worker=vec, out=out)
+    return st
+
+
 def _kept_wire(plan: SpgemmPlan, keeps: tuple, wire_itemsize: int):
     """Per-worker wire bytes of a keep-mask-pruned exchange."""
     P = plan.nparts
@@ -345,18 +371,14 @@ def _kept_fetches(plan: SpgemmPlan, name: str, keep: list):
     P = plan.nparts
     gids_l, src_l, dst_l = [], [], []
     for r, d in enumerate(offs):
-        cnt = send_cnt[d]
         k = np.asarray(keep[r], dtype=bool)
-        for src in range(P):
-            c = int(cnt[src])
-            if not c:
-                continue
-            slots = send[d][src, :c][k[src, :c]]
-            if not slots.size:
-                continue
-            gids_l.append(store_idx[src, slots].astype(np.int64))
-            src_l.append(np.full(slots.size, src, dtype=np.int32))
-            dst_l.append(np.full(slots.size, (src + d) % P, dtype=np.int32))
+        live = k & (np.arange(k.shape[1])[None, :] < send_cnt[d][:, None])
+        src, col = np.nonzero(live)  # row-major: by sender, then slot, as delivered
+        if not src.size:
+            continue
+        gids_l.append(store_idx[src, send[d][src, col]].astype(np.int64))
+        src_l.append(src.astype(np.int32))
+        dst_l.append(((src + d) % P).astype(np.int32))
     if not gids_l:
         z = np.zeros(0, np.int64)
         return z, np.zeros(0, np.int32), np.zeros(0, np.int32)

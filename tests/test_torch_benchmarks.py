@@ -152,3 +152,54 @@ def test_mirror_writes_the_reference_key_tree(name, tmp_path, monkeypatch, one_t
         for r, p in zip(ref_entries, entries):
             assert set(r["metrics"]) == set(p["metrics"]) - {"engines_bit_identical"}
             assert all(r["metrics"][k] == p["metrics"][k] for k in r["metrics"])
+
+
+def test_weak_scaling_table1_equals_the_reference():
+    """Table 1's analytic TFLOP column of the three families, all seven sizes."""
+    import torch_weak_scaling as tws
+
+    assert tws.table1() == _reference("weak_scaling").table1()
+
+
+def test_weak_scaling_fig1c_equals_the_reference():
+    """Fig 1c from the port's planner at leaf 2048, every Table 1 size: the
+    structures, the reference's row (receive MiB of the three schedules,
+    balance, tasks) and each worker's receive bytes of the p2p and
+    allgather plans, array for array."""
+    import torch_weak_scaling as tws
+    from repro.core.schedule import make_spgemm_plan, plan_stats
+    from repro.core.spgemm import spgemm_symbolic
+
+    ws = _reference("weak_scaling")
+    rows = tws.fig1c(max_idx=7)
+    ref_rows = ws.fig1c(max_idx=7)
+    assert len(rows) == len(ref_rows) == 21
+    for row, ref in zip(rows, ref_rows):
+        assert {k: row[k] for k in ref} == ref
+        i = ws.SIZES.index(row["n"])
+        coords = ws.structure_coords(row["family"], row["n"], i)
+        assert np.array_equal(tws.structure_coords(row["family"], row["n"], i), coords)
+        tasks = spgemm_symbolic(coords, coords)
+        for key, kw in (("locality", dict(placement="morton")),
+                        ("allgather", dict(placement="random", exchange="allgather"))):
+            want = plan_stats(make_spgemm_plan(coords, coords, row["workers"], ws.LEAF,
+                                               tasks=tasks, **kw))["recv_bytes_per_worker"]
+            assert row[f"{key}_recv_bytes_per_worker"] == want
+
+
+def test_weak_scaling_mirror_runs_on_the_cpu(tmp_path, monkeypatch, one_thread):
+    """The mirror at a tiny size: Table 1, Fig 1c's first row, Fig 1a's three
+    worker counts and a resident band row, every sampled block in tolerance."""
+    import torch_weak_scaling as tws
+
+    monkeypatch.setattr(tws, "sizes", lambda args: dict(
+        fig1c_rows=1, fig1a=(128, 16), row=dict(n=1024, hw=80, bs=16, workers=8)))
+    out = tmp_path / "BENCH_weak_scaling_torch.json"
+    assert tws.main(["--device", "cpu", "--smoke", "--out", str(out)]) == 0
+    data = json.loads(out.read_text())
+    assert data["meta"]["card"] == "cpu" and "per TFLOP" in data["meta"]["fig1a_metric"]
+    assert len(data["table1"]) == 7 and len(data["fig1c"]) == 3
+    assert [r["workers"] for r in data["fig1a"]] == [1, 2, 4]
+    row = data["table1_row"]
+    assert row["fused_launches"] == 0 and row["max_err_over_tol"] <= 1.0
+    assert row["c_blocks"] > row["a_blocks"] and row["element_tflop"] < row["block_tflop"]

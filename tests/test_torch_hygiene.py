@@ -120,3 +120,36 @@ def test_plain_version_on_the_cpu_launches_nothing():
     c = multiply(a, a)
     np.testing.assert_allclose(c.to_dense(), a.to_dense() @ a.to_dense(), rtol=1e-4, atol=1e-4)
     assert block_spmm.launches == 0
+
+
+def _decision_table() -> dict:
+    """README's "Modules without a port copy" table: module path -> status."""
+    text = (ROOT / "README.md").read_text()
+    section = text.split("**Modules without a port copy.**", 1)[1].split("\n\n**", 1)[0]
+    rows = {}
+    for line in section.splitlines():
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if len(cells) == 3 and cells[0].startswith("`src/repro/"):
+            rows[cells[0].strip("`")] = cells[1]
+    return rows
+
+
+def test_every_reference_module_has_a_port_or_a_recorded_decision():
+    """Each ``src/repro/**/*.py`` has a counterpart at the same path under
+    ``src/repro_torch/`` or a row, with a status and a reason, in README's
+    decision table; and no row names a module that has been ported since."""
+    table = _decision_table()
+    reference = sorted((ROOT / "src" / "repro").rglob("*.py"))
+    assert reference, "no reference modules found"
+    missing = []
+    for path in reference:
+        rel = path.relative_to(ROOT / "src" / "repro")
+        ported = (PACKAGE / rel).exists()
+        key = str(path.relative_to(ROOT))
+        if ported:
+            assert key not in table, f"{key} has a port and a row in README's table"
+        elif key not in table:
+            missing.append(key)
+    assert not missing, f"no port and no README decision: {missing}"
+    assert set(table) <= {str(p.relative_to(ROOT)) for p in reference}, "a row names no module"
+    assert all(table.values())

@@ -379,3 +379,91 @@ def test_report_cli_prints_the_worker_table(traced_runs, capsys):
     out = capsys.readouterr().out
     assert "8 workers" in out and "busy %" in out
     assert os.path.exists(traced_runs["path"])
+
+
+# --- the observers' per-plan caches against a cold computation ----------------
+
+
+def _kept_fetches_loop(plan, name, keep):
+    """The ledger's kept-fetch lineage as a loop over rounds and senders (the
+    JAX package's form): the reference for the vectorized port."""
+    offs = plan.a_offsets if name == "a" else plan.b_offsets
+    send = plan.a_send if name == "a" else plan.b_send
+    send_cnt = plan.a_send_count if name == "a" else plan.b_send_count
+    store_idx = plan.a_store_idx if name == "a" else plan.b_store_idx
+    gids, src_l, dst_l = [], [], []
+    for r, d in enumerate(offs):
+        k = np.asarray(keep[r], dtype=bool)
+        for src in range(plan.nparts):
+            c = int(send_cnt[d][src])
+            slots = send[d][src, :c][k[src, :c]]
+            gids.append(store_idx[src, slots].astype(np.int64))
+            src_l.append(np.full(slots.size, src, dtype=np.int32))
+            dst_l.append(np.full(slots.size, (src + d) % plan.nparts, dtype=np.int32))
+    cat = lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt)  # noqa: E731
+    return cat(gids, np.int64), cat(src_l, np.int32), cat(dst_l, np.int32)
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_kept_fetches_equal_the_loop(skew):
+    from repro_torch.obs.locality import _kept_fetches
+
+    port, _, _ = _plans(4, "p2p", skew=skew)
+    keep_task = np.random.default_rng(1).random(port.tasks.num_tasks) < 0.3
+    a_keeps, b_keeps, *_ = _exchange_keep_masks(port, keep_task)
+    for name, keep in (("a", a_keeps), ("b", b_keeps)):
+        got, want = _kept_fetches(port, name, keep), _kept_fetches_loop(port, name, keep)
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_observer_caches_equal_a_cold_computation(monkeypatch):
+    """Two dispatches of one plan and one of a second, a SpAMM delta dispatch
+    among them, with the tracer, the memory meter and the locality ledger on:
+    their counters, ledger totals (moved blocks included) and memory account
+    equal those of the same run with every per-plan and per-matrix cache
+    (the dispatch annotations', the ledger's, the Morton codes) recomputed
+    on each use."""
+    from repro_torch.core.quadtree import morton_encode
+    from repro_torch.dist import dist_multiply, dist_spamm
+    from repro_torch.dist import multiply as tmul
+    from repro_torch.dist.matrix import DistBSMatrix
+    from repro_torch.obs import locality as tloc
+
+    mesh = make_worker_mesh(4, "cpu")
+    m1 = random_block_matrix(256, BS, 0.25, seed=3)
+    m2 = random_block_matrix(256, BS, 0.4, seed=4)
+    mats = [scatter(BSMatrix.from_dense(np.asarray(m.to_dense()), BS, device="cpu"), mesh)
+            for m in (m1, m2)]
+
+    def run():
+        tr = tobs.Tracer(sync=False)
+        cache = PlanCache(tracer=tr)
+        mm, lld = tobs.MemoryMeter().install(cache), tobs.LocalityLedger().install(cache)
+        for x in (mats[0], mats[0], mats[1]):
+            dist_multiply(x, x, cache)
+        dist_spamm(mats[0], mats[0], 1e-1, cache)
+        counters = {k: v for k, v in tr.metrics_flat().items()}
+        return counters, lld.summary(), mm.summary()
+
+    warm = run()
+    plain_static, plain_prov = tmul._plan_obs_static, tloc.plan_provenance
+
+    def cold_static(plan):
+        plan.__dict__.pop("_obs_static", None)
+        return plain_static(plan)
+
+    def cold_prov(plan):
+        plan.__dict__.pop(tloc._PROV_ATTR, None)
+        return plain_prov(plan)
+
+    monkeypatch.setattr(tmul, "_plan_obs_static", cold_static)
+    monkeypatch.setattr(tloc, "plan_provenance", cold_prov)
+    monkeypatch.setattr(tloc, "_plan_dispatch_static", lambda plan, prov, w: dict(
+        zip(("per_worker", "out"), tloc._dispatch_account(plan, prov, w, None, None))))
+    monkeypatch.setattr(DistBSMatrix, "codes",
+                        lambda self: morton_encode(self.coords[:, 0], self.coords[:, 1]))
+    cold = run()
+    assert warm[0] == cold[0]
+    assert warm[1] == cold[1] and warm[1]["dispatches"] == 4 and warm[1]["moved_blocks"]
+    assert warm[2] == cold[2]

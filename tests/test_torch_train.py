@@ -279,3 +279,133 @@ def test_flash_train_step_raises_like_jax():
     step = tmodel.make_train_step(cfg, attn_impl="flash", compute_dtype=torch.float32)
     with pytest.raises(TypeError, match="flash_attention has no gradient rule"):
         step(tmodel.init_train_state(cfg, seed=0, device="cpu"), batch)
+
+
+# the trajectory test: reduced qwen2-0.5b, B 4 x S 64, 8 steps at peak rate
+# 1e-3 after one warmup step; the loss within TRAJ_LOSS_REL of JAX's at every
+# step (3e-7 measured over these 8 steps)
+TRAJ_STEPS, TRAJ_LOSS_REL = 8, 1e-6
+
+
+def _trajectory(step, state, pipe):
+    """The losses of ``TRAJ_STEPS`` steps from ``state`` and the final state."""
+    losses = []
+    for i in range(TRAJ_STEPS):
+        state, m = step(state, pipe.global_batch(i))
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+@pytest.fixture(scope="module")
+def jax_trajectories():
+    """Per ``remat``: JAX's 8 losses and its step-0 gradients, from one state."""
+    from repro.data import TokenPipeline as JaxPipeline
+
+    out = {}
+    for remat in ("none", "full", "dots"):
+        cfg, jcfg = _configs("qwen2-0.5b", remat=remat)
+        tree = _jax_state(jcfg, seed=3)
+        pipe = JaxPipeline(jcfg, batch=4, seq=64, seed=0)
+        step = jax.jit(jmodel.make_train_step(jcfg, None, compute_dtype=jnp.float32,
+                                              lr_peak=1e-3, warmup=1, total_steps=TRAJ_STEPS))
+        state = jax.tree.map(jnp.asarray, tree)
+        losses = []
+        for i in range(TRAJ_STEPS):
+            state, m = step(state, {k: jnp.asarray(v) for k, v in pipe.global_batch(i).items()})
+            losses.append(float(m["loss"]))
+        _, grads = _jax_loss_grads(jcfg, tree["params"], pipe.global_batch(0))
+        out[remat] = dict(tree=tree, losses=losses, grads=grads)
+    return out
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_eight_step_trajectory_matches_jax(remat, jax_trajectories):
+    """The port's loss stays within 1e-6 relative of the JAX package's over 8
+    steps from the same state on the same ``TokenPipeline`` batches, under
+    each ``cfg.remat``; a remat run is bit-identical to ``"none"``'s, and its
+    first gradients are within ``GRAD_REL`` of JAX's with the same remat."""
+    from repro_torch.data import TokenPipeline
+
+    cfg, _ = _configs("qwen2-0.5b", remat=remat)
+    want = jax_trajectories[remat]
+    pipe = TokenPipeline(cfg, batch=4, seq=64, seed=0)
+
+    def run(c):
+        state = convert.train_state_from_arrays(want["tree"], c, device="cpu")
+        step = tmodel.make_train_step(c, compute_dtype=torch.float32, lr_peak=1e-3, warmup=1,
+                                      total_steps=TRAJ_STEPS)
+        return _trajectory(step, state, pipe)
+
+    losses, final = run(cfg)
+    for got, ref in zip(losses, want["losses"], strict=True):
+        assert abs(got - ref) <= TRAJ_LOSS_REL * abs(ref), (losses, want["losses"])
+    state = convert.train_state_from_arrays(want["tree"], cfg, device="cpu")
+    _, grads = tmodel.make_grad_fn(cfg, compute_dtype=torch.float32)(
+        state["params"], pipe.global_batch(0))
+    _assert_grads_close(grads, want["grads"], cfg)
+    if remat != "none":
+        base_losses, base_final = run(dataclasses.replace(cfg, remat="none"))
+        assert losses == base_losses
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(final), tree_leaves(base_final),
+                                                     strict=True))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b", "qwen3-moe-235b-a22b"])
+def test_remat_recomputes_what_its_policy_says(arch):
+    """Under ``TorchDispatchMode``: ``"full"`` runs each wrapped period's
+    projections (``aten.mm``) again in the backward, ``"dots"`` keeps them
+    and recomputes only the batched products (attention's and the experts'
+    ``aten.bmm``), and the gradients of both are ``"none"``'s bit for bit.
+    recurrentgemma's 5 layers are one period of 3 and a tail of 2."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.mm = self.bmm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.mm += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            self.bmm += func is torch.ops.aten.bmm.default
+            return func(*args, **(kwargs or {}))
+
+    base = reduced_config(arch)
+    params = tmodel.init_train_state(base, seed=0, device="cpu")["params"]
+    batch = _batch(base, 2, 16, np.random.default_rng(0))
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        count = Count()
+        with count:
+            loss, grads = tmodel.make_grad_fn(dataclasses.replace(base, remat=remat),
+                                              compute_dtype=torch.float32)(params, batch)
+        runs[remat] = (count.mm, count.bmm, loss, tree_leaves(grads))
+    (mm0, bmm0, loss0, g0) = runs["none"]
+    assert runs["full"][0] > mm0 and runs["full"][1] > bmm0
+    assert runs["dots"][0] == mm0 and runs["dots"][1] > bmm0
+    for remat in ("full", "dots"):
+        assert torch.equal(runs[remat][2], loss0)
+        assert all(torch.equal(a, b) for a, b in zip(runs[remat][3], g0, strict=True))
+
+
+def test_remat_is_not_entered_without_autograd(monkeypatch):
+    """A forward under ``torch.no_grad`` (serving) never checkpoints, and its
+    logits are ``"none"``'s; an unknown ``remat`` raises."""
+    import torch.utils.checkpoint as tc
+
+    cfg = reduced_config("qwen2-0.5b")
+    params = tmodel.init_train_state(cfg, seed=0, device="cpu")["params"]
+    tokens = torch.from_numpy(_batch(cfg, 2, 16, np.random.default_rng(0))["tokens"])
+    want = tmodel.transformer.apply(params, cfg, {"tokens": tokens})
+
+    def refuse(*a, **k):
+        raise AssertionError("checkpoint entered without autograd")
+
+    monkeypatch.setattr(tc, "checkpoint", refuse)
+    with torch.no_grad():
+        for remat in ("full", "dots"):
+            got = tmodel.transformer.apply(params, dataclasses.replace(cfg, remat=remat),
+                                           {"tokens": tokens})
+            assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="remat"):
+        tmodel.transformer.apply(params, dataclasses.replace(cfg, remat="some"),
+                                 {"tokens": tokens})
