@@ -110,6 +110,19 @@ Phases, one JSON line each:
                       (every full config's): ms a step and peak memory of
                       each, ``"full"``'s peak below ``"none"``'s, and the
                       first step's loss and gradients bit-identical.
+    ``dryrun``      — the one-card dry run (``repro_torch.launch.dryrun``: each
+                      cell's step on fake tensors, host only): all 40 (arch x
+                      shape) cells at full width over worker processes, 31
+                      ``ok`` and 9 ``skipped`` with the reference's reasons,
+                      none in ``error``; then qwen2-0.5b's train step at
+                      ``lm_train``'s shape under ``remat="none"`` and
+                      ``"full"`` and one decode step of its full
+                      ``decode_32k`` cell (B 128, 32,768 cached positions,
+                      position 32,000) on the card: each predicted peak
+                      within 15 % of ``max_memory_allocated`` above the
+                      phase's starting allocation, beside the predicted
+                      FLOPs over the step's time and the decode step's ms
+                      beside its memory term.
     ``moe_layer``   — one MoE layer of qwen3-moe-235b-a22b at full width (d
                       4096, 128 experts, d_ff 1536, top 8, SwiGLU) on B 2 x S
                       4096 tokens at capacity factor 1.25 (640 rows an
@@ -220,7 +233,9 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             weak_scaling=dict(n=400_000, hw=3000, bs=128, workers=8, table1_row=3),
             flash=FLASH_FULL, lm_reduced=False, lm_seq=4096,
             train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=1024,
-                       steps=8, ckpt_every=4))
+                       steps=8, ckpt_every=4),
+            dryrun=dict(arch="qwen2-0.5b", reduced=False, workers=8, train_batch=4,
+                        train_seq=1024, decode_shape="decode_32k", decode_pos=32_000))
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
@@ -231,7 +246,10 @@ REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  weak_scaling=dict(n=4096, hw=300, bs=32, workers=8),
                  flash=FLASH_REHEARSAL, lm_reduced=True, lm_seq=64,
                  train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=64,
-                            steps=8, ckpt_every=4))
+                            steps=8, ckpt_every=4),
+                 dryrun=dict(arch="qwen2-0.5b", reduced=True, workers=4, train_batch=4,
+                             train_seq=64, decode_shape="decode_32k", decode_batch=2,
+                             decode_seq=64, decode_pos=60))
 
 
 def emit(obj: dict) -> None:
@@ -2426,6 +2444,143 @@ NEAR_TIE_REL = 1e-6
 STEP_REL = 1e-4
 
 
+#: the dry run's predicted peaks must lie within this share of the card's
+DRYRUN_PEAK_REL = 0.15
+
+
+def _measured_peak(ctx, fn) -> tuple:
+    """``fn()`` twice (a warm call, then a measured one): ``(the measured call's
+    output, its ms, the card's peak bytes above what was allocated before the
+    phase built its inputs)``; no peak on the CPU."""
+    torch = ctx.torch
+    out = fn()
+    del out
+    if ctx.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    ctx.sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() if ctx.dev.type == "cuda" else None
+    return out, ms, peak
+
+
+def phase_dryrun(ctx, sizes) -> dict:
+    """The one-card dry run (``repro_torch.launch.dryrun``: every cell's step on
+    fake tensors, no allocation) held against the card.  The sweep of all 40
+    (arch x shape) cells at full width over worker processes: 31 ``ok``, 9
+    ``skipped`` with the reference's reasons, none in ``error``.  Then two
+    predictions against real runs: qwen2-0.5b's train step at ``lm_train``'s
+    shape (B 4 x S 1024, bf16 compute, fp32 params and AdamW) under
+    ``remat="none"`` and ``"full"``, and one decode step of its full
+    ``decode_32k`` cell (B 128, a 32,768-position bf16 cache) at position
+    32,000: each predicted peak within 15 % of the card's
+    ``max_memory_allocated`` above what was allocated before the inputs were
+    built, beside the predicted FLOPs over the measured step time and the
+    decode step's ms beside its memory term."""
+    import dataclasses
+    import os
+
+    torch = ctx.torch
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+
+    d = sizes["dryrun"]
+    t0 = time.perf_counter()
+    cells = [(a, s, False) for a in ARCH_IDS for s in SHAPES]
+    recs = dryrun.run_cells(cells, workers=min(d["workers"], os.cpu_count() or 1))
+    sweep_s = time.perf_counter() - t0
+    status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
+    for r in recs:
+        if r["status"] == "skipped":
+            check(r["why"] == get_config(r["arch"]).supports(SHAPES[r["shape"]])[1],
+                  f"dryrun: {r['arch']} x {r['shape']} skipped for another reason: {r['why']}")
+    errors = [f"{r['arch']} x {r['shape']}: {r['error']}" for r in recs if r["status"] == "error"]
+    check(not errors, f"dryrun: cells in error: {errors}")
+    check(status == dict(ok=31, skipped=9, error=0), f"dryrun: sweep {status}")
+    fits = sorted(f"{r['arch']} x {r['shape']}" for r in recs
+                  if r["status"] == "ok" and r["fits_one_card"])
+    emit(dict(phase="dryrun_sweep", card=ctx.card, cells=len(recs), **status, sweep_s=sweep_s,
+              workers=d["workers"], fit_one_card=fits))
+
+    arch = d["arch"]
+    over = dryrun.reduced_overrides(arch) if d["reduced"] else {}
+    cfg = dataclasses.replace(get_config(arch), **over)
+    dev = ctx.dev
+    results = {}
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+
+    # the train step at lm_train's shape, under both remat modes
+    tshape = ShapeSpec("lm_train", d["train_seq"], d["train_batch"], "train")
+    state = model_mod.init_train_state(cfg, seed=0, device=dev)
+    pipe = TokenPipeline(cfg, batch=tshape.global_batch, seq=tshape.seq_len, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.global_batch(0).items()}
+    for remat in ("none", "full"):
+        pred = dryrun.lower_cell(arch, tshape, cfg_overrides={**over, "remat": remat},
+                                 extrapolate=False)
+        step = model_mod.make_train_step(dataclasses.replace(cfg, remat=remat),
+                                         compute_dtype=torch.bfloat16)
+
+        def run():
+            new, m = step(state, batch)
+            float(m["loss"])
+            return new
+
+        out, ms, peak = _measured_peak(ctx, run)
+        del out
+        results[f"train_remat_{remat}"] = dict(
+            predicted_peak_bytes=pred["peak_bytes_card"], measured_peak_bytes=
+            None if peak is None else peak - base, predicted_flops=pred["flops"], step_ms=ms,
+            predicted_flops_per_s=pred["flops"] / (ms / 1e3), compute_term_s=pred["compute_term_s"],
+            memory_term_s=pred["memory_term_s"], peak_by_phase=pred["peak_bytes_by_phase"])
+    del state, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # one decode step of the decode cell at full size
+    dshape = (SHAPES[d["decode_shape"]] if not d["reduced"]
+              else ShapeSpec("decode_rehearsal", d["decode_seq"], d["decode_batch"], "decode"))
+    pred = dryrun.lower_cell(arch, dshape, cfg_overrides=over or None, pos=d["decode_pos"],
+                             extrapolate=False)
+    check(pred["fits_one_card"], f"dryrun: {arch} x {dshape.name} is predicted not to fit")
+    params = model_mod.cast_params(transformer.init_params(cfg, seed=0, device=dev), torch.bfloat16)
+    cache = transformer.init_cache(cfg, dshape.global_batch, dshape.seq_len, torch.bfloat16,
+                                   device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (dshape.global_batch, 1), generator=gen).to(dev)
+    serve = model_mod.make_serve_step(cfg)
+    pos = iter((d["decode_pos"] - 1, d["decode_pos"]))  # a warm step, then the measured one
+
+    def decode():
+        logits, _ = serve(params, cache, tokens, next(pos))
+        return logits
+
+    logits, ms, peak = _measured_peak(ctx, decode)
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+        dshape.global_batch, 1, cfg.vocab_size), "dryrun: the decode step's logits")
+    del logits, params, cache
+    results["decode"] = dict(
+        shape=dshape.name, batch=dshape.global_batch, cache=dshape.seq_len, pos=d["decode_pos"],
+        predicted_peak_bytes=pred["peak_bytes_card"],
+        measured_peak_bytes=None if peak is None else peak - base, step_ms=ms,
+        memory_term_ms=pred["memory_term_s"] * 1e3, compute_term_ms=pred["compute_term_s"] * 1e3,
+        predicted_bytes=pred["bytes"], predicted_flops=pred["flops"])
+    for name, r in results.items():
+        if r["measured_peak_bytes"] is None:
+            continue
+        r["peak_rel_err"] = r["predicted_peak_bytes"] / r["measured_peak_bytes"] - 1.0
+        check(abs(r["peak_rel_err"]) <= DRYRUN_PEAK_REL,
+              f"dryrun: {name} predicted {r['predicted_peak_bytes']} bytes at peak, the card "
+              f"{r['measured_peak_bytes']} ({r['peak_rel_err']:+.1%})")
+    out = dict(phase="dryrun", card=ctx.card, arch=arch, sweep_s=sweep_s, **status, **results)
+    emit(out)
+    return out
+
+
 def grouped_gemm_plain(x, sizes, w):
     """The dropless grouped GEMM's plain version: ``x[rows of g] @ w[g]`` per group."""
     import torch
@@ -2791,6 +2946,7 @@ def main(argv=None) -> int:
     serve = phase(phase_lm_serve, ctx, model)
     del model
     phase(phase_lm_train, ctx, sizes)
+    phase(phase_dryrun, ctx, sizes)
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
     phase(phase_examples, ctx)

@@ -45,6 +45,7 @@ from ..core.schedule import make_spgemm_plan, structure_fingerprint
 from ..core.spgemm import spamm_symbolic, spgemm_symbolic
 from ..kernels.block_spmm import tile_engine
 from ..kernels.precision import FP32, Precision, low_precision_task_mask
+from ..obs.memory import matrix_worker_bytes
 from ..obs.timing import timed_into
 from ..obs.tracer import tracer_of
 from .balance import LoadMonitor, block_reference_weights
@@ -129,6 +130,7 @@ def _plan_obs_static(plan) -> dict:
             send_sum=float(load.send_bytes.sum()),
             rounds=rounds,
             rounds_tracer=None,  # exchange_round instants once per tracer
+            counters=(None,),  # (tracer, its dispatch counters), see _annotate_spgemm_dispatch
         )
         st["full_costs"].setflags(write=False)  # shared across spans
         object.__setattr__(plan, "_obs_static", st)  # plan is frozen
@@ -150,14 +152,21 @@ def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | N
     block_spmm.tile_engine`).
     """
     st = _plan_obs_static(plan)
+    counters = st["counters"]
+    if counters[0] is not tr:  # the tracer's counters, looked up once per plan and tracer
+        counters = st["counters"] = (tr, tr.counter("tasks_executed"), tr.counter("recv_bytes"),
+                                     tr.counter("send_bytes"))
+    _, c_tasks, c_recv, c_send = counters
+    args = sp.args
     if precision is not None:
-        dtype = "bfloat16" if precision.mode == "bf16" else "float32"
-        sp.args.update(precision=precision.mode, dtype=dtype,
-                       engine=tile_engine(plan.bs, plan.bs, plan.bs, stores))
+        args["precision"] = precision.mode
+        args["dtype"] = "bfloat16" if precision.mode == "bf16" else "float32"
+        args["engine"] = tile_engine(plan.bs, plan.bs, plan.bs, stores)
     ex = getattr(exe, "last_exchange", None)
     if ex is not None:
-        sp.args.update(send_blocks=ex["send_blocks"], kept_send_blocks=ex["kept_blocks"],
-                       dropped_rounds=ex["dropped_rounds"])
+        args["send_blocks"] = ex["send_blocks"]
+        args["kept_send_blocks"] = ex["kept_blocks"]
+        args["dropped_rounds"] = ex["dropped_rounds"]
         tr.counter("pruned_send_blocks").add(float(ex["send_blocks"] - ex["kept_blocks"]))
     # the same combined task-equivalent cost the rebalancer weighs
     if task_count is None or task_count is plan.task_count:
@@ -167,10 +176,12 @@ def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | N
         tc = np.asarray(task_count)
         sp.worker_costs = tc.astype(np.float64) + st["base"]
         tasks = int(tc.sum())
-    sp.args.update(tasks=tasks, recv_bytes=st["recv_sum"], send_bytes=st["send_sum"])
-    tr.counter("tasks_executed").add(float(tasks))
-    tr.counter("recv_bytes").add(st["recv_sum"])
-    tr.counter("send_bytes").add(st["send_sum"])
+    args["tasks"] = tasks
+    args["recv_bytes"] = st["recv_sum"]
+    args["send_bytes"] = st["send_sum"]
+    c_tasks.add(float(tasks))
+    c_recv.add(st["recv_sum"])
+    c_send.add(st["send_sum"])
     # the exchange rounds run inside the dispatch: per-round markers carry
     # planned bytes, not durations.  They are plan-static, so each plan emits
     # them on its first dispatch a given tracer observes.
@@ -198,7 +209,16 @@ def _note_dispatch_memory(cache, plan, precision, c) -> None:
         return
     seen.add(tok)
     mm.note_plan(plan, precision, cache=cache)
-    mm.note_matrix(c, "store", cache=cache)
+    # the result's owner map and capacity are the plan's: its store account is
+    # memoized on the plan per store type, as plan_memory_bytes is
+    memo = getattr(plan, "_obs_mem_result", None)
+    if memo is None:
+        memo = {}
+        object.__setattr__(plan, "_obs_mem_result", memo)
+    b = memo.get(c.dtype)
+    if b is None:
+        b = memo[c.dtype] = matrix_worker_bytes(c)
+    mm.note_matrix(c, "store", cache=cache, worker_bytes=b)
 
 
 def _note_dispatch_locality(cache, tr, plan, precision, a, b, *, task_on=None, exe=None) -> None:

@@ -6,8 +6,8 @@ projections keep the head as a tensor dim: ``[d, H, hd]`` in,
 ``[H, hd, d]`` out), so parameters cross between the packages array for
 array (:mod:`repro_torch.convert`).  Every ``*_init`` draws from an explicit
 ``torch.Generator`` with the JAX package's scales and zero/one
-initialisations.  The JAX package's logical sharding axes have no
-counterpart: the port runs on one card.
+initialisations.  The JAX package returns each parameter's logical sharding
+axes beside it; the port keeps them apart, in ``transformer.param_axes``.
 """
 
 from __future__ import annotations

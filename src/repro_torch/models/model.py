@@ -11,9 +11,11 @@ step instead of leaving attention out of the gradient.
 A train state is ``{"params", "opt": {"mu", "nu", "count"[, "master"]},
 "step"}``; ``step`` and ``count`` are int32 0-d tensors on the parameters'
 device.  A train step returns a new state and modifies none of the one it is
-given, so a failed step can be retried on the same state.  The JAX package's
-``abstract_train_state`` and ``grad_reshard`` are XLA sharding tools with no
-counterpart on one card; they wait with its dry run.  ``cfg.remat`` is
+given, so a failed step can be retried on the same state.
+:func:`abstract_train_state` builds the same tree as fake tensors (shapes and
+dtypes, no storage) for the dry run (:mod:`repro_torch.launch.dryrun`); the
+JAX package's ``grad_reshard`` pins gradients to a multi-device sharding and
+waits for the multi-card slice.  ``cfg.remat`` is
 applied as the JAX package applies it (:func:`transformer.apply`): each
 period of layers is one ``torch.utils.checkpoint`` unit (``"full"``: recompute
 everything, ``"dots"``: keep the unbatched matrix products), with gradients
@@ -31,7 +33,9 @@ from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import transformer
 
 __all__ = [
+    "abstract_train_state",
     "cast_params",
+    "fake_mode",
     "init_train_state",
     "make_grad_fn",
     "make_loss_fn",
@@ -103,6 +107,26 @@ def init_train_state(cfg: ArchConfig, *, seed: int, device="cuda", param_dtype=t
         state["opt"]["master"] = params  # fp32 master copy
         state["params"] = cast_params(params, torch.bfloat16)
     return state
+
+
+def fake_mode():
+    """A ``FakeTensorMode``: tensors that carry shapes, dtypes and a device and
+    allocate nothing, and ops on them that compute only those.  Tensors made
+    under one mode are used under that mode (the dry run keeps one per cell).
+    The ``meta`` device cannot stand in: ``torch.Generator`` has none, and
+    :func:`transformer.init_params` draws from one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def abstract_train_state(cfg: ArchConfig, *, param_dtype=torch.float32, mode=None) -> dict:
+    """:func:`init_train_state`'s tree as fake CPU tensors (``mode``, or a new
+    :func:`fake_mode`): the same leaves, shapes and dtypes — the fp32
+    ``master`` copy included when ``param_dtype`` is bf16 — without a byte
+    allocated or a number drawn."""
+    with mode if mode is not None else fake_mode():
+        return init_train_state(cfg, seed=0, device="cpu", param_dtype=param_dtype)
 
 
 def _batch_on(batch, dev: torch.device):

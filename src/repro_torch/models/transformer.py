@@ -47,7 +47,8 @@ from .layers import (
     rope,
 )
 
-__all__ = ["apply", "decode_step", "init_cache", "init_params", "layer_kinds"]
+__all__ = ["apply", "cache_axes", "decode_step", "init_cache", "init_params", "layer_kinds",
+           "param_axes"]
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -112,6 +113,93 @@ def init_params(cfg: ArchConfig, *, seed: int | None = None,
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size)
     return p
+
+
+# --------------------------------------------------------------------------
+# logical sharding axes (the dry run's spec arithmetic: repro_torch.sharding)
+# --------------------------------------------------------------------------
+
+
+def _norm_axes(kind: str) -> dict:
+    if kind == "nonparam_ln":
+        return {}
+    return {"scale": ("embed",), "bias": ("embed",)} if kind == "layernorm" else {"scale": ("embed",)}
+
+
+def _mlp_axes(act: str) -> dict:
+    a = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if act in ("silu", "geglu"):
+        a["wg"] = ("embed", "mlp")
+    return a
+
+
+def _block_axes(cfg: ArchConfig, kind: str) -> dict:
+    """The logical axes of one layer's parameters, as :func:`_block_init` lays
+    them out (the JAX package's ``_block_init`` names, less its stacked
+    ``"layers"`` dim)."""
+    a = {"ln1": _norm_axes(cfg.norm)}
+    if kind in ("attn", "local"):
+        for name, head_axis in (("q", "heads"), ("k", "kv_heads"), ("v", "kv_heads")):
+            a[name] = {"w": ("embed", head_axis, None)}
+            if cfg.qkv_bias:
+                a[name]["b"] = (head_axis, None)
+        a["o"] = {"w": ("heads", None, "embed")}
+    elif kind == "rec":
+        a["mix"] = {"w_in_x": ("embed", "rnn"), "w_in_g": ("embed", "rnn"), "conv": (None, "rnn"),
+                    "w_r": ("heads", None, None), "w_i": ("heads", None, None),
+                    "lam": ("rnn",), "w_out": ("rnn", "embed")}
+    elif kind == "ssm":
+        a["mix"] = {"in_proj": ("embed", "rnn"), "conv": (None, None), "a_log": ("heads",),
+                    "d_skip": ("heads",), "dt_bias": ("heads",), "norm_scale": ("rnn",),
+                    "out_proj": ("rnn", "embed")}
+        return a
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    a["ln2"] = _norm_axes(cfg.norm)
+    if cfg.is_moe and kind in ("attn", "local"):
+        a["moe"] = {"router": ("embed", None), "w1": ("expert", "embed_e", "moe_ff"),
+                    "w2": ("expert", "moe_ff", "embed_e")}
+        if cfg.mlp_act in ("silu", "geglu"):
+            a["moe"]["wg"] = ("expert", "embed_e", "moe_ff")
+    else:
+        a["mlp"] = _mlp_axes(cfg.mlp_act)
+    return a
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axis names of every parameter, mirroring :func:`init_params`'s tree.
+
+    The names are the JAX package's (``transformer.param_axes``); its stacked
+    scan dim ``"layers"`` has no counterpart here (one tree per layer), and
+    the rules map it to no mesh axis, so every spec is the same.
+    """
+    a = {"embed": {"table": ("vocab", "embed")}}
+    if cfg.frontend == "audio_stub":
+        a["frontend"] = {"w": ("embed", None)}
+    a["layers"] = [_block_axes(cfg, kind) for kind in layer_kinds(cfg)]
+    a["final_norm"] = _norm_axes(_final_norm_kind(cfg))
+    if not cfg.tie_embeddings:
+        a["head"] = {"w": ("embed", "vocab")}
+    return a
+
+
+def cache_axes(cfg: ArchConfig, int8: bool = False) -> dict:
+    """The logical axes of :func:`init_cache`'s tree (the JAX package's
+    ``cache_axes`` per layer, less its ``"layers"`` dim)."""
+
+    def kind_axes(kind: str) -> dict:
+        if kind in ("attn", "local"):
+            # kv_heads shards when divisible; otherwise head_dim picks up the model axis
+            kv = ("batch", "seq_kv", "kv_heads", "head_dim")
+            d = {"k": kv, "v": kv}
+            if int8:
+                d["k_scale"] = d["v_scale"] = ("batch", "seq_kv", "kv_heads")
+            return d
+        if kind == "rec":
+            return {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+        return {"h": ("batch", "heads", None, None), "conv": ("batch", None, "rnn")}
+
+    return {"layers": [kind_axes(kind) for kind in layer_kinds(cfg)]}
 
 
 # --------------------------------------------------------------------------

@@ -50,6 +50,15 @@ from .tracer import tracer_of
 __all__ = ["HealthPolicy", "HealthAlert", "HealthMonitor"]
 
 
+def _median(values: list) -> float:
+    """``np.median`` of a short list of floats, by ``sorted`` (the same value:
+    the middle element, or the mean of the middle two as ``np.mean`` forms it)."""
+    s = sorted(values)
+    n = len(s)
+    mid = s[n // 2]
+    return float(mid) if n % 2 else float((s[n // 2 - 1] + mid) / 2.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class HealthPolicy:
     """Detection thresholds; the defaults are deliberately conservative so
@@ -124,7 +133,7 @@ class HealthMonitor:
             if self._straggler_streak is None or (
                     self._straggler_streak.shape != cost.shape):
                 self._straggler_streak = np.zeros(cost.shape, np.int64)
-            med = float(np.median(cost))
+            med = _median(cost.tolist())
             if med > 0.0:
                 over = cost > p.straggler_factor * med
                 self._straggler_streak = np.where(
@@ -159,7 +168,7 @@ class HealthMonitor:
         # so the scan stays O(1) per iteration on long runs)
         recv = float(row.get("recv_bytes_mean") or 0.0)
         if self._recv_hist:
-            med = float(np.median(self._recv_hist))
+            med = _median(self._recv_hist)
             if med > 0.0 and recv > p.exchange_blowup * med:
                 new.append(self._emit(
                     "exchange_blowup", it,

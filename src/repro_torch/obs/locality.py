@@ -63,6 +63,11 @@ __all__ = [
 #: per plan, like the dispatch annotations' ``_obs_static`` rider)
 _PROV_ATTR = "_obs_locality"
 _STATIC_ATTR = "_obs_locality_dispatch"
+_WIRE_ATTR = "_obs_locality_wire"
+
+#: the per-worker account vectors a ledger sums
+_PW_KEYS = ("referenced", "local", "shipped", "wire_recv", "wire_send", "local_flops",
+            "total_flops")
 
 #: the per-iteration fields locality_iteration() appends to driver rows —
 #: schema-stable like SHARED_ITER_KEYS
@@ -123,8 +128,10 @@ class LocalityLedger:
         self.local_flops = 0.0
         self.total_flops = 0.0
         self._pw: dict[str, np.ndarray] | None = None
-        # movement lineage: per-dispatch (operand, code, src, dst) arrays
-        self._lineage: list[tuple[str, np.ndarray, np.ndarray, np.ndarray]] = []
+        # per-worker increments, or a masked dispatch's inputs, not yet summed
+        self._pending: list = []
+        # movement lineage: per dispatch (a_codes, b_codes, plan, keeps)
+        self._lineage: list[tuple] = []
 
     # -- wiring ---------------------------------------------------------------
     def install(self, cache) -> "LocalityLedger":
@@ -158,27 +165,25 @@ class LocalityLedger:
         stable within one structure).
         """
         prov = plan_provenance(plan)
-        P = plan.nparts
         if self._pw is None:
-            self.nparts = P
-            self._pw = {k: np.zeros(P, dtype=np.float64) for k in (
-                "referenced", "local", "shipped", "wire_recv", "wire_send",
-                "local_flops", "total_flops")}
-        pw = self._pw
+            self.nparts = plan.nparts
+            self._pw = {k: np.zeros(plan.nparts, dtype=np.float64) for k in _PW_KEYS}
         if task_on is None and keeps is None:
             # the whole plan ran over its full exchange: every number is a
             # property of the plan and the wire type, computed once
             static = _plan_dispatch_static(plan, prov, wire_itemsize)
-            vec, out = static["per_worker"], static["out"]
+            out = static["out"]
+            self._pending.append(static["per_worker"])
         else:
-            vec, out = _dispatch_account(plan, prov, wire_itemsize, task_on, keeps)
-        for k, v in vec.items():
-            pw[k] += v
-
-        self._note_lineage(plan, prov, keeps, a_codes, b_codes)
+            out = _dispatch_totals(plan, prov, wire_itemsize, task_on, keeps)
+            # the per-worker split of a masked dispatch is worked out when read
+            self._pending.append((plan, prov, wire_itemsize, task_on, keeps))
+        # lineage keeps references (a plan's fetches, a matrix's codes and a
+        # dispatch's keep masks never change); fetches are resolved and
+        # Morton keys looked up only when moved_blocks() aggregates
+        self._lineage.append((a_codes, b_codes, plan, keeps))
 
         self.dispatches += 1
-        out = dict(out)
         self.referenced_bytes += out["referenced_bytes"]
         self.local_bytes += out["local_bytes"]
         self.shipped_bytes += out["shipped_bytes"]
@@ -186,19 +191,29 @@ class LocalityLedger:
         self.wire_send_bytes += out["wire_send_bytes"]
         self.local_flops += out["local_flops"]
         self.total_flops += out["total_flops"]
-        return out
+        return dict(out)
 
-    def _note_lineage(self, plan, prov, keeps, a_codes, b_codes) -> None:
-        """Append each operand's fetches; their Morton keys are looked up
-        only when :meth:`moved_blocks` aggregates (the arrays are kept by
-        reference: a plan's fetches and a matrix's codes never change)."""
-        for name, codes, keep_i in (("a", a_codes, 0), ("b", b_codes, 1)):
+    def _per_worker(self) -> dict | None:
+        """The per-worker totals, with every pending dispatch added in order."""
+        pw = self._pw
+        if self._pending:
+            for vec in self._pending:
+                if isinstance(vec, tuple):
+                    vec = _dispatch_account(*vec)[0]
+                for k, v in vec.items():
+                    pw[k] += v
+            self._pending.clear()
+        return pw
+
+    def _fetches(self, name: str):
+        """``(codes, gids, src, dst)`` per dispatch with fetches of operand ``name``."""
+        for a_codes, b_codes, plan, keeps in self._lineage:
             if keeps is None:
-                gids, src, dst = prov[f"fetch_{name}"]
+                gids, src, dst = plan_provenance(plan)[f"fetch_{name}"]
             else:
-                gids, src, dst = _kept_fetches(plan, name, keeps[keep_i])
+                gids, src, dst = _kept_fetches(plan, name, keeps[0 if name == "a" else 1])
             if gids.size:
-                self._lineage.append((name, codes, gids, src, dst))
+                yield (a_codes if name == "a" else b_codes), gids, src, dst
 
     # -- per-iteration deltas -------------------------------------------------
     def snapshot(self) -> tuple:
@@ -236,7 +251,7 @@ class LocalityLedger:
         out = []
         for op in ("a", "b"):
             chunks = [(np.asarray(gids if codes is None else codes[gids], dtype=np.int64), s, d)
-                      for (o, codes, gids, s, d) in self._lineage if o == op]
+                      for codes, gids, s, d in self._fetches(op)]
             if not chunks:
                 continue
             codes = np.concatenate([c for c, _, _ in chunks])
@@ -258,7 +273,7 @@ class LocalityLedger:
 
     def summary(self) -> dict:
         """JSON-safe run totals: fractions, per-worker table, moved blocks."""
-        pw = self._pw
+        pw = self._per_worker()
         per_worker = []
         if pw is not None:
             for p in range(self.nparts):
@@ -328,6 +343,25 @@ def _dispatch_account(plan: SpgemmPlan, prov: dict, wire_itemsize: int, task_on,
     return vec, out
 
 
+def _dispatch_totals(plan: SpgemmPlan, prov: dict, wire_itemsize: int, task_on, keeps) -> dict:
+    """:func:`_dispatch_account`'s scalar deltas alone, in a few array passes:
+    every term is a whole number of bytes or FLOPs (exact in float64), so a
+    total of counts equals the sum of the per-worker terms."""
+    flop = 2.0 * float(plan.bs) ** 3
+    st = _plan_dispatch_static(plan, prov, wire_itemsize)["out"]
+    out = dict(st)
+    if task_on is not None:
+        out["total_flops"] = float(np.count_nonzero(task_on)) * flop
+        out["local_flops"] = float(np.count_nonzero(prov["task_local"] & task_on)) * flop
+    if keeps is not None:
+        wblk = float(plan.bs * plan.bs * wire_itemsize)
+        kept = sum(int(np.count_nonzero(np.concatenate(
+            [np.asarray(x, dtype=bool) for x in keep], axis=1) & live))
+            for (live, _, _), keep in zip(_wire_layout(plan), keeps) if keep)
+        out["wire_recv_bytes"] = out["wire_send_bytes"] = float(kept) * wblk
+    return out
+
+
 def _plan_dispatch_static(plan: SpgemmPlan, prov: dict, wire_itemsize: int) -> dict:
     """:func:`_dispatch_account` of a dispatch that ran the whole plan, memoized
     on the frozen plan per wire itemsize, as :func:`plan_provenance` is."""
@@ -343,23 +377,49 @@ def _plan_dispatch_static(plan: SpgemmPlan, prov: dict, wire_itemsize: int) -> d
 
 
 def _kept_wire(plan: SpgemmPlan, keeps: tuple, wire_itemsize: int):
-    """Per-worker wire bytes of a keep-mask-pruned exchange."""
+    """Per-worker wire bytes of a keep-mask-pruned exchange.
+
+    Each operand's rounds are concatenated along the slot axis and counted
+    per (sender, round) in one pass; the per-round send counts, slot spans
+    and receivers are plan-static (:func:`_wire_layout`).  Every term is a
+    whole number of blocks, so the float64 sums are exact in any order."""
     P = plan.nparts
-    wblk = plan.bs * plan.bs * wire_itemsize
+    wblk = float(plan.bs * plan.bs * wire_itemsize)
     wrecv = np.zeros(P, dtype=np.float64)
     wsend = np.zeros(P, dtype=np.float64)
-    for (offs, send_cnt), keep in zip(
-        ((plan.a_offsets, plan.a_send_count), (plan.b_offsets, plan.b_send_count)),
-        keeps,
-    ):
-        for r, d in enumerate(offs):
-            cnt = send_cnt[d]
-            k = np.asarray(keep[r], dtype=bool)
-            in_cnt = np.arange(k.shape[1])[None, :] < cnt[:, None]
-            kept = (k & in_cnt).sum(axis=1).astype(np.float64)
-            wsend += kept * wblk
-            wrecv[(np.arange(P) + d) % P] += kept * wblk
+    for (live, bounds, dst), keep in zip(_wire_layout(plan), keeps):
+        if not keep:
+            continue
+        k = np.concatenate([np.asarray(x, dtype=bool) for x in keep], axis=1) & live
+        cs = np.zeros((P, k.shape[1] + 1), dtype=np.int64)
+        np.cumsum(k, axis=1, out=cs[:, 1:])
+        kept = (cs[:, bounds[1:]] - cs[:, bounds[:-1]]).astype(np.float64) * wblk  # [P, rounds]
+        wsend += kept.sum(axis=1)
+        wrecv += np.bincount(dst.ravel(), weights=kept.ravel(), minlength=P)
     return wrecv, wsend
+
+
+def _wire_layout(plan: SpgemmPlan) -> tuple:
+    """Per operand ``(live, bounds, dst)``, memoized on the plan: ``live``
+    marks the slots below each sender's count across the concatenated
+    rounds, ``bounds`` the rounds' slot spans, ``dst[p, r]`` the worker that
+    receives sender ``p``'s round ``r``."""
+    memo = getattr(plan, _WIRE_ATTR, None)
+    if memo is None:
+        P = plan.nparts
+        memo = []
+        for offs, send, send_cnt in ((plan.a_offsets, plan.a_send, plan.a_send_count),
+                                     (plan.b_offsets, plan.b_send, plan.b_send_count)):
+            caps = [send[d].shape[1] for d in offs]
+            live = np.concatenate(
+                [np.arange(c)[None, :] < np.asarray(send_cnt[d])[:, None]
+                 for c, d in zip(caps, offs)] or [np.zeros((P, 0), bool)], axis=1)
+            bounds = np.concatenate([[0], np.cumsum(caps, dtype=np.int64)])
+            dst = (np.arange(P)[:, None] + np.asarray(offs, dtype=np.int64)[None, :]) % P
+            memo.append((live, bounds, dst))
+        memo = tuple(memo)
+        object.__setattr__(plan, _WIRE_ATTR, memo)
+    return memo
 
 
 def _kept_fetches(plan: SpgemmPlan, name: str, keep: list):

@@ -177,9 +177,11 @@ class MemoryMeter:
                 float(self.peak[kind].max()))
 
     # -- accounting entry points (all host-side symbolic math) ---------------
-    def note_matrix(self, x, kind: str = "store", cache=None) -> None:
-        """Account a resident matrix's physical store bytes per worker."""
-        b = matrix_worker_bytes(x)
+    def note_matrix(self, x, kind: str = "store", cache=None, worker_bytes=None) -> None:
+        """Account a resident matrix's physical store bytes per worker
+        (``worker_bytes``: its :func:`matrix_worker_bytes`, when the caller
+        holds them)."""
+        b = matrix_worker_bytes(x) if worker_bytes is None else worker_bytes
         self._bump(kind, b["physical"], tracer_of(cache))
         self._bump(kind + "_actual", b["actual"])
 

@@ -156,7 +156,7 @@ class IterationScope:
         the scope is still open; a no-op when tracing is disabled.
         """
         if self._handle is not None:
-            self._handle._span.args.update(args)
+            self._handle.args.update(args)
 
     def delta(self) -> dict:
         """wall seconds + cache counter deltas accumulated in this scope."""

@@ -66,39 +66,37 @@ __all__ = [
 class Counter:
     """Monotonic counter registered once on a tracer's metrics registry."""
 
-    __slots__ = ("name", "value", "_tracer")
+    __slots__ = ("name", "value", "_clock", "_events")
 
     def __init__(self, name: str, tracer: "Tracer | None" = None):
         self.name = name
         self.value = 0.0
-        self._tracer = tracer
+        # a registered metric records each change as a Chrome counter event
+        self._clock = tracer._clock if tracer is not None else None
+        self._events = tracer._counter_events if tracer is not None else None
 
     def add(self, v: float = 1.0) -> None:
         self.value += v
-        tr = self._tracer
-        if tr is not None and tr.enabled:
-            tr._counter_events.append((tr._clock(), self.name, self.value))
+        if self._events is not None:
+            self._events.append((self._clock(), self.name, self.value))
 
 
 class Gauge:
     """Last-value gauge registered once on a tracer's metrics registry."""
 
-    __slots__ = ("name", "value", "_tracer")
+    __slots__ = ("name", "value", "_clock", "_events")
 
-    def __init__(self, name: str, tracer: "Tracer | None" = None):
-        self.name = name
-        self.value = 0.0
-        self._tracer = tracer
+    __init__ = Counter.__init__
 
     def set(self, v: float) -> None:
         self.value = float(v)
-        tr = self._tracer
-        if tr is not None and tr.enabled:
-            tr._counter_events.append((tr._clock(), self.name, self.value))
+        if self._events is not None:
+            self._events.append((self._clock(), self.name, self.value))
 
 
 class Span:
-    """One recorded interval on the host timeline.
+    """One recorded interval on the host timeline, and the context manager
+    that closes it (``with tracer.span(...) as sp`` yields the span itself).
 
     ``parent`` is the index of the enclosing span in ``tracer.spans`` (or
     -1); ``worker_costs``, when set by the instrumentation, is a ``[P]``
@@ -107,9 +105,11 @@ class Span:
     exporters turn it into per-worker busy intervals.
     """
 
-    __slots__ = ("name", "cat", "t0", "t1", "parent", "args", "worker_costs")
+    __slots__ = ("name", "cat", "t0", "t1", "parent", "args", "worker_costs", "_tracer",
+                 "_scope")
 
-    def __init__(self, name: str, cat: str, t0: float, parent: int, args: dict):
+    def __init__(self, name: str, cat: str, t0: float, parent: int, args: dict,
+                 tracer: "Tracer | None" = None):
         self.name = name
         self.cat = cat
         self.t0 = t0
@@ -117,34 +117,27 @@ class Span:
         self.parent = parent
         self.args = args
         self.worker_costs = None
+        self._tracer = tracer  # the open span's tracer; dropped on exit
+        self._scope = None
 
     @property
     def dur(self) -> float:
         return self.t1 - self.t0
 
-
-class _SpanHandle:
-    """Context manager closing one span; yields the span for annotation."""
-
-    __slots__ = ("_tracer", "_span", "_scope")
-
-    def __init__(self, tracer: "Tracer", span: Span):
-        self._tracer = tracer
-        self._span = span
-        self._scope = None
-
-    def __enter__(self) -> Span:
+    def __enter__(self) -> "Span":
         if self._tracer._profiler_scopes:
-            self._scope = torch.profiler.record_function(self._span.name)
+            self._scope = torch.profiler.record_function(self.name)
             self._scope.__enter__()
-        return self._span
+        return self
 
     def __exit__(self, *exc) -> None:
         if self._scope is not None:
             self._scope.__exit__(*exc)
+            self._scope = None
         tr = self._tracer
-        self._span.t1 = tr._clock()
+        self.t1 = tr._clock()
         tr._stack.pop()
+        self._tracer = None
         return None
 
 
@@ -183,13 +176,13 @@ class Tracer:
         return True
 
     # -- spans ---------------------------------------------------------------
-    def span(self, name: str, cat: str = "", **args: Any) -> _SpanHandle:
+    def span(self, name: str, cat: str = "", **args: Any) -> Span:
         """Open a nested span; use as ``with tracer.span(...) as sp``."""
-        parent = self._stack[-1] if self._stack else -1
-        sp = Span(name, cat, self._clock(), parent, args)
-        self._stack.append(len(self.spans))
+        stack = self._stack
+        sp = Span(name, cat, self._clock(), stack[-1] if stack else -1, args, self)
+        stack.append(len(self.spans))
         self.spans.append(sp)
-        return _SpanHandle(self, sp)
+        return sp
 
     def instant(self, name: str, cat: str = "", **args: Any) -> None:
         """Zero-duration marker attached to the current span."""
