@@ -14,16 +14,20 @@ main thread's extra time by observer, two ways:
   a caller that is not an observer (cProfile slows small Python functions
   several times over; it ranks the callers, the entry points time them).
 
-The pipeline's plan cache is warm and one observed run fills the observers'
-per-plan caches first, as the overhead gate's rounds find them.
+Each observed run ends with one ``LocalityLedger.summary()``, the read that
+resolves the ledger's deferred per-worker accounts and lineage, so the
+locality figure counts what a user of the ledger pays for, not only its
+per-dispatch part (listed apart as ``locality_read_ms``).  The pipeline's
+plan cache is warm and one observed run fills the observers' per-plan
+caches first, as the overhead gate's rounds find them.
 ``IterationScope`` and ``timed_into`` run with the observers off as well
 and are listed apart.  ``--src`` imports ``repro_torch`` from another copy
 of the package (an older tree unpacked with ``git archive``), so two trees
 are split by the same script.  The host code is the card's, so the split
 holds on the CPU; the wall clock of a shared CPU is noisy, so compare
-trees within one call.
+trees within one call.  It runs on the card unless ``--device cpu`` is given.
 
-Run:  python benchmarks/torch_obs_profile.py [--n 1024 --bs 16 --runs 5]
+Run:  python benchmarks/torch_obs_profile.py [--device cpu] [--n 1024 --bs 16 --runs 5]
       [--src OTHER/src] [--out FILE.json]
 """
 
@@ -53,8 +57,8 @@ ENTRY_POINTS = (
     ("repro_torch.obs.memory", "MemoryMeter", ("note_bytes", "note_matrix", "note_plan"),
      "memory"),
     ("repro_torch.dist.multiply", None, ("_note_dispatch_locality",), "locality"),
-    ("repro_torch.obs.locality", "LocalityLedger", ("note_dispatch", "snapshot", "delta"),
-     "locality"),
+    ("repro_torch.obs.locality", "LocalityLedger",
+     ("note_dispatch", "snapshot", "delta", "summary", "moved_blocks"), "locality"),
     ("repro_torch.obs.locality", None, ("locality_iteration",), "locality"),
     ("repro_torch.obs.health", "HealthMonitor", ("observe", "maybe_refit"), "health"),
     ("repro_torch.obs.log", "EventLog", ("info", "debug", "warn", "emit"), "log"),
@@ -133,7 +137,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--bs", type=int, default=16)
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--src", default=None, help="import repro_torch from this directory")
     ap.add_argument("--out", default=None, help="write the split as JSON here")
     args = ap.parse_args(argv)
@@ -155,10 +159,11 @@ def main(argv=None) -> int:
     def run(observed: bool):
         cache.tracer = cache.event_log = cache.memory_meter = cache.locality_ledger = None
         kw = tto.full_observatory(sync=False) if observed else {}
-        for key in ("memory", "locality"):
-            if key in kw:
-                kw.pop(key).install(cache)
+        installed = {key: kw.pop(key).install(cache) for key in ("memory", "locality")
+                     if key in kw}
         tto.run_once(d_s, d_h, nocc, mesh, cache, **kw)
+        if "locality" in installed:
+            installed["locality"].summary()  # the deferred work, once a run
         return kw
 
     run(False)
@@ -198,6 +203,8 @@ def main(argv=None) -> int:
         spans=len(tr.spans), instants=len(tr.instants), counter_events=len(tr._counter_events),
         entry_points_ms={o: sum(v["ms"] for v in fns.values()) for o, fns in entry.items()},
         entry_points=entry,
+        locality_read_ms=sum(v["ms"] for fn, v in entry.get("locality", {}).items()
+                             if fn in ("LocalityLedger.summary", "LocalityLedger.moved_blocks")),
         cprofile_ms={o: sum(fns.values()) * 1e3 for o, fns in by_fn.items()},
         cprofile={o: {fn: t * 1e3 for fn, t in fns.items()} for o, fns in by_fn.items()},
     )
@@ -208,6 +215,8 @@ def main(argv=None) -> int:
     for o in ("tracer", "locality", "memory", "health", "log", "shared"):
         print(f"{o:10s} {payload['entry_points_ms'].get(o, 0.0):20.3f} "
               f"{payload['cprofile_ms'].get(o, 0.0):16.3f}")
+    print(f"{'':10s} (locality: {payload['locality_read_ms']:.3f} ms of it in the read, "
+          f"LocalityLedger.summary)")
     own = sum(v for o, v in payload["entry_points_ms"].items() if o != "shared")
     print(f"{'observers':10s} {own:20.3f} "
           f"{sum(v for o, v in payload['cprofile_ms'].items() if o != 'shared'):16.3f}")

@@ -2467,7 +2467,8 @@ def _measured_peak(ctx, fn) -> tuple:
 
 def phase_dryrun(ctx, sizes) -> dict:
     """The one-card dry run (``repro_torch.launch.dryrun``: every cell's step on
-    fake tensors, no allocation) held against the card.  The sweep of all 40
+    fake tensors, no allocation; deep cells extrapolated per period, as the
+    sweep and the command line give them) held against the card.  The sweep of all 40
     (arch x shape) cells at full width over worker processes: 31 ``ok``, 9
     ``skipped`` with the reference's reasons, none in ``error``.  Then two
     predictions against real runs: qwen2-0.5b's train step at ``lm_train``'s
@@ -2520,8 +2521,7 @@ def phase_dryrun(ctx, sizes) -> dict:
     pipe = TokenPipeline(cfg, batch=tshape.global_batch, seq=tshape.seq_len, seed=0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.global_batch(0).items()}
     for remat in ("none", "full"):
-        pred = dryrun.lower_cell(arch, tshape, cfg_overrides={**over, "remat": remat},
-                                 extrapolate=False)
+        pred = dryrun.lower_cell(arch, tshape, cfg_overrides={**over, "remat": remat})
         step = model_mod.make_train_step(dataclasses.replace(cfg, remat=remat),
                                          compute_dtype=torch.bfloat16)
 
@@ -2533,7 +2533,8 @@ def phase_dryrun(ctx, sizes) -> dict:
         out, ms, peak = _measured_peak(ctx, run)
         del out
         results[f"train_remat_{remat}"] = dict(
-            predicted_peak_bytes=pred["peak_bytes_card"], measured_peak_bytes=
+            extrapolation=pred["extrapolation"], predicted_peak_bytes=pred["peak_bytes_card"],
+            measured_peak_bytes=
             None if peak is None else peak - base, predicted_flops=pred["flops"], step_ms=ms,
             predicted_flops_per_s=pred["flops"] / (ms / 1e3), compute_term_s=pred["compute_term_s"],
             memory_term_s=pred["memory_term_s"], peak_by_phase=pred["peak_bytes_by_phase"])
@@ -2544,8 +2545,7 @@ def phase_dryrun(ctx, sizes) -> dict:
     # one decode step of the decode cell at full size
     dshape = (SHAPES[d["decode_shape"]] if not d["reduced"]
               else ShapeSpec("decode_rehearsal", d["decode_seq"], d["decode_batch"], "decode"))
-    pred = dryrun.lower_cell(arch, dshape, cfg_overrides=over or None, pos=d["decode_pos"],
-                             extrapolate=False)
+    pred = dryrun.lower_cell(arch, dshape, cfg_overrides=over or None, pos=d["decode_pos"])
     check(pred["fits_one_card"], f"dryrun: {arch} x {dshape.name} is predicted not to fit")
     params = model_mod.cast_params(transformer.init_params(cfg, seed=0, device=dev), torch.bfloat16)
     cache = transformer.init_cache(cfg, dshape.global_batch, dshape.seq_len, torch.bfloat16,
@@ -2565,7 +2565,7 @@ def phase_dryrun(ctx, sizes) -> dict:
     del logits, params, cache
     results["decode"] = dict(
         shape=dshape.name, batch=dshape.global_batch, cache=dshape.seq_len, pos=d["decode_pos"],
-        predicted_peak_bytes=pred["peak_bytes_card"],
+        extrapolation=pred["extrapolation"], predicted_peak_bytes=pred["peak_bytes_card"],
         measured_peak_bytes=None if peak is None else peak - base, step_ms=ms,
         memory_term_ms=pred["memory_term_s"] * 1e3, compute_term_ms=pred["compute_term_s"] * 1e3,
         predicted_bytes=pred["bytes"], predicted_flops=pred["flops"])

@@ -10,9 +10,10 @@ step (:func:`model.make_serve_step`) — on fake tensors
 no arithmetic), so a cell of any size runs on the host in seconds and
 allocates nothing.  It counts, for one H100 holding the whole cell:
 
-* ``flops``: matrix-product FLOPs under ``torch.utils.flop_counter.FlopCounterMode``
-  (``flops_by_dtype`` splits them by operand type: the chunked attention's
-  products run in fp32);
+* ``flops``: matrix-product FLOPs, each op counted by its formula in
+  ``torch.utils.flop_counter``'s registry (the one ``FlopCounterMode`` uses),
+  summed over ``flops_by_dtype``, which splits them by operand type (the
+  chunked attention's products run in fp32);
 * ``bytes``: the input and output bytes of every op that makes a tensor and
   moves data (not a view, a reshape of a fresh tensor or an uninitialised
   allocation) — the unfused analogue of XLA's "bytes accessed" (a fused
@@ -212,32 +213,18 @@ def _measure(cfg: ArchConfig, shape: ShapeSpec, *, kv_dtype=None, param_dtype=to
              pos=None) -> dict:
     """One run of the cell's step at ``cfg``'s depth on fake tensors: its counts.
 
-    The train step runs as :func:`model.make_train_step` composes it — the
-    gradients (:func:`model.make_grad_fn`), then the update
-    (:func:`model.make_update_fn`) — and the peak is kept per phase
-    (forward, backward, update): each phase's peak grows linearly with
+    The train step is :func:`model.make_train_step`'s own; its ``on_update``
+    hook starts the meter's ``"update"`` phase, so the peak is kept per
+    phase (forward, backward, update): each phase's peak grows linearly with
     depth, their maximum need not.
     """
-    from torch.utils.flop_counter import FlopCounterMode
-
     mode = model_mod.fake_mode()
+    meter = CostMeter()
     if shape.kind == "train":
         inputs = (model_mod.abstract_train_state(cfg, param_dtype=param_dtype, mode=mode),
                   train_input_specs(cfg, shape, mode=mode))
-        grad_fn = model_mod.make_grad_fn(cfg)
-        update = model_mod.make_update_fn()
-        held = {}
-
-        def grads(state, batch):
-            held["grads"] = grad_fn(state["params"], batch)[1]
-
-        def step(state, batch):
-            # make_train_step holds the unclipped gradients until the update returns
-            new_state = update(state, held["grads"])
-            del held["grads"]
-            return new_state
-
-        phases = (("forward", grads), ("update", step))
+        step = model_mod.make_train_step(cfg, on_update=lambda: meter.begin("update"))
+        phase, fn = "forward", step
     elif shape.kind == "prefill":
         inputs = (_bf16_params(cfg, mode), train_input_specs(cfg, shape, mode=mode))
 
@@ -247,7 +234,7 @@ def _measure(cfg: ArchConfig, shape: ShapeSpec, *, kv_dtype=None, param_dtype=to
                      for k, v in batch.items()}
                 return transformer.apply(params, cfg, b)
 
-        phases = (("forward", forward),)
+        phase, fn = "forward", forward
     else:
         cache, tokens, _ = serve_input_specs(cfg, shape, kv_dtype, mode=mode)
         inputs = (_bf16_params(cfg, mode), cache, tokens)
@@ -258,28 +245,26 @@ def _measure(cfg: ArchConfig, shape: ShapeSpec, *, kv_dtype=None, param_dtype=to
             with torch.no_grad():
                 return serve(params, cache, tokens, at)
 
-        phases = (("decode", decode),)
+        phase, fn = "decode", decode
 
-    meter = CostMeter()
     saved = _SavedMeter(inputs, meter)
-    outs = []
     with mode:
         meter.track_tree(inputs)
         input_bytes = meter.live
-        with meter, FlopCounterMode(display=False) as fc, saved.hooks():
-            for name, fn in phases:
-                meter.begin(name)
-                outs.append(fn(*inputs))
-        del outs
+        with meter, saved.hooks():
+            meter.begin(phase)
+            out = fn(*inputs)
+        del out
     peaks = {k: v for k, v in meter.peaks.items() if k != "setup"}
-    return dict(flops=int(fc.get_total_flops()), flops_by_dtype=dict(meter.flops_by_dtype),
+    return dict(flops=sum(meter.flops_by_dtype.values()),
+                flops_by_dtype=dict(meter.flops_by_dtype),
                 bytes=meter.bytes, activation_bytes=saved.bytes,
                 peak_bytes={k: v[0] for k, v in peaks.items()},
                 peak_bytes_card={k: v[1] for k, v in peaks.items()},
                 input_bytes=input_bytes)
 
 
-def _extrapolated(cfg: ArchConfig, shape: ShapeSpec, extrapolate: bool, **kw):
+def _extrapolated(cfg: ArchConfig, shape: ShapeSpec, **kw):
     """Per-period extrapolation: ``(counts, "exact" | "per-period")``.
 
     The reference runs 1 and 2 periods and grows each count by their
@@ -292,7 +277,7 @@ def _extrapolated(cfg: ArchConfig, shape: ShapeSpec, extrapolate: bool, **kw):
     """
     pat = len(cfg.block_pattern)
     periods, rem = divmod(cfg.num_layers, pat)
-    if periods <= 3 or not extrapolate:
+    if periods <= 3:
         return _measure(cfg, shape, **kw), "exact"
     f2 = _measure(dataclasses.replace(cfg, num_layers=2 * pat + rem), shape, **kw)
     f3 = _measure(dataclasses.replace(cfg, num_layers=3 * pat + rem), shape, **kw)
@@ -356,10 +341,13 @@ def _model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
 
 
-def lower_cell(arch_id: str, shape_name, multi_pod: bool = False, *, extrapolate: bool = True,
-               grad_accum=None, cfg_overrides=None, kv_dtype=None, train_opts=None,
-               pos=None) -> dict:
+def lower_cell(arch_id: str, shape_name, multi_pod: bool = False, *, grad_accum=None,
+               cfg_overrides=None, kv_dtype=None, train_opts=None, pos=None) -> dict:
     """One cell's record.  ``shape_name`` is a key of ``SHAPES`` or a ``ShapeSpec``.
+
+    ``multi_pod`` only labels the record's ``mesh`` (the reference's
+    signature; there it picks the compiled mesh): every record carries the
+    per-device state bytes of both production meshes.
 
     The variant arguments are the reference's that change what one card runs:
     ``grad_accum``, ``cfg_overrides`` (``remat``, ``moe_capacity_factor``,
@@ -387,8 +375,8 @@ def lower_cell(arch_id: str, shape_name, multi_pod: bool = False, *, extrapolate
         cfg = dataclasses.replace(cfg, **cfg_overrides)
 
     clock = Stopwatch()
-    counts, extrap = _extrapolated(cfg, shape, extrapolate, kv_dtype=kv_dtype,
-                                   param_dtype=param_dtype, pos=pos)
+    counts, extrap = _extrapolated(cfg, shape, kv_dtype=kv_dtype, param_dtype=param_dtype,
+                                   pos=pos)
     state, axes = _state_tree(cfg, shape, kv_dtype=kv_dtype, param_dtype=param_dtype)
     per_device = {}
     for name, multi in MESHES.items():
@@ -491,25 +479,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None, help="directory for per-cell JSON")
     ap.add_argument("--workers", type=int, default=1, help="processes for --all")
     args = ap.parse_args(argv)
-    multi = args.mesh == "multi"
     if args.all:
-        cells = [(a, s, multi) for a in ARCH_IDS for s in SHAPES]
+        cells = [(a, s, False) for a in ARCH_IDS for s in SHAPES]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape, or --all")
-        cells = [(args.arch, args.shape, multi)]
+        cells = [(args.arch, args.shape, False)]
     clock = Stopwatch()
     recs = run_cells(cells, args.workers)
     for rec in recs:
         print(_summary_line(rec))
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-            fn = f"{rec['arch']}__{rec['shape']}__{args.mesh}.json"
+            fn = f"{rec['arch']}__{rec['shape']}.json"
             with open(os.path.join(args.out, fn), "w") as f:
                 json.dump(rec, f, indent=1)
     n = {s: sum(r["status"] == s for r in recs) for s in ("ok", "skipped", "error")}

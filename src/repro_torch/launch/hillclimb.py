@@ -74,7 +74,8 @@ MULTI_CARD = frozenset(k for k in VARIANTS if k.startswith(("sp", "gradrs", "bf1
 def run_variant(arch: str, shape, variant: str, multi_pod: bool = False, *,
                 cfg_overrides=None) -> dict:
     """The dry-run record of ``arch`` x ``shape`` under ``variant``;
-    ``cfg_overrides`` (a reduced config's, say) apply beneath the variant's."""
+    ``cfg_overrides`` (a reduced config's, say) apply beneath the variant's.
+    ``multi_pod`` only labels the record's mesh, as in :func:`lower_cell`."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if variant in MULTI_CARD:
@@ -103,12 +104,11 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variant", required=True, choices=sorted(VARIANTS))
-    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--out", default="results/hillclimb_torch")
     args = ap.parse_args(argv)
-    rec = run_variant(args.arch, args.shape, args.variant, args.mesh == "multi")
+    rec = run_variant(args.arch, args.shape, args.variant)
     os.makedirs(args.out, exist_ok=True)
-    fn = f"{args.arch}__{args.shape}__{args.mesh}__{args.variant}.json"
+    fn = f"{args.arch}__{args.shape}__{args.variant}.json"
     with open(os.path.join(args.out, fn), "w") as f:
         json.dump(rec, f, indent=1)
     if rec["status"] == "ok":

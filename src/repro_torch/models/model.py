@@ -204,9 +204,11 @@ def make_update_fn(*, lr_peak: float = 3e-4, warmup: int = 100, total_steps: int
 def make_train_step(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtype=torch.bfloat16,
                     lr_peak: float = 3e-4, warmup: int = 100, total_steps: int = 10_000,
                     grad_clip: float = 1.0, grad_accum: int | None = None,
-                    weight_decay: float = 0.1):
+                    weight_decay: float = 0.1, on_update=None):
     """Returns ``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``:
-    :func:`make_grad_fn`, then :func:`make_update_fn`.  ``state`` is left as it was."""
+    :func:`make_grad_fn`, then :func:`make_update_fn`.  ``state`` is left as it was.
+    ``on_update()``, if given, is called between the two (the dry run's
+    meters start the update's phase there)."""
     grad_fn = make_grad_fn(cfg, attn_impl=attn_impl, compute_dtype=compute_dtype,
                            grad_accum=grad_accum)
     update = make_update_fn(lr_peak=lr_peak, warmup=warmup, total_steps=total_steps,
@@ -214,6 +216,8 @@ def make_train_step(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtyp
 
     def train_step(state, batch):
         loss, grads = grad_fn(state["params"], batch)
+        if on_update is not None:
+            on_update()
         new_state, metrics = update(state, grads)
         return new_state, {"loss": loss, **metrics}
 

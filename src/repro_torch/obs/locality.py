@@ -194,14 +194,22 @@ class LocalityLedger:
         return dict(out)
 
     def _per_worker(self) -> dict | None:
-        """The per-worker totals, with every pending dispatch added in order."""
+        """The per-worker totals, with every pending dispatch added.  A plan's
+        static increments are added once, times the dispatches that ran it:
+        every term is a whole number of bytes or FLOPs, so (below 2**53) the
+        sums are exact in any order and grouping."""
         pw = self._pw
         if self._pending:
+            static: dict[int, list] = {}
             for vec in self._pending:
                 if isinstance(vec, tuple):
-                    vec = _dispatch_account(*vec)[0]
+                    for k, v in _dispatch_account(*vec)[0].items():
+                        pw[k] += v
+                else:
+                    static.setdefault(id(vec), [vec, 0])[1] += 1
+            for vec, times in static.values():
                 for k, v in vec.items():
-                    pw[k] += v
+                    pw[k] += v * times
             self._pending.clear()
         return pw
 
@@ -357,7 +365,7 @@ def _dispatch_totals(plan: SpgemmPlan, prov: dict, wire_itemsize: int, task_on, 
         wblk = float(plan.bs * plan.bs * wire_itemsize)
         kept = sum(int(np.count_nonzero(np.concatenate(
             [np.asarray(x, dtype=bool) for x in keep], axis=1) & live))
-            for (live, _, _), keep in zip(_wire_layout(plan), keeps) if keep)
+            for (live, *_), keep in zip(_wire_layout(plan), keeps) if keep)
         out["wire_recv_bytes"] = out["wire_send_bytes"] = float(kept) * wblk
     return out
 
@@ -387,7 +395,7 @@ def _kept_wire(plan: SpgemmPlan, keeps: tuple, wire_itemsize: int):
     wblk = float(plan.bs * plan.bs * wire_itemsize)
     wrecv = np.zeros(P, dtype=np.float64)
     wsend = np.zeros(P, dtype=np.float64)
-    for (live, bounds, dst), keep in zip(_wire_layout(plan), keeps):
+    for (live, bounds, dst, _, _), keep in zip(_wire_layout(plan), keeps):
         if not keep:
             continue
         k = np.concatenate([np.asarray(x, dtype=bool) for x in keep], axis=1) & live
@@ -400,10 +408,11 @@ def _kept_wire(plan: SpgemmPlan, keeps: tuple, wire_itemsize: int):
 
 
 def _wire_layout(plan: SpgemmPlan) -> tuple:
-    """Per operand ``(live, bounds, dst)``, memoized on the plan: ``live``
-    marks the slots below each sender's count across the concatenated
-    rounds, ``bounds`` the rounds' slot spans, ``dst[p, r]`` the worker that
-    receives sender ``p``'s round ``r``."""
+    """Per operand ``(live, bounds, dst, send, rnd)``, memoized on the plan:
+    ``live`` marks the slots below each sender's count across the
+    concatenated rounds, ``bounds`` the rounds' slot spans, ``dst[p, r]`` the
+    worker that receives sender ``p``'s round ``r``, ``send`` the rounds'
+    send-slot tables concatenated the same way and ``rnd`` each slot's round."""
     memo = getattr(plan, _WIRE_ATTR, None)
     if memo is None:
         P = plan.nparts
@@ -416,34 +425,31 @@ def _wire_layout(plan: SpgemmPlan) -> tuple:
                  for c, d in zip(caps, offs)] or [np.zeros((P, 0), bool)], axis=1)
             bounds = np.concatenate([[0], np.cumsum(caps, dtype=np.int64)])
             dst = (np.arange(P)[:, None] + np.asarray(offs, dtype=np.int64)[None, :]) % P
-            memo.append((live, bounds, dst))
+            slots = np.concatenate([np.asarray(send[d], dtype=np.int64) for d in offs]
+                                   or [np.zeros((P, 0), np.int64)], axis=1)
+            rnd = np.repeat(np.arange(len(caps)), caps)
+            memo.append((live, bounds, dst, slots, rnd))
         memo = tuple(memo)
         object.__setattr__(plan, _WIRE_ATTR, memo)
     return memo
 
 
 def _kept_fetches(plan: SpgemmPlan, name: str, keep: list):
-    """(gids, src, dst) of the blocks a pruned exchange actually delivered."""
-    offs = plan.a_offsets if name == "a" else plan.b_offsets
-    send = plan.a_send if name == "a" else plan.b_send
-    send_cnt = plan.a_send_count if name == "a" else plan.b_send_count
+    """(gids, src, dst) of the blocks a pruned exchange actually delivered, in
+    delivery order (by round, then sender, then slot), in one pass over the
+    rounds concatenated along the slot axis (:func:`_wire_layout`)."""
+    live, _, dst, slots, rnd = _wire_layout(plan)[0 if name == "a" else 1]
     store_idx = plan.a_store_idx if name == "a" else plan.b_store_idx
-    P = plan.nparts
-    gids_l, src_l, dst_l = [], [], []
-    for r, d in enumerate(offs):
-        k = np.asarray(keep[r], dtype=bool)
-        live = k & (np.arange(k.shape[1])[None, :] < send_cnt[d][:, None])
-        src, col = np.nonzero(live)  # row-major: by sender, then slot, as delivered
-        if not src.size:
-            continue
-        gids_l.append(store_idx[src, send[d][src, col]].astype(np.int64))
-        src_l.append(src.astype(np.int32))
-        dst_l.append(((src + d) % P).astype(np.int32))
-    if not gids_l:
+    src, col = (np.nonzero(np.concatenate([np.asarray(x, dtype=bool) for x in keep], axis=1)
+                           & live) if keep else (np.zeros(0, np.int64),) * 2)
+    if not src.size:
         z = np.zeros(0, np.int64)
         return z, np.zeros(0, np.int32), np.zeros(0, np.int32)
-    return (np.concatenate(gids_l), np.concatenate(src_l),
-            np.concatenate(dst_l))
+    r = rnd[col]
+    order = np.argsort(r, kind="stable")  # nonzero's (sender, slot) order within a round
+    src, col, r = src[order], col[order], r[order]
+    return (np.asarray(store_idx[src, slots[src, col]], dtype=np.int64), src.astype(np.int32),
+            dst[src, r].astype(np.int32))
 
 
 def ledger_of(cache) -> LocalityLedger | None:

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import dryrun, hillclimb, specs  # noqa: E402
 from repro_torch.launch.mesh import production_mesh_axes  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -211,10 +212,14 @@ def test_extrapolation_equals_a_full_depth_run(arch, layers, cell):
     shape = ShapeSpec(cell, 64, 4 if kind == "train" else 2, kind)
     over = {**dryrun.reduced_overrides(arch), "num_layers": layers, "remat": remat or "none"}
     got = dryrun.lower_cell(arch, shape, cfg_overrides=over)
-    want = dryrun.lower_cell(arch, shape, cfg_overrides=over, extrapolate=False)
-    assert got["extrapolation"] == "per-period" and want["extrapolation"] == "exact"
+    full_cfg = dataclasses.replace(get_config(arch), **over)
+    want = dryrun._measure(full_cfg, shape)  # the step at full depth
+    assert got["extrapolation"] == "per-period"
+    want["peak_bytes"] = max(want["peak_bytes"].values())
+    want["peak_bytes_card"] = max(want["peak_bytes_card"].values())
     assert {k: got[k] for k in EXTRAPOLATED} == {k: want[k] for k in EXTRAPOLATED}
-    assert got["state_bytes"] == want["state_bytes"]
+    state, _ = dryrun._state_tree(full_cfg, shape, kv_dtype=None, param_dtype=torch.float32)
+    assert got["state_bytes"] == sum(t.numel() * t.element_size() for t in tree_leaves(state))
 
 
 def test_a_short_cell_runs_at_full_depth():
@@ -249,11 +254,10 @@ def test_train_peak_is_the_larger_phase_and_the_inputs_are_live():
     counts = dryrun._measure(cfg, ShapeSpec("t", 32, 2, "train"))
     assert set(counts["peak_bytes"]) == {"forward", "backward", "update"}
     assert min(counts["peak_bytes"].values()) >= counts["input_bytes"]
-    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"), cfg_overrides=over,
-                            extrapolate=False)
+    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"), cfg_overrides=over)
     assert rec["peak_bytes"] == max(counts["peak_bytes"].values())
     assert rec["activation_bytes"] > 0 and rec["fits_one_card"]
-    full = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"), extrapolate=False,
+    full = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"),
                              cfg_overrides={**over, "remat": "full"})
     assert full["activation_bytes"] < rec["activation_bytes"]
     assert full["flops"] > rec["flops"]  # the recompute
@@ -336,5 +340,5 @@ def test_hillclimb_cli_records_a_multi_card_variant(tmp_path):
     out = str(tmp_path / "hc")
     assert hillclimb.main(["--arch", "qwen2-72b", "--shape", "train_4k", "--variant", "sp",
                            "--out", out]) == 0
-    rec = json.load(open(os.path.join(out, "qwen2-72b__train_4k__single__sp.json")))
+    rec = json.load(open(os.path.join(out, "qwen2-72b__train_4k__sp.json")))
     assert rec["status"] == "needs_multi_card"

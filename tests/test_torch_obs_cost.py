@@ -117,10 +117,13 @@ def test_profile_script_splits_the_observers(tmp_path):
     out = tmp_path / "split.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "benchmarks", "torch_obs_profile.py"),
-                           "--n", "128", "--bs", "16", "--runs", "1", "--out", str(out)],
+                           "--device", "cpu", "--n", "128", "--bs", "16", "--runs", "1",
+                           "--out", str(out)],
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     split = json.loads(out.read_text())
     assert {"tracer", "locality", "memory", "health", "log"} <= set(split["entry_points_ms"])
     assert split["spans"] > 0 and split["counter_events"] > 0
+    assert "LocalityLedger.summary" in split["entry_points"]["locality"]
+    assert 0 < split["locality_read_ms"] <= split["entry_points_ms"]["locality"]
     assert all(v >= 0 for v in split["cprofile_ms"].values())
