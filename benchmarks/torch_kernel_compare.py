@@ -11,8 +11,11 @@ into a directory that ``.gitignore`` lists.  Both versions are built with
 and run through the same Python wrappers on the same inputs:
 
 - ``block_spmm`` on ``chip_smoke.py``'s timing case (the N = 8192 band at
-  bs 128, fp32) and ``fused_block_spmm`` on its fused timing case (that band
-  planned for 8 workers): the two versions' outputs must be bit-identical;
+  bs 128, fp32), on the same band at bs 64 and on the dropless grouped
+  GEMM at ``moe_layer``'s shape (65,536 rows routed at random to 128
+  experts, 8-row tiles of [8, 4096] @ [4096, 1536]), and ``fused_block_spmm``
+  on its fused timing case (the bs-128 band planned for 8 workers): the two
+  versions' outputs must be bit-identical;
 - ``flash_attention`` on qwen2-0.5b's layer in fp32 and bf16, and on
   ``chip_smoke.py``'s D 128 and D 256 cases in fp32: each version's output is
   held against the plain version with ``chip_smoke.py``'s limit.
@@ -156,6 +159,34 @@ def gemm_cases(ctx):
     return bsp_args, fused_args, int(tasks.num_tasks)
 
 
+def small_gemm_cases(ctx) -> dict:
+    """``block_spmm``'s small-block cases: the band at bs 64 and the grouped GEMM."""
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from repro_torch.core.spgemm import spgemm_symbolic
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=ctx.dev).manual_seed(2)
+    coords = cs.band_coords(-(-cs.FULL["time_n"] // 64), (cs.FULL["mul_hw"] + 63) // 64)
+    t = spgemm_symbolic(coords, coords)
+    X = torch.randn((coords.shape[0], 64, 64), generator=gen, device=ctx.dev)
+    band = (X, X, *ops.task_arrays(t.a_idx, t.b_idx, t.c_idx, t.num_out, ctx.dev), t.num_out)
+    sizes = np.bincount(np.random.default_rng(0).integers(0, 128, 65536), minlength=128)
+    a, b, c, _, _ = ops.grouped_gemm_tasks(sizes, 8)
+    nt = int(c.max()) + 1
+    A = torch.randn((len(a), 8, 4096), generator=gen, device=ctx.dev)
+    W = torch.randn((128, 4096, 1536), generator=gen, device=ctx.dev)
+    grouped = (A, W, *ops.task_arrays(np.arange(len(a)), b, c, nt, ctx.dev), nt)
+    return {"band_bs64_f32": (band, int(t.num_tasks)), "grouped_bm8_f32": (grouped, len(a))}
+
+
+def shape_of(case, bsp_args, small):
+    """(bm, bk, bn) of a GEMM case's operand blocks."""
+    A, B = small[case][0][:2] if case in small else bsp_args[:2]
+    return A.shape[1], A.shape[2], B.shape[2]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--old", type=Path, required=True, help="directory of the older csrc sources")
@@ -179,19 +210,25 @@ def main(argv=None) -> int:
     result = dict(card=card, old_sources=str(args.old))
 
     bsp_args, fused_args, T = gemm_cases(ctx)
-    for name, fn, case in (("block_spmm", lambda: bsp.block_spmm_cuda(*bsp_args), "band_bs128_f32"),
-                           ("fused_block_spmm", lambda: fl.fused_block_spmm_cuda(*fused_args),
-                            "band_p8_bs128_f32")):
+    small = small_gemm_cases(ctx)
+    gemms = [("block_spmm", lambda: bsp.block_spmm_cuda(*bsp_args), "band_bs128_f32", T),
+             ("fused_block_spmm", lambda: fl.fused_block_spmm_cuda(*fused_args), "band_p8_bs128_f32", T)]
+    gemms += [(f"block_spmm_{case}", lambda a=a: bsp.block_spmm_cuda(*a), case, n)
+              for case, (a, n) in small.items()]
+    for name, fn, case, T in gemms:
         versions.use("old")
         old = fn()
         versions.use("new")
         new = fn()
         torch.cuda.synchronize()
         identical = bool(torch.equal(old, new))
-        result[name] = dict(case=case, tasks=T, bit_identical_to_old=identical,
-                            max_abs_diff=float((old - new).abs().max()), **turns(ctx, versions, fn, 10),
+        result[name] = dict(case=case, tasks=T, engine=bsp.tile_engine(*shape_of(case, bsp_args, small)),
+                            bit_identical_to_old=identical,
+                            max_abs_diff=float((old - new).abs().max()),
+                            **turns(ctx, versions, fn, 3 if "grouped" in case else 10),
                             new_under_load=clocks_during(fn))
         del old, new
+    del small
 
     flash_cases = (("qwen2_0_5b_layer", (torch.float32, torch.bfloat16)),
                    ("d128_hk1", (torch.float32,)), ("d256_hk1", (torch.float32,)))
@@ -209,7 +246,7 @@ def main(argv=None) -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(line + "\n")
     print(line)
-    ok = all(result[n]["bit_identical_to_old"] for n in ("block_spmm", "fused_block_spmm"))
+    ok = all(r["bit_identical_to_old"] for r in result.values() if isinstance(r, dict) and "tasks" in r)
     return 0 if ok else 1
 
 

@@ -14,14 +14,14 @@ versions and marks every row ``smoke_only``):
   (a per-task bf16 mask within a quarter of the full bf16 bound), each
   error against its analytic ``(2u + u^2) sum ||A_t|| ||B_t||`` bound;
 * ``autotune`` — the JAX package's tile autotuner is not ported; on the card
-  this section holds the two tile engines of ``tile_gemm.cuh`` (64 x 64 and
-  128 x 128) timed on the same ``block_spmm`` task list at bs 32 / 64 / 128 /
-  256 (a copy whose data starts 4 bytes past a 16-byte boundary makes the
-  kernel take the 64 x 64 engine; the 128 x 128 one needs bs a multiple of
-  128).  ``heuristic`` / ``pre_tune_pick`` / ``post_tune_pick`` are the
-  engine the kernels' block-size rule picks at bs 128, ``winner`` the faster
-  one, and ``roundtrip_ok`` whether the rule picked the faster engine at
-  every bs timed.  The engines must agree bit for bit.
+  this section holds the three tile engines of ``tile_gemm.cuh`` (Tile64,
+  TileRows for blocks of at most 64 rows, Tile128 for multiples of 128),
+  each forced (``engine=``) where it takes the shape and timed on the same
+  ``block_spmm`` task list at bs 8 / 16 / 32 / 64 / 96 / 128 / 256.
+  ``heuristic`` / ``pre_tune_pick`` / ``post_tune_pick`` are the engine the
+  kernels' rule picks at bs 128, ``winner`` the fastest there, and
+  ``roundtrip_ok`` whether the rule picked the fastest engine at every bs
+  timed.  The engines must agree bit for bit.
 
 Times are CUDA-event means on the card (the process's wall clock on the
 CPU).  Writes ``BENCH_kernel_torch.json``.
@@ -46,9 +46,14 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fused_leaf import fused_task_runs  # noqa: E402
 from repro_torch.kernels.precision import ROUND2_BOUND, low_precision_task_mask  # noqa: E402
 
-ENGINE_BS = (32, 64, 128, 256)
-#: (tm, tn, tk) of the engines in csrc/tile_gemm.cuh
-ENGINE_TILES = {"tile64": [64, 64, 16], "tile128": [128, 128, 16]}
+ENGINE_BS = (8, 16, 32, 64, 96, 128, 256)
+
+
+def engine_tiles(engine: str, bn: int) -> list[int]:
+    """(tm, tn, tk) of an engine of csrc/tile_gemm.cuh at block width ``bn``."""
+    if engine == "tilerows":
+        return [64, 32 if bn <= 32 else 64 if bn <= 64 else 128, 16]
+    return {"tile64": [64, 64, 16], "tile128": [128, 128, 16]}[engine]
 
 
 def time_us(fn, dev, reps: int = 10) -> float:
@@ -232,43 +237,40 @@ def bench_precision_modes(dev, bs: int, T: int) -> dict:
     return out
 
 
-def _misaligned(x: torch.Tensor) -> torch.Tensor:
-    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary."""
-    moved = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
-    moved.copy_(x)
-    return moved
-
-
 def bench_engines(dev, T: int = 2048, nout: int = 256, n_blocks: int = 128,
                   bs_list=ENGINE_BS) -> list[dict]:
-    """The 64 x 64 and 128 x 128 engines on one random task list per bs
-    (on the card; the CPU has neither and times the plain version)."""
+    """Every engine that takes the shape, forced on one random task list per
+    bs (on the card; the CPU has none and times the plain version for each)."""
     rng = np.random.default_rng(5)
     gen = torch.Generator(device=dev).manual_seed(5)
     on_card = dev.type == "cuda"
-    kernel = bsp.block_spmm_cuda if on_card else bsp.block_spmm_ref
     rows = []
     for bs in bs_list:
         A = torch.randn((n_blocks, bs, bs), generator=gen, device=dev)
         B = torch.randn((n_blocks, bs, bs), generator=gen, device=dev)
         a, b, c = _random_tasks(rng, n_blocks, T, nout)
         tasks = ops.task_arrays(a, b, c, nout, dev)
-        A64, B64 = _misaligned(A), _misaligned(B)
         picked = bsp.tile_engine(bs, bs, bs, (A, B))
-        out_picked = kernel(A, B, *tasks, nout)
-        out_64 = kernel(A64, B64, *tasks, nout)
-        us_picked = time_us(lambda: kernel(A, B, *tasks, nout), dev)
-        us_64 = time_us(lambda: kernel(A64, B64, *tasks, nout), dev)
-        us = dict(tile64=us_64, tile128=us_picked if picked == "tile128" else None)
-        faster = "tile128" if us["tile128"] is not None and us["tile128"] < us_64 else "tile64"
+        us, outs = {}, {}
+        for e in bsp.ENGINES:
+            if not bsp.engine_takes(e, bs, bs, bs, (A, B)):
+                us[e] = None
+                continue
+            if on_card:
+                call = lambda e=e: bsp.block_spmm_cuda(A, B, *tasks, nout, engine=e)  # noqa: E731
+            else:
+                call = lambda: bsp.block_spmm_ref(A, B, *tasks, nout)  # noqa: E731
+            outs[e] = call()
+            us[e] = time_us(call, dev)
+        first = next(iter(outs.values()))
+        fastest = min((e for e in us if us[e] is not None), key=us.get)
         flops = 2.0 * T * bs**3
-        rows.append(dict(bs=bs, T=T, picked=picked, faster=faster,
-                         tile64_us=us_64, tile128_us=us["tile128"],
-                         tile64_tflops=flops / us_64 / 1e6,
-                         tile128_tflops=(flops / us["tile128"] / 1e6 if us["tile128"] else None),
-                         bit_identical=bool(torch.equal(out_picked, out_64)),
+        rows.append(dict(bs=bs, T=T, picked=picked, fastest=fastest, us=us,
+                         tiles={e: engine_tiles(e, bs) for e in outs},
+                         tflops={e: (flops / t / 1e6 if t else None) for e, t in us.items()},
+                         bit_identical=bool(all(torch.equal(o, first) for o in outs.values())),
                          smoke_only=not on_card))
-        del A, B, A64, B64
+        del A, B, outs
     return rows
 
 
@@ -276,16 +278,17 @@ def bench_autotune(dev, engines: list[dict]) -> dict:
     """The reference's ``autotune`` section, answered with the engine times."""
     at = next((r for r in engines if r["bs"] == 128), engines[-1])
     card = torch_bench.card_line(dev).split(",")[0]
+    tiles = lambda e: engine_tiles(e, at["bs"])  # noqa: E731
     return dict(
         bs=at["bs"],
-        heuristic=ENGINE_TILES[at["picked"]],
-        pre_tune_pick=ENGINE_TILES[at["picked"]],
-        post_tune_pick=ENGINE_TILES[at["picked"]],
-        winner=ENGINE_TILES[at["faster"]],
-        roundtrip_ok=bool(all(r["picked"] == r["faster"] for r in engines)),
+        heuristic=tiles(at["picked"]),
+        pre_tune_pick=tiles(at["picked"]),
+        post_tune_pick=tiles(at["picked"]),
+        winner=tiles(at["fastest"]),
+        roundtrip_ok=bool(all(r["picked"] == r["fastest"] for r in engines)),
         key=f"{card}|{at['bs']}x{at['bs']}x{at['bs']}|float32",
-        candidates=[dict(tiles=ENGINE_TILES[e], us=at[f"{e}_us"], error=None)
-                    for e in ("tile128", "tile64") if at[f"{e}_us"] is not None],
+        candidates=[dict(tiles=tiles(e), us=us, error=None)
+                    for e, us in at["us"].items() if us is not None],
         engines=engines,
         engines_bit_identical=bool(all(r["bit_identical"] for r in engines)),
         smoke_only=dev.type != "cuda",
@@ -310,11 +313,12 @@ def run(dev, *, bs: int, T: int, spg_n: int, spg_bs: int, row_T: int, row_nout: 
               f"bound={r['bound']:.3e}")
     engines = bench_engines(dev, T=engine_T, bs_list=engine_bs)
     for r in engines:
-        t128 = f"{r['tile128_us']:10.1f} us" if r["tile128_us"] else "         --"
-        print(f"engines bs {r['bs']:3d}: tile64 {r['tile64_us']:10.1f} us  tile128 {t128}  "
-              f"picked {r['picked']}  bit_identical={r['bit_identical']}")
+        times = "  ".join(f"{e} " + (f"{t:10.1f} us" if t is not None else "         --")
+                          for e, t in r["us"].items())
+        print(f"engines bs {r['bs']:3d}: {times}  picked {r['picked']}  fastest {r['fastest']}  "
+              f"bit_identical={r['bit_identical']}")
     at = bench_autotune(dev, engines)
-    assert at["engines_bit_identical"], "the 64 x 64 and 128 x 128 engines differ"
+    assert at["engines_bit_identical"], "the tile engines differ"
     return dict(rows=rows, fused_vs_staged=fvs, precision=prec, autotune=at)
 
 

@@ -15,14 +15,21 @@ Phases, one JSON line each:
 2. ``kernel``       — the ``block_spmm`` kernel on the card against its plain
                       PyTorch version on the same inputs (bit-identical on
                       repeat, within tolerance; its 128 x 128 engine
-                      bit-identical to the 64 x 64 one on the timing case),
+                      bit-identical to the 64 x 64 one on the timing case,
+                      and every engine that takes bs 32 and bs 24, forced
+                      with ``engine=``, bit-identical to the rule's),
                       timed with CUDA events beside the plain version and
-                      its bound.
+                      its bound; then the band at bs 64 (N = 8192) and bs
+                      32 (N = 4096) through TileRows and through Tile64:
+                      the same bits, each timed beside Tile64, the plain
+                      version and ``torch.bmm`` on pre-gathered operands.
 3. ``fused_kernel`` — the fused leaf kernel the same way, on the N = 8192 band
                       planned for 8 workers (fp32, bf16 stores, adaptive,
                       masked tasks), bs 24, no exchange rounds and empty runs;
                       fp32 fused is bit-identical to the staged path
-                      (concatenated buffers + ``block_spmm``).
+                      (concatenated buffers + ``block_spmm``); the band at
+                      bs 64 on 8 workers through TileRows == Tile64 ==
+                      the staged path, timed as the bs-64 band above.
 4. ``multiply``     — the paper's Table 1 first row (banded A, N = 100,000,
                       half-bandwidth 3000, bs 128): ``multiply(A, A)``, with 64
                       sampled output blocks held against float64 host products.
@@ -131,8 +138,11 @@ Phases, one JSON line each:
                       1e-4 * max|out| of the einsum route; each expert GEMM
                       held to the kernel's plain version and timed beside
                       ``torch.bmm`` and its bound; then the layer's 65,536
-                      dropless pairs through ``grouped_gemm_varsize`` (bm 8),
-                      held to a per-group product and timed beside its bound.
+                      dropless pairs through ``grouped_gemm_varsize`` (bm 8,
+                      TileRows packing 8 tiles), held to a per-group
+                      product, bit-identical to the same launch forced
+                      through Tile64, and timed beside Tile64, the
+                      per-group ``torch.matmul`` loop and its bound.
     ``lm_families`` — qwen3-moe-235b-a22b (2 of 94 layers), recurrentgemma-9b
                       (5 of 38: rec, rec, local, rec, rec) and mamba2-370m
                       (all 48) at full width, seeded weights, one after the
@@ -226,6 +236,7 @@ FLASH_REHEARSAL = {
 FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             sp2_n=8192, sp2_bs=128, sp2_nocc=2560,
             fused_p=8, r24_n=4800, r24_hw=600, small_n=2048,
+            small_bands=((64, 8192), (32, 4096)),
             dist_n=200_000, dist_p=4, spamm_n=8192, spamm_p=8, pipe_p=8,
             outer=dict(n=100_000, bs=128, hw=3000, block=15716, p=2,
                        small_n=8192, small_hw=1000, small_p=8),
@@ -239,6 +250,7 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
+                 small_bands=((64, 512), (32, 256)),
                  dist_n=4096, dist_p=4, spamm_n=1024, spamm_p=8, pipe_p=8,
                  outer=dict(n=4096, bs=32, hw=120, block=640, p=2,
                             small_n=1024, small_hw=120, small_p=8),
@@ -354,6 +366,21 @@ def block_tolerance(a_data, b_data, a_idx, b_idx, run_ptr):
     return REL * (csum[run_ptr[1:]] - csum[run_ptr[:-1]])
 
 
+def gemm_engine(ctx, module, engine):
+    """A GEMM kernel forced through one tile engine (``engine=``); in the
+    rehearsal, where no kernel runs, its plain version."""
+    if ctx.rehearse:
+        return module.block_spmm_ref if hasattr(module, "block_spmm_ref") else module.fused_block_spmm_ref
+    cuda = module.block_spmm_cuda if hasattr(module, "block_spmm_cuda") else module.fused_block_spmm_cuda
+    return lambda *a, **k: cuda(*a, **k, engine=engine)
+
+
+def valid_engines(bm, bk, bn, tensors):
+    from repro_torch.kernels import block_spmm as bsp
+
+    return [e for e in bsp.ENGINES if bsp.engine_takes(e, bm, bk, bn, tensors)]
+
+
 def phase_build(ctx) -> dict:
     if ctx.rehearse:
         out = dict(phase="build", skipped="rehearsal: no nvcc, plain versions only")
@@ -459,18 +486,22 @@ def phase_kernel(ctx, sizes) -> dict:
         check(identical, f"{name}: kernel output differs between two launches")
         check(ok, f"{name}: kernel disagrees with the plain version beyond tolerance")
         check(empty_rows_zero, f"{name}: rows without tasks are not zero")
+        if name in ("runs_bs32_f32", "runs_bs24_f32"):  # every engine that takes it, forced
+            engines = valid_engines(A.shape[1], A.shape[2], B.shape[2], (A, B))
+            same = {e: bool(torch.equal(gemm_engine(ctx, bsp, e)(*args), got)) for e in engines}
+            row.update(engines=engines, engines_bit_identical=all(same.values()),
+                       rule_engine=bsp.tile_engine(A.shape[1], A.shape[2], B.shape[2], (A, B)))
+            check(row["engines_bit_identical"], f"{name}: the engines differ: {same}")
         results.append(row)
+
+    small = [small_band_case(ctx, bs, n, sizes["mul_hw"], gen) for bs, n in sizes["small_bands"]]
 
     name, A, B, a, b, c, num_out = timing
     args = (A, B, *ops.task_arrays(a, b, c, num_out, ctx.dev), num_out)
     # the 128 x 128 engine against the 64 x 64 one on the timing case: one
-    # fmaf chain per element in both, so the same bits (a copy whose data
-    # starts 4 bytes past a 16-byte boundary makes the kernel take the 64 one)
-    moved = torch.empty(A.numel() + 1, device=ctx.dev)[1:].view(A.shape)
-    moved.copy_(A)
-    engines_identical = bool(torch.equal(kernel(*args), kernel(moved, moved, *args[2:])))
+    # fmaf chain per element in both, so the same bits (engine= forces one)
+    engines_identical = bool(torch.equal(kernel(*args), gemm_engine(ctx, bsp, "tile64")(*args)))
     check(engines_identical, f"{name}: the 128 x 128 and 64 x 64 engines differ")
-    del moved
     ms = ctx.time_ms(lambda: kernel(*args), reps=10)
     plain_ms = ctx.time_ms(lambda: bsp.block_spmm_ref(*args), reps=3)
     lhs, rhs = A[args[2]], B[args[3]]
@@ -484,9 +515,64 @@ def phase_kernel(ctx, sizes) -> dict:
                       bmm_yardstick_ms=bmm_ms,
                       bmm_yardstick="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
                       **bound)
-    out = dict(phase="kernel", cases=results, timing=timing_row)
+    out = dict(phase="kernel", cases=results, timing=timing_row, small_blocks=small)
     emit(out)
     return out
+
+
+def small_band_case(ctx, bs: int, n: int, hw: int, gen) -> dict:
+    """The paper's band (half-bandwidth ``hw`` elements) at a small leaf,
+    through the rule's engine (TileRows) and forced through Tile64: the same
+    bits, repeat-identical, within the plain version's limit; timed beside
+    Tile64, the plain version and ``torch.bmm`` on pre-gathered operands.
+    Cut to ``n`` so that the plain version's ``[T, bs, bs]`` gathers fit."""
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.core.spgemm import spgemm_symbolic
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import ops
+
+    kernel = bsp.block_spmm_ref if ctx.rehearse else bsp.block_spmm_cuda
+    tile64 = gemm_engine(ctx, bsp, "tile64")
+    coords = band_coords(-(-n // bs), (hw + bs - 1) // bs)
+    tasks = spgemm_symbolic(coords, coords)
+    A = torch.randn((coords.shape[0], bs, bs), generator=gen, device=ctx.dev)
+    num_out = tasks.num_out
+    args = (A, A, *ops.task_arrays(tasks.a_idx, tasks.b_idx, tasks.c_idx, num_out, ctx.dev), num_out)
+    name = f"band_bs{bs}_n{n}_f32"
+    got, again, old = kernel(*args), kernel(*args), tile64(*args)
+    ctx.sync()
+    identical, same = bool(torch.equal(got, again)), bool(torch.equal(got, old))
+    del again, old
+    want = bsp.block_spmm_ref(*args)
+    err = (got - want).abs().flatten(1).amax(dim=1).double()
+    tol = block_tolerance(A, A, args[2], args[3], args[4])
+    row = dict(case=name, bs=bs, n=n, tasks=int(tasks.a_idx.size), num_out=num_out,
+               engine=bsp.tile_engine(bs, bs, bs, (A,)), pack=bsp.rows_pack(bs, bs),
+               max_abs_err=float(err.max()),
+               max_err_over_tol=float((err / tol.clamp_min(1e-300)).max()),
+               bit_identical_on_repeat=identical, bit_identical_to_tile64=same)
+    del want, got, err
+    check(identical, f"{name}: kernel output differs between two launches")
+    check(same, f"{name}: TileRows and Tile64 differ")
+    check(row["max_err_over_tol"] <= 1.0, f"{name}: kernel disagrees with the plain version")
+    row["ms"] = ctx.time_ms(lambda: kernel(*args), reps=5)
+    row["tile64_ms"] = ctx.time_ms(lambda: tile64(*args), reps=3)
+    row["plain_ms"] = ctx.time_ms(lambda: bsp.block_spmm_ref(*args), reps=2)
+    lhs, rhs = A[args[2]], A[args[3]]
+    row["bmm_yardstick_ms"] = ctx.time_ms(lambda: torch.bmm(lhs, rhs), reps=5)
+    del lhs, rhs
+    T = row["tasks"]
+    row.update(gemm_bound(T, bs, bs, bs, np.unique(tasks.a_idx).size, np.unique(tasks.b_idx).size,
+                          num_out, 4),
+               tflops=2.0 * T * bs**3 / (row["ms"] * 1e-3) / 1e12,
+               speedup_over_tile64=row["tile64_ms"] / row["ms"])
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    del A, args
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
 
 
 def phase_multiply(ctx, sizes) -> dict:
@@ -761,6 +847,10 @@ def phase_fused_kernel(ctx, sizes) -> dict:
     on = torch.from_numpy(on_np).to(ctx.dev)
     plan24, data24 = band_plan(sizes["r24_n"], sizes["r24_hw"], 24, 4)
     plan1, data1 = band_plan(sizes["small_n"], sizes["mul_hw"], mbs, 1)
+    t0 = time.perf_counter()
+    plan64, data64 = band_plan(sizes["time_n"], sizes["mul_hw"], 64, P)
+    plan64_s = time.perf_counter() - t0
+    f64 = plan_args(plan64, data64)
 
     # runs with empty rows (3, 17 and the last) on 3 workers, random operands
     def empty_runs_case():
@@ -783,6 +873,7 @@ def phase_fused_kernel(ctx, sizes) -> dict:
         ("band_p4_bs24_f32", plan_args(plan24, data24), {}),
         (f"band_p1_bs{mbs}_no_rounds", plan_args(plan1, data1), {}),
         (f"random_p3_bs{mbs}_empty_runs", empty_runs_case(), {}),
+        (f"band_p{P}_bs64_f32", f64, {}),
     ]
     results, outs = [], {}
     for name, args, kw in cases:
@@ -843,7 +934,9 @@ def phase_fused_kernel(ctx, sizes) -> dict:
     check(fused_eq_staged, "fp32 fused kernel is not bit-identical to the staged path")
     check(masked_eq_staged, "masked fused kernel is not bit-identical to the staged path without the off tasks")
     check(all_on_eq, "masked fused kernel with every task on differs from the unmasked kernel")
-    del staged, staged_masked, all_on, outs
+    small = fused_small_block_case(ctx, plan64, f64, outs[f"band_p{P}_bs64_f32"], mesh, staged_impl)
+    small["plan_s"] = plan64_s
+    del staged, staged_masked, all_on, outs, f64
 
     # timing: the fp32 case, the plain version, and torch.bmm on pre-gathered operands
     ms = ctx.time_ms(lambda: kernel(*f32), reps=10)
@@ -863,9 +956,49 @@ def phase_fused_kernel(ctx, sizes) -> dict:
                tasks_per_worker_max=int(tpw.max()), masked_share=float(1 - on_np.sum() / valid.sum()),
                low_share=float(low.cpu().numpy()[valid].mean()), cases=results,
                fused_eq_staged=fused_eq_staged, masked_eq_staged=masked_eq_staged,
-               masked_all_on_eq_unmasked=all_on_eq, timing=timing)
+               masked_all_on_eq_unmasked=all_on_eq, timing=timing, small_block=small)
     emit(out)
     return out
+
+
+def fused_small_block_case(ctx, plan, args, got, mesh, staged_impl) -> dict:
+    """The fused kernel at bs 64 (the N = 8192 band planned for the fused
+    phase's workers): the rule's engine (TileRows) == Tile64 forced == the
+    staged path (concatenated buffers + ``block_spmm``), bit for bit; timed
+    beside Tile64, the plain version and ``torch.bmm`` on pre-gathered operands."""
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.core.distributed import SpgemmExecutable
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import fused_leaf as fl
+
+    kernel = fl.fused_block_spmm_ref if ctx.rehearse else fl.fused_block_spmm_cuda
+    tile64 = gemm_engine(ctx, fl, "tile64")
+    bs = args[0].shape[2]
+    name = f"band_p{args[0].shape[0]}_bs{bs}_f32"
+    old = tile64(*args)
+    staged = SpgemmExecutable(plan, mesh, impl=staged_impl)(args[0], args[2])
+    ctx.sync()
+    same, eq_staged = bool(torch.equal(got, old)), bool(torch.equal(got, staged))
+    del old, staged
+    check(same, f"{name}: fused TileRows and Tile64 differ")
+    check(eq_staged, f"{name}: fused kernel is not bit-identical to the staged path")
+    row = dict(case=name, bs=bs, engine=bsp.tile_engine(bs, bs, bs, args[:4]), pack=bsp.rows_pack(bs, bs),
+               bit_identical_to_tile64=same, fused_eq_staged=eq_staged)
+    row["ms"] = ctx.time_ms(lambda: kernel(*args), reps=5)
+    row["tile64_ms"] = ctx.time_ms(lambda: tile64(*args), reps=3)
+    row["plain_ms"] = ctx.time_ms(lambda: fl.fused_block_spmm_ref(*args), reps=2)
+    valid = np.arange(plan.t_cap)[None] < plan.task_count[:, None]
+    p_idx, t_idx = torch.nonzero(torch.from_numpy(valid).to(ctx.dev), as_tuple=True)
+    lhs = fl._gather(args[0], args[1], p_idx, args[4][p_idx, t_idx], args[5][p_idx, t_idx])
+    rhs = fl._gather(args[2], args[3], p_idx, args[6][p_idx, t_idx], args[7][p_idx, t_idx])
+    row["bmm_yardstick_ms"] = ctx.time_ms(lambda: torch.bmm(lhs, rhs), reps=5)
+    del lhs, rhs
+    row.update(fused_bound(args))
+    row.update(tflops=2.0 * row["tasks"] * bs**3 / (row["ms"] * 1e-3) / 1e12,
+               speedup_over_tile64=row["tile64_ms"] / row["ms"], bound_share=row["bound_ms"] / row["ms"])
+    return row
 
 
 def dense_on_device(m, dtype):
@@ -2700,6 +2833,12 @@ def phase_moe_layer(ctx, sizes) -> dict:
             check(g_excess <= 1.0, f"moe_layer: grouped GEMM off its plain version by {g_excess} of the limit")
             g_tasks = ops.task_arrays(np.arange(len(b_idx)), b_idx, c_idx, nt, ctx.dev)
             g_ms = ctx.time_ms(lambda: kernel(a_data, b_data, *g_tasks, nt), reps=3)
+            # the same launch forced through Tile64, the engine before TileRows: the same bits
+            tile64 = gemm_engine(ctx, bsp, "tile64")
+            g_same = bool(torch.equal(kernel(a_data, b_data, *g_tasks, nt),
+                                      tile64(a_data, b_data, *g_tasks, nt)))
+            check(g_same, "moe_layer: the grouped GEMM's TileRows and Tile64 launches differ")
+            g_tile64_ms = ctx.time_ms(lambda: tile64(a_data, b_data, *g_tasks, nt), reps=2)
             g_call_ms = ctx.time_ms(lambda: ops.grouped_gemm_varsize(tokens, group_sizes, p["w1"]), reps=3)
             loop_ms = ctx.time_ms(lambda: grouped_gemm_plain(tokens, group_sizes, p["w1"]), reps=3)
             # the work this run's rows need: T * K real rows, x read and out written once
@@ -2708,6 +2847,11 @@ def phase_moe_layer(ctx, sizes) -> dict:
             t_ops, t_bytes = ops_ / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
             tiles = int(nt)
             boundary = int(len(b_idx) - np.unique(np.asarray(c_idx)).size)
+            # TileRows' steps on this task list (the kernel's rule, on the host)
+            pack = bsp.rows_pack(8, F)
+            steps = bsp.packed_steps(bsp.task_runs(np.asarray(c_idx), tiles), np.asarray(b_idx), pack)
+            n_groups = -(-tiles // pack)
+            multi = int((np.bincount([g for g, _ in steps], minlength=n_groups) > 1).sum())
     finally:
         ops.block_spmm = block_spmm
     out = dict(phase="moe_layer", arch=cfg.name, d_model=D, experts=E, d_ff=F, top_k=K,
@@ -2717,8 +2861,12 @@ def phase_moe_layer(ctx, sizes) -> dict:
                bit_identical_on_repeat=identical, gemms=rows,
                grouped=dict(rows=T * K, groups=E, empty_groups=int((group_sizes == 0).sum()),
                             tile_m=8, tiles=tiles, tasks=len(b_idx), extra_boundary_tasks=boundary,
-                            engine=bsp.tile_engine(8, D, F, (a_data, b_data)),
+                            engine=bsp.tile_engine(8, D, F, (a_data, b_data)), pack=pack,
+                            packed_tiles=n_groups, packed_steps=len(steps), multi_step_tiles=multi,
+                            live_step_row_share=len(b_idx) / (len(steps) * pack),
                             launches=grouped_launches, bit_identical_on_repeat=g_identical,
+                            bit_identical_to_tile64=g_same, tile64_kernel_ms=g_tile64_ms,
+                            speedup_over_tile64=g_tile64_ms / g_ms,
                             max_abs_err=g_err, err_over_limit=g_excess, kernel_ms=g_ms,
                             call_ms=g_call_ms, per_group_matmul_ms=loop_ms,
                             per_group_matmul=f"{E} torch.matmul calls, yardstick only",
@@ -2981,8 +3129,21 @@ def main(argv=None) -> int:
                                     bound_by=g["bound_by"], max_abs_err=g["max_abs_err"])
                                for g in moe_layer["gemms"]],
              grouped_gemm_varsize={k: moe_layer["grouped"][k] for k in (
-                 "tasks", "launches", "kernel_ms", "call_ms", "per_group_matmul_ms", "bound_ms",
-                 "bound_by", "max_abs_err")}),
+                 "tasks", "launches", "engine", "kernel_ms", "tile64_kernel_ms", "call_ms",
+                 "per_group_matmul_ms", "bound_ms", "bound_by", "max_abs_err")},
+             small_blocks=[dict(case=r["case"], engine=r["engine"], ms=r["ms"],
+                                tile64_ms=r["tile64_ms"], plain_ms=r["plain_ms"],
+                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                library_ms=r["bmm_yardstick_ms"], max_abs_err=r["max_abs_err"])
+                           for r in kern["small_blocks"]]
+             + [dict(case="grouped_gemm_varsize", engine=moe_layer["grouped"]["engine"],
+                     ms=moe_layer["grouped"]["kernel_ms"],
+                     tile64_ms=moe_layer["grouped"]["tile64_kernel_ms"], plain_ms=None,
+                     plain="not timed: block_spmm_ref would gather 209 GB of expert weights",
+                     bound_ms=moe_layer["grouped"]["bound_ms"],
+                     bound_by=moe_layer["grouped"]["bound_by"],
+                     library_ms=moe_layer["grouped"]["per_group_matmul_ms"],
+                     max_abs_err=moe_layer["grouped"]["max_abs_err"])]),
         dict(name="fused_block_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
              replaces="src/repro/kernels/fused_leaf.py:71",
@@ -2990,7 +3151,10 @@ def main(argv=None) -> int:
                        + dpipe["launches"] + dobs["launches"] + seqs["launches"]),
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
-             bound_by=ftiming["bound_by"], library_ms=None),
+             bound_by=ftiming["bound_by"], library_ms=None,
+             small_blocks=[{k: fused["small_block"][k] for k in (
+                 "case", "engine", "ms", "tile64_ms", "plain_ms", "bound_ms", "bound_by")}
+                 | dict(library_ms=fused["small_block"]["bmm_yardstick_ms"])]),
         flash_row("float32"),
         flash_row("bfloat16"),
     ]})

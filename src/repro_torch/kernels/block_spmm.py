@@ -24,9 +24,14 @@ import torch
 from .build import load_library
 
 __all__ = [
+    "ENGINES",
     "block_spmm_cuda",
     "block_spmm_ref",
+    "engine_id",
+    "engine_takes",
     "launches",
+    "packed_steps",
+    "rows_pack",
     "segment_sum_sorted",
     "task_runs",
     "tile_engine",
@@ -38,20 +43,95 @@ launches = 0
 _C_FUNCTIONS = {torch.float32: "block_spmm_f32", torch.bfloat16: "block_spmm_bf16"}
 
 
-def tile_engine(bm: int, bk: int, bn: int, tensors=()) -> str:
-    """The tile engine the GEMM kernels launch for a block shape: ``"tile128"`` or ``"tile64"``.
+#: the GEMM kernels' tile engines (``csrc/tile_gemm.cuh``), by their ids there
+ENGINES = {"tile64": 1, "tilerows": 2, "tile128": 3}
+#: TileRows takes blocks of at most this many rows (``tile_gemm::TILEROWS_MAX_BM``)
+TILEROWS_MAX_BM = 64
+#: the row step a TileRows block's rows round up to
+TILEROWS_RSTEP = 8
 
-    The host mirror of ``tile_gemm::use_tile128`` (``csrc/tile_gemm.cuh``),
-    which ``block_spmm.cu`` and ``fused_block_spmm.cu`` both apply: the 128 x
-    128 engine needs ``bm`` and ``bn`` multiples of 128, ``bk`` a multiple of
-    8 and every operand stack (``tensors``, the kernel's operand tensors)
-    16-byte aligned; anything else takes the 64 x 64 engine.
+
+def engine_takes(engine: str, bm: int, bk: int, bn: int, tensors=()) -> bool:
+    """Whether ``engine`` takes the block shape: the host mirror of
+    ``tile_gemm::engine_takes``.  Tile64 takes any shape, TileRows ``bm <=
+    64``, Tile128 ``bm`` and ``bn`` multiples of 128, ``bk`` a multiple of 8
+    and every operand stack (``tensors``) 16-byte aligned."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} not in {tuple(ENGINES)}")
+    if bm <= 0 or bn <= 0 or bk <= 0:
+        return False
+    if engine == "tile64":
+        return True
+    if engine == "tilerows":
+        return bm <= TILEROWS_MAX_BM
+    return not (bm % 128 or bn % 128 or bk % 8) and not any(t.data_ptr() % 16 for t in tensors)
+
+
+def tile_engine(bm: int, bk: int, bn: int, tensors=()) -> str:
+    """The tile engine the GEMM kernels launch for a block shape:
+    ``"tile128"``, ``"tilerows"`` or ``"tile64"``.
+
+    The host mirror of ``tile_gemm::pick_engine`` (``csrc/tile_gemm.cuh``),
+    which ``block_spmm.cu`` and ``fused_block_spmm.cu`` both apply: Tile128
+    where it takes the shape (:func:`engine_takes`; ``tensors`` are the
+    kernel's operand stacks), else TileRows for blocks of at most 64 rows,
+    else Tile64.
     """
-    if bm <= 0 or bn <= 0 or bk <= 0 or bm % 128 or bn % 128 or bk % 8:
-        return "tile64"
-    if any(t.data_ptr() % 16 for t in tensors):
-        return "tile64"
-    return "tile128"
+    if engine_takes("tile128", bm, bk, bn, tensors):
+        return "tile128"
+    return "tilerows" if engine_takes("tilerows", bm, bk, bn) else "tile64"
+
+
+def engine_id(engine: str | None, bm: int, bk: int, bn: int, tensors=()) -> int:
+    """The C entry points' engine argument: 0 (the rule) for ``None``, else
+    the id of ``engine``, which must take the shape (``ValueError``)."""
+    if engine is None:
+        return 0
+    if not engine_takes(engine, bm, bk, bn, tensors):
+        raise ValueError(f"engine {engine!r} does not take blocks {bm} x {bk} @ {bk} x {bn}"
+                         + (" at these alignments" if engine == "tile128" else ""))
+    return ENGINES[engine]
+
+
+def rows_pack(bm: int, bn: int) -> int:
+    """Output blocks one TileRows tile packs: its rows (64, or 128 with the
+    8 x 8 register tile it takes for ``bn`` above 64) over ``bm`` rounded up
+    to a multiple of 8."""
+    return (128 if bn > 64 else 64) // (-(-bm // TILEROWS_RSTEP) * TILEROWS_RSTEP)
+
+
+def packed_steps(run_ptr, key, pack: int, on=None) -> list[tuple[int, list[tuple[int, int]]]]:
+    """TileRows' walk of packed runs, in host numpy: the kernel's step rule.
+
+    ``run_ptr`` holds the CSR runs of ``num_out`` output blocks (one
+    worker's), ``key[t]`` names task t's B operand (rows of a 2-D ``key``
+    compare whole; the fused kernel's key is ``(src, off, low)``), ``on[t]``
+    whether task t runs.  Output blocks ``g * pack .. g * pack + pack - 1``
+    share a tile.  Each step of a tile takes the head task of its
+    lowest-numbered block with tasks left, and the head of every other block
+    whose key equals that one's.  Returns ``(group, [(block, task), ...])``
+    per step, tile by tile, in the kernel's order.
+    """
+    rp = np.asarray(run_ptr, dtype=np.int64)
+    key = np.asarray(key)
+    key = key.reshape(key.shape[0], -1)
+    live = np.ones(key.shape[0], bool) if on is None else np.asarray(on, bool)
+    num_out = rp.size - 1
+    steps = []
+    for g in range(-(-num_out // pack)):
+        blocks = range(g * pack, min(g * pack + pack, num_out))
+        runs = {c: np.arange(rp[c], rp[c + 1])[live[rp[c]:rp[c + 1]]] for c in blocks}
+        pos = dict.fromkeys(blocks, 0)
+        while True:
+            heads = [(c, int(runs[c][pos[c]])) for c in blocks if pos[c] < runs[c].size]
+            if not heads:
+                break
+            lead = key[heads[0][1]]
+            step = [(c, t) for c, t in heads if np.array_equal(key[t], lead)]
+            for c, _ in step:
+                pos[c] += 1
+            steps.append((g, step))
+    return steps
 
 
 def task_runs(c_idx: np.ndarray, num_out: int) -> np.ndarray:
@@ -108,6 +188,7 @@ def _kernel_function(dtype: torch.dtype):
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -127,12 +208,18 @@ def block_spmm_cuda(
     b_idx: torch.Tensor,
     run_ptr: torch.Tensor,
     num_out: int,
+    *,
+    engine: str | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel; same arguments and result as :func:`block_spmm_ref`.
 
     Runs on PyTorch's current stream and does not synchronise.  Raises on
     what the kernel does not take: a tensor off the card, another dtype, a
     non-contiguous stack, a mismatched shape, or a launch the driver refuses.
+    ``engine`` (internal: tests and benchmarks hold the engines against each
+    other with it) forces a tile engine of :data:`ENGINES`, and raises
+    ``ValueError`` on one that does not take the shape; ``None`` is the
+    kernels' rule (:func:`tile_engine`).
     """
     global launches
     dev = a_data.device
@@ -150,6 +237,7 @@ def block_spmm_cuda(
     if a_idx.shape != b_idx.shape or run_ptr.numel() != num_out + 1 or num_out >= 2**31:
         raise ValueError("task arrays do not match num_out")
     bm, bk, bn = a_data.shape[1], a_data.shape[2], b_data.shape[2]
+    eid = engine_id(engine, bm, bk, bn, (a_data, b_data))
     out = torch.empty((num_out, bm, bn), dtype=torch.float32, device=dev)
     if num_out == 0:
         return out
@@ -158,7 +246,7 @@ def block_spmm_cuda(
     with torch.cuda.device(dev):
         rc = fn(
             a_data.data_ptr(), b_data.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(),
-            run_ptr.data_ptr(), out.data_ptr(), num_out, bm, bk, bn, stream,
+            run_ptr.data_ptr(), out.data_ptr(), num_out, bm, bk, bn, stream, eid,
         )
     if rc != 0:
         raise RuntimeError(f"block_spmm kernel launch failed: {_error_string(rc)} ({rc})")

@@ -1,20 +1,22 @@
 // The tile engines shared by the port's grouped block GEMM kernels.
 //
-// One thread block owns one tile of one fp32 output block.  It walks that
-// output block's tasks in ascending order (a Cursor hands it each task's A
-// and B block and its `low` flag), streams each task's operands through
-// shared memory TK = 16 columns of A (rows of B) at a time, and every thread
-// accumulates a register tile with one fmaf per product.  The sum of each
-// output element is therefore one fp32 fmaf chain from 0, over the tasks in
-// ascending order and within a task over k in ascending order (a ragged k
-// edge pads to a multiple of 16 with zeros).  The chain depends neither on
-// the tile shape nor on the engine, so every kernel that runs its tasks
-// through these engines gives bit-identical results for the same tasks in
-// the same order (block_spmm.cu, fused_block_spmm.cu), whichever engine the
-// block size selects.  With `low` (the adaptive precision mode) each operand
-// element is rounded to bf16 before its products.
+// A thread block owns a tile of fp32 output blocks.  It walks the tasks of
+// each output block in ascending order, streams each task's operands
+// through shared memory TK = 16 columns of A (rows of B) at a time, and
+// every thread accumulates a register tile with one fmaf per product.  The
+// sum of each output element is therefore one fp32 fmaf chain from 0, over
+// its output block's tasks in ascending order and within a task over k in
+// ascending order (a ragged k edge pads to a multiple of 16 with zeros).
+// The chain depends neither on the tile shape nor on the engine, so every
+// kernel that runs its tasks through these engines gives bit-identical
+// results for the same tasks in the same order (block_spmm.cu,
+// fused_block_spmm.cu), whichever engine runs.  With `low` (the adaptive
+// precision mode) each operand element is rounded to bf16 before its
+// products.
 //
-// Two engines, picked by one rule (use_tile128) in both kernels:
+// Three engines, picked by one rule (pick_engine) in both kernels; the
+// kernels' C entry points take an engine id that forces one, and refuse one
+// that cannot take the shape (engine_takes):
 //
 // - Tile128, for blocks whose bm and bn are multiples of 128 (the main
 //   path's bs 128 leaf is one tile): 256 threads each hold an 8 x 8 register
@@ -37,13 +39,47 @@
 //   with scalar stores for that).  What still holds it back: the bank
 //   conflicts that remain (the register allocator places the accumulators),
 //   and one block per tile walking a whole run however long.
-// - Tile64, for every other shape (bs 8-96, ragged 130 or 70, unaligned
-//   rows): 64 x 64 tiles, 256 threads with a 4 x 4 register tile, staged
-//   synchronously through shared memory with masked scalar loads that
-//   convert and round as they stage.  Any block size works.
+// - TileRows, for every other block of at most 64 rows (bs 8-64, the
+//   dropless grouped GEMM's 8-row tiles, ragged or unaligned shapes).  A
+//   tile of TM rows packs R = TM / bmp consecutive output blocks, bmp being
+//   bm rounded up to a multiple of 8, by TN = 32, 64 or 128 columns (the
+//   least that holds bn; more tiles past 128).  2 * TN threads each hold
+//   four rows by 8 columns (TM 64) or, at TN 128, eight rows by 8 columns
+//   (TM 128), the 8 columns as two quads TN / 2 apart; a warp covers 32
+//   rows, and the A tile's 16-byte chunks are swizzled so that its reads
+//   meet no bank conflict.  So R is 8 at bm 8 (16 at bn above 64), 2 at bs
+//   24 and 32, 1 at bs 64, and no FFMA runs on a row past bmp.  The tile
+//   walks its blocks' runs in steps, and each step names one B operand (the
+//   same stack row, and in the fused kernel the same `low` flag): the head
+//   task of the lowest-numbered block with tasks left, joined by every
+//   block whose head task names the same B.  The others sit the step out
+//   and their rows issue no FFMA.  The B panel is staged once per step for
+//   every block in it, so the grouped GEMM's 16 tiles of one expert read
+//   its weight once, not 16 times.  A step takes run heads only, so each
+//   block keeps its own task order.  The operands arrive as in Tile128:
+//   16-byte cp.async in a ring of three stages that runs across steps, one
+//   barrier per stage; only the producer walks the runs (every thread
+//   computes the same steps from the same task arrays and cursors in shared
+//   memory, which thread 0 advances), and a flag beside each stage says
+//   which blocks take part and whether to round.  A ragged bk or bn (not
+//   whole 16-byte chunks) or a stack off a 16-byte boundary takes the same
+//   ring with masked scalar loads.  The column tiles of one group are
+//   neighbours in the 1-D grid, so its A rows come from device memory once.
+//   Bound on an H100 SXM: 2 * bm * bn * bk FFMA operations per task at 67
+//   TFLOP/s, the bytes of each distinct operand block at 3.35 TB/s.  What
+//   still holds it back: a grouped-GEMM tile that straddles an expert
+//   boundary takes two full-depth steps with part of its rows idle in each
+//   (chip_smoke.py's moe_layer phase counts the steps and the live share of
+//   their rows).  The Morton band pairs the blocks of one block row, which share
+//   A and never B, so at bs 32 every step runs one of the tile's two warps.
+//   At bs 64 (R 1, 4 x 8 registers) a stage is 512 FFMA a thread against
+//   Tile128's 1,024, so the barrier and the copies weigh twice as much.
+// - Tile64, for the shapes neither takes (bm above 64 that is not a
+//   multiple of 128, such as 96 or 130, or a 128 multiple off a 16-byte
+//   boundary): 64 x 64 tiles, 256 threads with a 4 x 4 register tile,
+//   staged synchronously through shared memory with masked scalar loads
+//   that convert and round as they stage.  Any block size works.
 //
-// Offsets into the block stacks are 64-bit.
-
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,8 +88,8 @@
 
 namespace tile_gemm {
 
-constexpr int THREADS = 256;  // both engines
-constexpr int TK = 16;        // contraction depth per stage, both engines (fixes the zero padding)
+constexpr int THREADS = 256;  // Tile64 and Tile128 (TileRows: 2 * TN)
+constexpr int TK = 16;        // contraction depth per stage, every engine (fixes the zero padding)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -63,20 +99,46 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The engine for a block shape: the same rule in every kernel, so the
-// kernels agree on it.  Tile128 needs whole 128 x 128 tiles, rows of whole
-// 16-byte chunks and 16-byte aligned stacks.
-inline bool use_tile128(int bm, int bk, int bn, const void* const* ptrs, int nptrs) {
-  if (bm <= 0 || bn <= 0 || bk <= 0 || bm % 128 || bn % 128 || bk % 8) return false;
+inline bool aligned16(const void* const* ptrs, int nptrs) {
   for (int i = 0; i < nptrs; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
   return true;
 }
 
+// Tile128 needs whole 128 x 128 tiles, rows of whole 16-byte chunks and
+// 16-byte aligned stacks.
+inline bool use_tile128(int bm, int bk, int bn, const void* const* ptrs, int nptrs) {
+  if (bm <= 0 || bn <= 0 || bk <= 0 || bm % 128 || bn % 128 || bk % 8) return false;
+  return aligned16(ptrs, nptrs);
+}
+
+// Engine ids of the kernels' C entry points: 0 asks for the rule.
+enum Engine : int { ENGINE_RULE = 0, ENGINE_TILE64 = 1, ENGINE_TILEROWS = 2, ENGINE_TILE128 = 3 };
+constexpr int TILEROWS_MAX_BM = 64;
+
+inline bool engine_takes(int engine, int bm, int bk, int bn, const void* const* ptrs, int nptrs) {
+  if (bm <= 0 || bn <= 0 || bk <= 0) return false;
+  switch (engine) {
+    case ENGINE_TILE64: return true;
+    case ENGINE_TILEROWS: return bm <= TILEROWS_MAX_BM;
+    case ENGINE_TILE128: return use_tile128(bm, bk, bn, ptrs, nptrs);
+    default: return false;
+  }
+}
+
+// The engine for a block shape: the same rule in every kernel, so the
+// kernels agree on it; a forced engine must take the shape (else -1).
+inline int pick_engine(int engine, int bm, int bk, int bn, const void* const* ptrs, int nptrs) {
+  if (engine != ENGINE_RULE) return engine_takes(engine, bm, bk, bn, ptrs, nptrs) ? engine : -1;
+  if (use_tile128(bm, bk, bn, ptrs, nptrs)) return ENGINE_TILE128;
+  if (bm > 0 && bm <= TILEROWS_MAX_BM) return ENGINE_TILEROWS;
+  return ENGINE_TILE64;
+}
+
 // ---------------------------------------------------------------- Tile64
 
 struct Tile64 {
-  static constexpr int TM = 64, TN = 64, RM = 4, RN = 4, MIN_BLOCKS = 1;
+  static constexpr int TM = 64, TN = 64, RM = 4, RN = 4, MIN_BLOCKS = 1, THREADS = tile_gemm::THREADS;
   static constexpr int APAD = 4;  // keeps the transposed A tile's rows 16-byte aligned
 
   struct Smem {
@@ -217,7 +279,7 @@ __device__ __forceinline__ void maybe_round(float4& v) {
 }
 
 struct Tile128 {
-  static constexpr int TM = 128, TN = 128, STAGES = 3;
+  static constexpr int TM = 128, TN = 128, STAGES = 3, THREADS = tile_gemm::THREADS;
   static constexpr int MIN_BLOCKS = 2;  // two blocks an SM: at most 128 registers a thread
 
   // A rows, k contiguous (row-major, as stored), each row padded by 16
@@ -348,6 +410,278 @@ struct Tile128 {
       for (int j = 0; j < 4; ++j) {
         dst[j] = acc[i][j];
         dst[64 + j] = acc[i][4 + j];
+      }
+    }
+  }
+};
+
+// -------------------------------------------------------------- TileRows
+
+template <typename T>
+__device__ __forceinline__ T zero_elem();
+template <>
+__device__ __forceinline__ float zero_elem<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_elem<__nv_bfloat16>() { return __ushort_as_bfloat16(0); }
+
+// One 16-byte chunk of E = 16 / sizeof(T) elements into shared memory, of
+// which the first `n` (0 <= n <= E) come from `src` and the rest are zeros.
+// VEC: by cp.async, n is 0 or E and `src` 16-byte aligned; otherwise by
+// masked scalar loads (a ragged edge, an unaligned stack).
+template <bool VEC, typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* src, const T* any, int n) {
+  constexpr int E = 16 / sizeof(T);
+  if (VEC) {
+    cp_async16(dst, n > 0 ? src : any, n > 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) dst[i] = i < n ? src[i] : zero_elem<T>();
+  }
+}
+
+// The packed walk's view of one kernel's task lists (PackedRuns in
+// block_spmm.cu, FusedPackedRuns in fused_block_spmm.cu): for the output
+// blocks r < nblk of the tile, begin(r) / end(r) bound the run, skip()
+// moves a cursor past the tasks that are off, a(t) / b(t) are task t's
+// operand blocks and low(t) its rounding flag, out(r) the output block.
+
+template <int TN_, int RM_>
+struct TileRows {
+  static constexpr int TN = TN_, RM = RM_;   // RM rows by 8 columns a thread
+  static constexpr int TM = 16 * RM, THREADS = 2 * TN, STAGES = 3;
+  static constexpr int RSTEP = 8;            // a block's rows round up to a multiple of this
+  static constexpr int RMAX = TM / RSTEP;    // output blocks a tile packs at most
+  static constexpr int CG = TN / 8;          // column groups: 8 columns a thread
+  static constexpr int WXT = RM, WY = 32 / RM;  // a warp: WY thread rows by WXT thread columns
+  static constexpr int WX = CG / WXT;        // warps across the columns
+  static constexpr int KA = 16 / RM;         // k a thread reads of an A row at once
+  static constexpr int MIN_BLOCKS = 512 / THREADS;  // at most 128 registers a thread
+  static_assert((RM == 4 || RM == 8) && THREADS / CG * RM == TM && CG % WXT == 0,
+                "RM rows a thread, a warp of 32 rows");
+
+  template <typename T>
+  struct Stage {
+    __align__(16) T As[TM][TK + 16 / sizeof(T)];  // rows of the packed blocks, k contiguous, swizzled
+    __align__(16) T Bs[TK][TN];
+  };
+  // The ring; one flag per stage (0 past the last step, else 1 | low << 1 |
+  // (the blocks in the step) << 2); two copies of the run cursors.
+  struct Walk {
+    int64_t t[2][RMAX];
+    int left[2][RMAX];
+    int flags[STAGES];
+  };
+  template <typename T>
+  static constexpr size_t smem_bytes() { return STAGES * sizeof(Stage<T>) + sizeof(Walk); }
+
+  // a block's rows in the tile, and the number of blocks the tile packs
+  __host__ __device__ static constexpr int rows(int bm) { return (bm + RSTEP - 1) / RSTEP * RSTEP; }
+  __host__ __device__ static constexpr int pack(int bm) { return TM / rows(bm); }
+  __host__ __device__ static int64_t groups(int64_t num_out, int bm) {
+    return (num_out + pack(bm) - 1) / pack(bm);
+  }
+  __host__ __device__ static int tiles_n(int bn) { return (bn + TN - 1) / TN; }
+  // The 1-D grid's block b: the group of packed output blocks and the column
+  // tile.  The column tiles of a group are neighbours, so the group's A rows
+  // are read from device memory once and from L2 by the other tiles.
+  __device__ static void tile_of(int64_t b, int bn, int64_t& group, int& ntile) {
+    group = b / tiles_n(bn);
+    ntile = static_cast<int>(b % tiles_n(bn));
+  }
+
+  // The 16-byte chunk c of an A row lies at chunk c ^ swz(row): a warp reads
+  // one chunk of the rows RM ty + i of its WY ty at once, which the swizzle
+  // and the 16-byte row padding spread over distinct bank groups.
+  template <typename T>
+  __device__ __forceinline__ static int swz(int row) { return (row >> 3) & (TK * sizeof(T) / 16 - 1); }
+
+  // KA consecutive stored elements of an A row as fp32 (rounded with LOW)
+  template <typename T, bool LOW>
+  __device__ __forceinline__ static void load_a(const T* p, float (&a)[KA]) {
+    if constexpr (KA == 4) {
+      float4 v = load4(p);
+      maybe_round<LOW>(v);
+      a[0] = v.x, a[1] = v.y, a[2] = v.z, a[3] = v.w;
+    } else {
+      float2 v = load2(p);
+      maybe_round<LOW>(v);
+      a[0] = v.x, a[1] = v.y;
+    }
+  }
+
+  // acc[i][j] += A[row RM ty + i, k] * B[k, col j] over the stage's 16 k,
+  // ascending; columns 4 tx + j and TN / 2 + 4 tx + j - 4.  A is read KA k
+  // at a time, B one k at a time.
+  template <typename T, bool LOW>
+  __device__ __forceinline__ static void compute(const Stage<T>& st, float (&acc)[RM][8], int ty,
+                                                 int tx) {
+    constexpr int E = 16 / sizeof(T);
+#pragma unroll
+    for (int kq = 0; kq < TK; kq += KA) {
+      float a[RM][KA];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int row = ty * RM + i;
+        load_a<T, LOW>(&st.As[row][((kq / E) ^ swz<T>(row)) * E + kq % E], a[i]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KA; ++kk) {
+        float4 b0 = load4(&st.Bs[kq + kk][tx * 4]);
+        float4 b1 = load4(&st.Bs[kq + kk][TN / 2 + tx * 4]);
+        maybe_round<LOW>(b0);
+        maybe_round<LOW>(b1);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  // Walk the runs of the tile's nblk packed output blocks in steps through
+  // the stage ring and write each block's rows of the TN columns at n0.
+  template <typename T, bool VEC, typename Runs>
+  __device__ __forceinline__ static void run(const Runs& runs, int nblk, int bm, int bk, int bn,
+                                             int n0, unsigned char* smem) {
+    constexpr int E = 16 / sizeof(T);   // elements per chunk
+    constexpr int A_ROW = TK / E;       // chunks per A row
+    constexpr int B_ROW = TN / E;       // chunks per B row
+    constexpr int NA = (TM * A_ROW + THREADS - 1) / THREADS;  // A chunks a thread
+    constexpr int NB = TK * B_ROW / THREADS;                  // B chunks a thread
+    static_assert(TK * B_ROW % THREADS == 0, "whole B chunks per thread");
+    Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
+    Walk& w = *reinterpret_cast<Walk*>(smem + STAGES * sizeof(Stage<T>));
+    const int tid = threadIdx.x;
+    const int bmp = rows(bm);
+    const int ksteps = (bk + TK - 1) / TK;
+
+    // the run cursors: every thread reads copy `par` for a step, thread 0
+    // writes the next step's cursors into the other copy (a barrier lies
+    // between a step and the next, so no copy is written while it is read)
+    if (tid < nblk) {
+      int64_t t = runs.begin(tid);
+      int left = static_cast<int>(runs.end(tid) - t);
+      runs.skip(t, left);
+      w.t[0][tid] = t;
+      w.left[0][tid] = left;
+    }
+    __syncthreads();
+    int par = 0;
+
+    // the producer's step: B, its flag, the blocks in it, this thread's A chunks
+    const T* pB = nullptr;
+    const T* pA[NA];
+    bool plow = false, pmore = true;
+    unsigned pmask = 0;
+    int pk = ksteps;
+    auto next_step = [&]() -> bool {
+      const int64_t* t = w.t[par];
+      const int* left = w.left[par];
+      int lead = 0;
+      while (lead < nblk && left[lead] == 0) ++lead;
+      if (lead == nblk) return false;
+      pB = runs.b(t[lead]);
+      plow = runs.low(t[lead]);
+      unsigned mask = 1u << lead;
+      for (int r = lead + 1; r < nblk; ++r)
+        if (left[r] > 0 && runs.b(t[r]) == pB && runs.low(t[r]) == plow) mask |= 1u << r;
+#pragma unroll
+      for (int q = 0; q < NA; ++q) {
+        const int row = (tid + q * THREADS) / A_ROW;
+        const int blk = row / bmp;
+        pA[q] = blk < nblk && (mask >> blk & 1u)
+                    ? runs.a(t[blk]) + static_cast<int64_t>(row - blk * bmp) * bk
+                    : nullptr;
+      }
+      if (tid == 0)
+        for (int r = 0; r < nblk; ++r) {
+          int64_t tn = t[r];
+          int ln = left[r];
+          if (mask >> r & 1u) {
+            ++tn;
+            --ln;
+            runs.skip(tn, ln);
+          }
+          w.t[par ^ 1][r] = tn;
+          w.left[par ^ 1][r] = ln;
+        }
+      par ^= 1;
+      pmask = mask;
+      return true;
+    };
+
+    // one stage: the step's A rows of the blocks in it (zeros past bm and
+    // past bk) and B[k0:k0+16, n0:n0+TN] (zeros past bk and bn)
+    auto load = [&](Stage<T>& st, int k0) {
+#pragma unroll
+      for (int q = 0; q < NA; ++q) {
+        const int c = tid + q * THREADS;
+        if (c >= TM * A_ROW || pA[q] == nullptr) continue;  // a block outside the step
+        const int row = c / A_ROW, kc = (c % A_ROW) * E;
+        const int n = row % bmp < bm ? min(max(bk - (k0 + kc), 0), E) : 0;
+        stage_chunk<VEC>(&st.As[row][((c % A_ROW) ^ swz<T>(row)) * E], pA[q] + k0 + kc, pB, n);
+      }
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        const int c = tid + q * THREADS;
+        const int row = c / B_ROW, nc = (c % B_ROW) * E;
+        const int n = k0 + row < bk ? min(max(bn - (n0 + nc), 0), E) : 0;
+        stage_chunk<VEC>(&st.Bs[row][nc], pB + static_cast<int64_t>(k0 + row) * bn + n0 + nc, pB, n);
+      }
+    };
+
+    auto produce = [&](int stage) {
+      if (pmore && pk == ksteps) {
+        pmore = next_step();
+        pk = 0;
+      }
+      if (pmore) load(ring[stage], pk++ * TK);
+      if (tid == 0) w.flags[stage] = pmore ? (1 | (plow ? 2 : 0) | static_cast<int>(pmask << 2)) : 0;
+      cp_async_commit();  // an empty group past the end keeps the count uniform
+    };
+
+    // a warp holds WY x WXT threads: 32 rows by WXT 4-column quads twice
+    const int warp = tid / 32, lane = tid % 32;
+    const int ty = (warp / WX) * WY + lane / WXT, tx = (warp % WX) * WXT + lane % WXT;
+    const int myblk = ty * RM / bmp;  // the block of this thread's RM rows
+    float acc[RM][8];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      produce(s);
+      __syncthreads();  // the cursors a prologue step wrote, before the next reads them
+    }
+    for (int stage = 0;; stage = (stage + 1) % STAGES) {
+      cp_async_wait<STAGES - 2>();  // this step's stage has landed (own copies) ...
+      __syncthreads();              // ... everyone's, with its flag; the previous stage is read
+      const int flag = w.flags[stage];
+      if (flag == 0) break;
+      produce((stage + STAGES - 1) % STAGES);
+      if (flag >> (2 + myblk) & 1) {
+        if (flag & 2)
+          compute<T, true>(ring[stage], acc, ty, tx);
+        else
+          compute<T, false>(ring[stage], acc, ty, tx);
+      }
+    }
+    cp_async_wait<0>();
+
+    if (myblk >= nblk) return;
+    float* Cb = runs.out(myblk);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int rin = ty * RM + i - myblk * bmp;
+      if (rin >= bm) continue;
+      float* dst = Cb + static_cast<int64_t>(rin) * bn;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + (j < 4 ? tx * 4 + j : TN / 2 + tx * 4 + j - 4);
+        if (col < bn) dst[col] = acc[i][j];
       }
     }
   }

@@ -38,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .block_spmm import segment_sum_sorted
+from .block_spmm import engine_id, segment_sum_sorted
 from .build import load_library
 
 __all__ = [
@@ -166,7 +166,7 @@ def _kernel_function(dtype: torch.dtype):
     fn = getattr(load_library(_LIBRARY), _C_FUNCTIONS[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -193,12 +193,15 @@ def fused_block_spmm_cuda(
     on: torch.Tensor | None = None,
     low: torch.Tensor | None = None,
     adaptive: bool = False,
+    engine: str | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel; same arguments and result as :func:`fused_block_spmm_ref`.
 
     Runs on PyTorch's current stream and does not synchronise.  Raises on
     what the kernel does not take: a tensor off the card, another dtype, a
     non-contiguous tensor, mismatched shapes, or a launch the driver refuses.
+    ``engine`` (internal, for tests and benchmarks) forces a tile engine as
+    in :func:`repro_torch.kernels.block_spmm.block_spmm_cuda`.
     """
     global launches
     dev = a_store.device
@@ -230,6 +233,7 @@ def fused_block_spmm_cuda(
     if (any(t.shape != (P, T) for t in (a_src, a_off, b_src, b_off) + flags)
             or run_ptr.shape != (P, num_out + 1)):
         raise ValueError("task arrays do not match the stores, each other or num_out")
+    eid = engine_id(engine, bm, bk, bn, blocks)
     out = torch.empty((P, num_out, bm, bn), dtype=torch.float32, device=dev)
     if P == 0 or num_out == 0:
         return out
@@ -242,7 +246,7 @@ def fused_block_spmm_cuda(
             a_src.data_ptr(), a_off.data_ptr(), b_src.data_ptr(), b_off.data_ptr(),
             run_ptr.data_ptr(), ptr(on), ptr(low if adaptive else None), out.data_ptr(),
             P, num_out, T, capa, a_recv.shape[1], a_recv.shape[2],
-            capb, b_recv.shape[1], b_recv.shape[2], bm, bk, bn, stream,
+            capb, b_recv.shape[1], b_recv.shape[2], bm, bk, bn, stream, eid,
         )
     if rc != 0:
         raise RuntimeError(f"fused_block_spmm kernel launch failed: {_error_string(rc)} ({rc})")

@@ -55,8 +55,9 @@ def _check(A, B, a, b, c, nc):
     return got
 
 
-# 96 and 130 take the 64 x 64 engine, 128, 256 and (128, 256, 128) the
-# 128 x 128 one (256: four tiles a block), 192 the 64 one on nine tiles
+# blocks of at most 64 rows take TileRows (10: masked scalar loads), 96, 130
+# and 192 (nine tiles) the 64 x 64 engine, 128, 256 and (128, 256, 128) the
+# 128 x 128 one (256: four tiles a block)
 @pytest.mark.parametrize("bm,bk,bn", [(8, 8, 8), (10, 10, 10), (16, 16, 16), (24, 24, 24),
                                       (16, 32, 8), (64, 16, 32), (128, 128, 128),
                                       (130, 70, 66), (128, 256, 128), (96, 96, 96),
@@ -196,7 +197,8 @@ def test_fused_kernel_bit_identical_to_staged_kernel_and_masked_all_on(cuda):
 
 def _misaligned(x):
     """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
-    boundary: the kernels then take the 64 x 64 engine at any block size."""
+    boundary: the kernels then take the 64 x 64 engine at bm above 64, and
+    TileRows' masked scalar loads at bm 64 or less."""
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
     out = flat.view(x.shape)
     out.copy_(x)
@@ -325,12 +327,13 @@ def test_cuda_memory_stats_reads_the_allocator(cuda):
 
 @pytest.mark.parametrize("bm,bk,bn,offset", [(64, 64, 64, 0), (96, 96, 96, 0), (128, 128, 128, 0),
                                              (130, 130, 130, 0), (128, 256, 128, 0),
-                                             (256, 256, 256, 0), (128, 128, 128, 1)])
+                                             (256, 256, 256, 0), (128, 128, 128, 1),
+                                             (8, 256, 384, 0), (24, 24, 24, 1), (32, 10, 32, 0)])
 def test_tile_engine_mirror_matches_the_kernel(cuda, bm, bk, bn, offset):
-    """The host mirror of ``tile_gemm::use_tile128`` names the engine the
+    """The host mirror of ``tile_gemm::pick_engine`` names the engine the
     kernel launched, read from the kernel's name in a ``torch.profiler``
-    trace (``Tile128`` / ``Tile64`` template arguments); ``offset`` shifts A
-    by one float so its stack is no longer 16-byte aligned."""
+    trace (``Tile128`` / ``TileRows`` / ``Tile64`` template arguments);
+    ``offset`` shifts A by one float so its stack is no longer 16-byte aligned."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(10)
@@ -343,9 +346,142 @@ def test_tile_engine_mirror_matches_the_kernel(cuda, bm, bk, bn, offset):
         bsp.block_spmm_cuda(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "block_spmm" in e.name]
-    launched = {"tile128" if "Tile128" in nm else "tile64" for nm in names
-                if "Tile128" in nm or "Tile64" in nm}
+    tags = {"Tile128": "tile128", "TileRows": "tilerows", "Tile64": "tile64"}
+    launched = {e for tag, e in tags.items() for nm in names if tag in nm}
     assert launched == {bsp.tile_engine(bm, bk, bn, (A, B))}, names
+
+
+def _valid_engines(bm, bk, bn, tensors):
+    return [e for e in bsp.ENGINES if bsp.engine_takes(e, bm, bk, bn, tensors)]
+
+
+def _engines_agree(A, B, a, b, c, nc):
+    """Every engine that takes the shape, forced on the same inputs: the
+    same bits, each within the plain version's limit and equal on repeat."""
+    args = (A, B, *ops.task_arrays(a, b, c, nc, A.device), nc)
+    engines = _valid_engines(A.shape[1], A.shape[2], B.shape[2], (A, B))
+    outs = {}
+    for e in engines:
+        outs[e] = bsp.block_spmm_cuda(*args, engine=e)
+        assert torch.equal(outs[e], bsp.block_spmm_cuda(*args, engine=e)), e
+    got = _check(A, B, a, b, c, nc)  # the rule's engine, against the plain version
+    for e, out in outs.items():
+        assert torch.equal(out, got), (e, float((out - got).abs().max()))
+    return engines, got
+
+
+@pytest.mark.parametrize("bs", [16, 24, 32, 48, 64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engines_agree_bit_for_bit_on_small_blocks(cuda, bs, dtype):
+    """TileRows (bm <= 64) and Tile64 forced on the same tasks give the same
+    bits at every small block size, aligned, off a 16-byte boundary, with a
+    ragged bk and bn, and at bn 200; empty runs are zeros in every engine."""
+    rng = np.random.default_rng(bs)
+    A = torch.randn(30, bs, bs, device=cuda).to(dtype)
+    B = torch.randn(30, bs, bs, device=cuda).to(dtype)
+    a, b, c = _tasks(rng, 30, 30, 37, 300, empty=(0, 5, 17, 36))
+    engines, got = _engines_agree(A, B, a, b, c, 37)
+    assert ("tilerows" in engines) == (bs <= 64) and "tile64" in engines
+    assert not got[[0, 5, 17, 36]].any()
+    _engines_agree(_misaligned(A), _misaligned(B), a, b, c, 37)
+    ragged = torch.randn(30, bs, 10, device=cuda).to(dtype), torch.randn(30, 10, bs + 3, device=cuda).to(dtype)
+    _engines_agree(*ragged, a, b, c, 37)
+    # bn above 64: TileRows' 128-row tile with 8 x 8 registers a thread, two column tiles
+    wide = torch.randn(30, bs, 48, device=cuda).to(dtype), torch.randn(30, 48, 200, device=cuda).to(dtype)
+    _engines_agree(*wide, a, b, c, 37)
+    _engines_agree(_misaligned(wide[0]), wide[1], a, b, c, 37)
+
+
+def test_engines_agree_on_the_grouped_gemm_tasks(cuda):
+    """The dropless grouped GEMM's 8-row tiles: tiles that span groups (one
+    task per group), empty groups, a tile past 8 packed blocks; TileRows ==
+    Tile64 bit for bit and within the plain version's limit."""
+    sizes = [3, 2, 11, 0, 30, 0, 0, 45, 1, 70]
+    a, b, c, lo, hi = ops.grouped_gemm_tasks(sizes, 8)
+    assert len(b) > c.max() + 1  # boundary tiles
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    K, N = 96, 160
+    x = torch.randn((sum(sizes) + (-sum(sizes)) % 8, K), generator=gen, device=cuda)
+    rows = torch.arange(8, device=cuda)
+    sel = (rows[None] >= torch.from_numpy(lo).to(cuda)[:, None]) & (rows[None] < torch.from_numpy(hi).to(cuda)[:, None])
+    A = (x.view(-1, 8, K)[torch.from_numpy(a).to(cuda)] * sel[:, :, None]).contiguous()
+    W = torch.randn((len(sizes), K, N), generator=gen, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        engines, _ = _engines_agree(A.to(dtype), W.to(dtype), np.arange(len(a)), b, c, int(c.max()) + 1)
+        assert engines == ["tile64", "tilerows"]
+
+
+@pytest.mark.parametrize("bs", [8, 24, 32, 64])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "adaptive", "masked"])
+def test_fused_engines_agree_bit_for_bit(cuda, bs, mode):
+    """The fused kernel through every engine that takes the shape, on the
+    same inputs: the same bits, repeat-identical, within the plain version's
+    limit; the masked path with every task on equals the unmasked one."""
+    rng = np.random.default_rng(bs * 11)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    args = _fused_problem(cuda, rng, 3, 60, bs, bs, bs, dtype, num_out=19, empty=(2, 8, 9, 18))
+    kw = {}
+    if mode == "adaptive":
+        kw = dict(low=torch.from_numpy(rng.random((3, 62)) < 0.5).to(cuda), adaptive=True)
+    if mode == "masked":
+        on = rng.random((3, 62)) < 0.7
+        on[:, 1:4] = [False, True, False]
+        kw = dict(on=torch.from_numpy(on).to(cuda))
+    engines = _valid_engines(bs, bs, bs, args[:4])
+    outs = [fl.fused_block_spmm_cuda(*args, **kw, engine=e) for e in engines]
+    again = fl.fused_block_spmm_cuda(*args, **kw)
+    want = fl.fused_block_spmm_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert engines == ["tile64", "tilerows"]
+    for e, out in zip(engines, outs, strict=True):
+        assert torch.equal(out, again), e
+    err = (again - want).abs().flatten(2).amax(dim=2).double()
+    assert (err <= _fused_tolerance(args, kw.get("on"))).all()
+    assert not again[:, [2, 8, 9, 18]].any()
+    if mode == "fp32":
+        all_on = torch.ones(args[4].shape, dtype=torch.bool, device=cuda)
+        assert torch.equal(fl.fused_block_spmm_cuda(*args, on=all_on), again)
+
+
+def test_fused_equals_staged_at_bs_64_through_every_engine(cuda):
+    rng = np.random.default_rng(64)
+    args = _fused_problem(cuda, rng, 4, 80, 64, 64, 64, torch.float32)
+    a_all, b_all, a, b, c, nc = _staged_operands(args)
+    staged = ops.block_spmm(a_all, b_all, a, b, c, nc, impl="kernel")
+    for e in ("tile64", "tilerows"):
+        fused = fl.fused_block_spmm_cuda(*args, engine=e)
+        assert torch.equal(fused.reshape(staged.shape), staged), e
+        tasks = ops.task_arrays(a, b, c, nc, cuda)
+        assert torch.equal(bsp.block_spmm_cuda(a_all, b_all, *tasks, nc, engine=e), staged), e
+
+
+def test_empty_runs_write_zeros_in_every_engine(cuda):
+    """A tile whose packed blocks have no task at all, and a kernel with no
+    task: zeros (the output is allocated with torch.empty)."""
+    for bs in (8, 32, 64, 128):
+        A = torch.randn(4, bs, bs, device=cuda)
+        c = np.array([0, 0, 19])  # blocks 1 .. 18 empty: whole TileRows tiles
+        args = (A, A, *ops.task_arrays(np.array([0, 1, 2]), np.array([3, 2, 1]), c, 20, cuda), 20)
+        for e in _valid_engines(bs, bs, bs, (A,)):
+            out = bsp.block_spmm_cuda(*args, engine=e)
+            assert not out[1:19].any() and out[0].any() and out[19].any(), (bs, e)
+        none = ops.task_arrays(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.int64), 9, cuda)
+        for e in _valid_engines(bs, bs, bs, (A,)):
+            assert not bsp.block_spmm_cuda(A, A, *none, 9, engine=e).any()
+
+
+def test_forced_engine_that_does_not_take_the_shape_raises(cuda):
+    A = torch.randn(2, 96, 96, device=cuda)
+    args = ops.task_arrays(np.array([0]), np.array([1]), np.array([0]), 1, cuda)
+    before = bsp.launches
+    with pytest.raises(ValueError, match="tilerows"):
+        bsp.block_spmm_cuda(A, A, *args, 1, engine="tilerows")
+    with pytest.raises(ValueError, match="tile128"):
+        bsp.block_spmm_cuda(A[:, :64, :64].contiguous(), A[:, :64, :64].contiguous(), *args, 1,
+                            engine="tile128")
+    with pytest.raises(ValueError):
+        bsp.block_spmm_cuda(A, A, *args, 1, engine="tile32")
+    assert bsp.launches == before
 
 
 def _sp2_problem(n, nocc, seed):
@@ -567,7 +703,7 @@ def test_lm_forward_and_generate_go_through_the_flash_kernel(cuda):
 
 @pytest.mark.parametrize("capacity_factor", [1.25, 4.0])
 def test_moe_block_spmm_route_matches_the_cpu_and_repeats(cuda, capacity_factor):
-    """Ce = 40 (the 64 x 64 engine) and 128 (the 128 x 128 one): three kernel
+    """Ce = 40 (TileRows) and 128 (the 128 x 128 engine): three kernel
     launches a call, bit-identical on repeat, within 1e-4 * max|out| of the
     CPU's plain route on the same inputs."""
     from repro_torch.models import moe
@@ -659,13 +795,16 @@ def test_kernel_micro_rows_match_the_plain_versions(cuda):
     assert prec["within_bounds"]
 
 
-@pytest.mark.parametrize("bs", [32, 64, 128, 256])
+@pytest.mark.parametrize("bs", [8, 32, 64, 96, 128, 256])
 def test_kernel_micro_engines_agree_bit_for_bit(cuda, bs):
     km = _kernel_micro()
     (row,) = km.bench_engines(cuda, T=256, nout=64, n_blocks=32, bs_list=(bs,))
     assert row["bit_identical"], row
-    assert row["picked"] == ("tile128" if bs % 128 == 0 else "tile64")
-    assert (row["tile128_us"] is None) == (bs % 128 != 0)
+    assert row["picked"] == ("tile128" if bs % 128 == 0 else "tilerows" if bs <= 64 else "tile64")
+    timed = {e for e, us in row["us"].items() if us is not None}
+    assert timed == {"tile64"} | ({"tile128"} if bs % 128 == 0 else set()) | (
+        {"tilerows"} if bs <= 64 else set())
+    assert row["fastest"] in timed
 
 
 # --- the training path on the card -------------------------------------------

@@ -347,7 +347,7 @@ def test_observatory_on_is_bit_identical_and_rows_share_one_schema(traced_runs):
     assert {"sp2_purify", "sp2_iteration", "dist_spamm", "plan_build", "plan_verify",
             "dispatch"} <= names
     dispatch = [sp for sp in tr.spans if sp.name == "dispatch" and "tasks" in sp.args]
-    assert dispatch and all(sp.args["engine"] == "tile64" for sp in dispatch)  # bs 8
+    assert dispatch and all(sp.args["engine"] == "tilerows" for sp in dispatch)  # bs 8
     s = traced_runs["lld"].summary()
     assert s["dispatches"] > 0
     assert s["local_bytes"] + s["shipped_bytes"] == s["referenced_bytes"]
