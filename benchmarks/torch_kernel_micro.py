@@ -13,15 +13,21 @@ versions and marks every row ``smoke_only``):
 * ``precision`` — the fused kernel in fp32, on bf16 stores, and adaptive
   (a per-task bf16 mask within a quarter of the full bf16 bound), each
   error against its analytic ``(2u + u^2) sum ||A_t|| ||B_t||`` bound;
-* ``autotune`` — the JAX package's tile autotuner is not ported; on the card
-  this section holds the three tile engines of ``tile_gemm.cuh`` (Tile64,
-  TileRows for blocks of at most 64 rows, Tile128 for multiples of 128),
-  each forced (``engine=``) where it takes the shape and timed on the same
-  ``block_spmm`` task list at bs 8 / 16 / 32 / 64 / 96 / 128 / 256.
-  ``heuristic`` / ``pre_tune_pick`` / ``post_tune_pick`` are the engine the
-  kernels' rule picks at bs 128, ``winner`` the fastest there, and
-  ``roundtrip_ok`` whether the rule picked the fastest engine at every bs
-  timed.  The engines must agree bit for bit.
+* ``autotune`` — the reference's round trip through the port's tile
+  autotuner (``repro_torch.kernels.autotune``), at bs 128 and bs 8, into a
+  temporary cache: the pick before tuning, ``autotune_tiles`` over
+  ``candidate_tiles`` (its default bench: 2,048 random tasks on 256
+  outputs, on the card), ``clear_memo``, the pick after tuning.
+  ``roundtrip_ok`` means what the reference's means: the pick after tuning
+  equals the winner, at both shapes; the top-level keys are bs 128's,
+  ``shapes`` holds both.  Tiles are ``[engine, pack]``.  Beside it, the
+  three tile engines of ``tile_gemm.cuh`` (Tile64, TileRows for blocks of
+  at most 64 rows, Tile128 for multiples of 128), each forced (``engine=``)
+  where it takes the shape and timed on one ``block_spmm`` task list at bs
+  8 / 16 / 32 / 64 / 96 / 128 / 256; ``rule_picks_fastest`` says whether
+  the kernels' fixed rule picked the fastest engine at every bs timed.  The
+  engines must agree bit for bit.  On the CPU the round trip times the
+  plain version for every candidate (the machinery only, ``smoke_only``).
 
 Times are CUDA-event means on the card (the process's wall clock on the
 CPU).  Writes ``BENCH_kernel_torch.json``.
@@ -31,6 +37,8 @@ Run:  python benchmarks/torch_kernel_micro.py [--device cpu] [--smoke | --card]
 
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -41,12 +49,14 @@ import torch  # noqa: E402
 from repro_torch.core import BSMatrix, multiply  # noqa: E402
 from repro_torch.core.quadtree import morton_sort  # noqa: E402
 from repro_torch.core.spgemm import spgemm_symbolic  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels import block_spmm as bsp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fused_leaf import fused_task_runs  # noqa: E402
 from repro_torch.kernels.precision import ROUND2_BOUND, low_precision_task_mask  # noqa: E402
 
 ENGINE_BS = (8, 16, 32, 64, 96, 128, 256)
+AUTOTUNE_BS = (128, 8)  # the round trip's shapes; the first is the top-level row
 
 
 def engine_tiles(engine: str, bn: int) -> list[int]:
@@ -274,24 +284,52 @@ def bench_engines(dev, T: int = 2048, nout: int = 256, n_blocks: int = 128,
     return rows
 
 
-def bench_autotune(dev, engines: list[dict]) -> dict:
-    """The reference's ``autotune`` section, answered with the engine times."""
-    at = next((r for r in engines if r["bs"] == 128), engines[-1])
-    card = torch_bench.card_line(dev).split(",")[0]
-    tiles = lambda e: engine_tiles(e, at["bs"])  # noqa: E731
+def _plain_bench(dev, bs: int, T: int, nout: int = 8, n_blocks: int = 8):
+    """A bench for the CPU: every candidate runs the plain version (no kernel
+    to tune there; it exercises the round trip's machinery only)."""
+    rng = np.random.default_rng(bs)
+    A = torch.randn((n_blocks, bs, bs), device=dev)
+    tasks = ops.task_arrays(*_random_tasks(rng, n_blocks, T, nout), nout, dev)
+    return lambda engine, pack: lambda: bsp.block_spmm_ref(A, A, *tasks, nout)
+
+
+def bench_autotune(dev, engines: list[dict], T: int = 2048) -> dict:
+    """The reference's round trip, at each of :data:`AUTOTUNE_BS` into one
+    temporary cache: pick, tune over ``candidate_tiles``, drop the memo,
+    pick again; ``roundtrip_ok`` is true when every pick after tuning equals
+    its winner.  On the card the tuner's default bench times the kernels; on
+    the CPU a plain-version bench of ``T`` tasks stands in."""
+    on_card = dev.type == "cuda"
+    platform = autotune.device_platform(dev)
+    shapes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        for bs in AUTOTUNE_BS:
+            autotune.clear_memo()
+            miss = autotune.pick_tiles(bs, bs, bs, "float32", platform=platform, path=path)
+            best, rows = autotune.autotune_tiles(
+                bs, bs, bs, "float32", bench=None if on_card else _plain_bench(dev, bs, T),
+                platform=platform, path=path, persist=True)
+            autotune.clear_memo()
+            hit = autotune.pick_tiles(bs, bs, bs, "float32", platform=platform, path=path)
+            shapes.append(dict(
+                bs=bs, heuristic=list(autotune.heuristic_tiles(bs, bs, bs)),
+                pre_tune_pick=list(miss), winner=list(best), post_tune_pick=list(hit),
+                roundtrip_ok=bool(tuple(hit) == tuple(best)),
+                key=autotune.tile_key(platform, bs, bs, bs, "float32"),
+                candidates=[dict(tiles=list(r["tiles"]), us=r["us"], error=r.get("error"))
+                            for r in rows]))
+    autotune.clear_memo()
+    top = shapes[0]
     return dict(
-        bs=at["bs"],
-        heuristic=tiles(at["picked"]),
-        pre_tune_pick=tiles(at["picked"]),
-        post_tune_pick=tiles(at["picked"]),
-        winner=tiles(at["fastest"]),
-        roundtrip_ok=bool(all(r["picked"] == r["fastest"] for r in engines)),
-        key=f"{card}|{at['bs']}x{at['bs']}x{at['bs']}|float32",
-        candidates=[dict(tiles=tiles(e), us=us, error=None)
-                    for e, us in at["us"].items() if us is not None],
+        {k: top[k] for k in ("bs", "heuristic", "pre_tune_pick", "post_tune_pick", "winner",
+                             "key", "candidates")},
+        roundtrip_ok=bool(all(r["roundtrip_ok"] for r in shapes)),
+        shapes=shapes,
+        rule_picks_fastest=bool(all(r["picked"] == r["fastest"] for r in engines)),
         engines=engines,
         engines_bit_identical=bool(all(r["bit_identical"] for r in engines)),
-        smoke_only=dev.type != "cuda",
+        smoke_only=not on_card,
     )
 
 
@@ -317,7 +355,14 @@ def run(dev, *, bs: int, T: int, spg_n: int, spg_bs: int, row_T: int, row_nout: 
                           for e, t in r["us"].items())
         print(f"engines bs {r['bs']:3d}: {times}  picked {r['picked']}  fastest {r['fastest']}  "
               f"bit_identical={r['bit_identical']}")
-    at = bench_autotune(dev, engines)
+    at = bench_autotune(dev, engines, T=engine_T)
+    for r in at["shapes"]:
+        times = "  ".join(f"{c['tiles'][0]}/{c['tiles'][1]} "
+                          + (f"{c['us']:.1f} us" if c["us"] is not None else "refused")
+                          for c in r["candidates"])
+        print(f"autotune bs {r['bs']:3d}: {times}  winner {r['winner']}  rule {r['heuristic']}  "
+              f"pick before {r['pre_tune_pick']} after {r['post_tune_pick']}  "
+              f"roundtrip_ok={r['roundtrip_ok']}")
     assert at["engines_bit_identical"], "the tile engines differ"
     return dict(rows=rows, fused_vs_staged=fvs, precision=prec, autotune=at)
 

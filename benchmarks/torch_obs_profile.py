@@ -21,7 +21,10 @@ per-dispatch part (listed apart as ``locality_read_ms``).  The pipeline's
 plan cache is warm and one observed run fills the observers' per-plan
 caches first, as the overhead gate's rounds find them.
 ``IterationScope`` and ``timed_into`` run with the observers off as well
-and are listed apart.  ``--src`` imports ``repro_torch`` from another copy
+and are listed apart.  Before the split, ``runs`` warm runs with every
+observer off are timed (wall, which ends with the card's synchronisation,
+and main-thread CPU): the bare pipeline that two trees are compared on.
+``--src`` imports ``repro_torch`` from another copy
 of the package (an older tree unpacked with ``git archive``), so two trees
 are split by the same script.  The host code is the card's, so the split
 holds on the CPU; the wall clock of a shared CPU is noisy, so compare
@@ -174,6 +177,18 @@ def main(argv=None) -> int:
     print(f"repro_torch from {os.path.dirname(repro_torch.__file__)}; n={args.n} bs={args.bs} "
           f"nnzb(S)={s.nnzb} runs={args.runs} (card: {torch_bench.card_line(dev)})")
 
+    bare_wall, bare_cpu = [], []
+    for _ in range(args.runs):
+        gc.collect()
+        gc.disable()
+        w0, c0 = time.perf_counter(), time.thread_time()
+        run(False)
+        bare_wall.append(time.perf_counter() - w0)
+        bare_cpu.append(time.thread_time() - c0)
+        gc.enable()
+    print(f"bare run: wall {sorted(round(t * 1e3, 1) for t in bare_wall)} ms, main-thread CPU "
+          f"{sorted(round(t * 1e3, 1) for t in bare_cpu)} ms")
+
     prof = cProfile.Profile()
     for _ in range(args.runs):
         prof.enable()
@@ -199,6 +214,8 @@ def main(argv=None) -> int:
     payload = dict(
         meta=dict(n=args.n, bs=args.bs, runs=args.runs, device=str(dev),
                   card=torch_bench.card_line(dev), src=os.path.dirname(repro_torch.__file__)),
+        bare_wall_ms=sorted(t * 1e3 for t in bare_wall),
+        bare_main_cpu_ms=sorted(t * 1e3 for t in bare_cpu),
         observed_main_cpu_ms=sorted(t * 1e3 for t in main_cpu),
         spans=len(tr.spans), instants=len(tr.instants), counter_events=len(tr._counter_events),
         entry_points_ms={o: sum(v["ms"] for v in fns.values()) for o, fns in entry.items()},

@@ -23,6 +23,24 @@ Phases, one JSON line each:
                       32 (N = 4096) through TileRows and through Tile64:
                       the same bits, each timed beside Tile64, the plain
                       version and ``torch.bmm`` on pre-gathered operands.
+   ``autotune``     — the tile autotuner (``kernels/autotune.py``), each
+                      shape in a cache of its own: the reference's round trip
+                      (pick, tune, drop the memo, pick the winner back up) at
+                      bs 8-128 fp32 and bs 128 bf16 on the tuner's default
+                      bench (a random list of 2,048 tasks, device time; its
+                      winner is not saved unless asked), and on the main
+                      path's own lists: the band at bs 128 / 64 / 32 and the
+                      grouped GEMM's [8, 4096] @ [4096, 1536]; each
+                      candidate's us, the winner and the rule's pair; both
+                      GEMM kernels with no engine named launch the winner
+                      (``launches_by_tiles``) with the rule's bits, a corrupt
+                      cache gives the rule's launch, every candidate the same
+                      bits; the rule's launch timed against the tuned one on
+                      the random lists at bs 8-64 and the bands (device
+                      time; on a band the tuned launch may not be slower by
+                      more than 10 %).  Every other phase runs with an
+                      empty cache (``REPRO_TORCH_AUTOTUNE_CACHE``, set by
+                      ``main``), so their launches are the rule's.
 3. ``fused_kernel`` — the fused leaf kernel the same way, on the N = 8192 band
                       planned for 8 workers (fp32, bf16 stores, adaptive,
                       masked tasks), bs 24, no exchange rounds and empty runs;
@@ -162,8 +180,10 @@ Phases, one JSON line each:
                       the card's busy share and the fused kernel's time
                       (last, since a profiler session slows later launches).
 15. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
-    its launches per type; ``block_spmm`` with its MoE expert GEMMs beside
-    ``torch.bmm`` and its grouped GEMM beside its bound), then
+    its launches per type; ``block_spmm`` and ``fused_block_spmm`` beside
+    ``torch.bmm`` on pre-gathered operands, ``block_spmm`` with the tuned
+    winners, its MoE expert GEMMs beside ``torch.bmm`` and its grouped GEMM
+    beside its bound), then
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
@@ -175,8 +195,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -194,6 +216,10 @@ REL = 1e-5
 # the sequences phase: a family whose HOMO-LUMO gap is below this share of its
 # spectral width has no spectral gap, and fp32 SP2 a trace floor on it
 GAP_MIN_REL = 1e-3
+
+# Context.device_ms: the spin that the timed launches queue behind, in SM clock
+# cycles (about 10 ms at the H100's 1,980 MHz; 20 launches take the host ~2 ms)
+SLEEP_CYCLES = 20_000_000
 
 # bf16 rounding of both operands of a task: |fl(A)fl(B) - AB|_F <= (2u + u^2) |A|_F |B|_F
 ROUND2_BOUND = 2.0 * 2.0**-8 + 2.0**-16
@@ -246,7 +272,9 @@ FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
             train=dict(parity_layers=2, parity_batch=2, parity_seq=640, batch=4, seq=1024,
                        steps=8, ckpt_every=4),
             dryrun=dict(arch="qwen2-0.5b", reduced=False, workers=8, train_batch=4,
-                        train_seq=1024, decode_shape="decode_32k", decode_pos=32_000))
+                        train_seq=1024, decode_shape="decode_32k", decode_pos=32_000),
+            autotune=dict(bs=(8, 16, 32, 64, 96, 128), bf16_bs=(128,), tasks=2048, outputs=256,
+                          blocks=128, grouped=dict(rows=65_536, d=4096, f=1536, experts=128)))
 REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                  sp2_n=512, sp2_bs=32, sp2_nocc=160,
                  fused_p=8, r24_n=480, r24_hw=60, small_n=256,
@@ -261,7 +289,9 @@ REHEARSAL = dict(mul_n=4096, mul_hw=300, mul_bs=32, time_n=1024,
                             steps=8, ckpt_every=4),
                  dryrun=dict(arch="qwen2-0.5b", reduced=True, workers=4, train_batch=4,
                              train_seq=64, decode_shape="decode_32k", decode_batch=2,
-                             decode_seq=64, decode_pos=60))
+                             decode_seq=64, decode_pos=60),
+                 autotune=dict(bs=(8, 16), bf16_bs=(16,), tasks=64, outputs=16, blocks=8,
+                               grouped=dict(rows=256, d=64, f=96, experts=8)))
 
 
 def emit(obj: dict) -> None:
@@ -303,6 +333,26 @@ class Context:
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+
+    def device_ms(self, fn, reps: int) -> float:
+        """Mean device milliseconds of ``fn`` over ``reps`` warm calls: the
+        calls are queued behind a spinning kernel (``torch.cuda._sleep``), so
+        the card runs them back to back whatever the host takes to launch
+        them, and the CUDA events time the card alone.  For launches shorter
+        than the host's own cost; the wall clock on the CPU."""
+        if self.dev.type != "cuda":
+            return self.time_ms(fn, reps)
+        fn()
+        self.sync()
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        self.torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
 
 
 def gemm_bound(T, bm, bk, bn, a_blocks, b_blocks, num_out, itemsize):
@@ -516,6 +566,267 @@ def phase_kernel(ctx, sizes) -> dict:
                       bmm_yardstick="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
                       **bound)
     out = dict(phase="kernel", cases=results, timing=timing_row, small_blocks=small)
+    emit(out)
+    return out
+
+
+def autotune_random_list(ctx, bs: int, dtype, at: dict, seed: int):
+    """A random task list (the tuner's default bench's sizes): the operand
+    stacks, the device task arrays and the output count."""
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=ctx.dev).manual_seed(seed)
+    nb, T, nout = at["blocks"], at["tasks"], at["outputs"]
+    A = torch.randn((nb, bs, bs), generator=gen, device=ctx.dev).to(dtype)
+    B = torch.randn((nb, bs, bs), generator=gen, device=ctx.dev).to(dtype)
+    a, b = rng.integers(0, nb, T), rng.integers(0, nb, T)
+    c = np.sort(rng.integers(0, nout, T))
+    return A, B, ops.task_arrays(a, b, c, nout, ctx.dev), nout
+
+
+def autotune_grouped_list(ctx, g: dict, seed: int):
+    """The dropless grouped GEMM's task list at ``moe_layer``'s shape: rows
+    routed at random to the experts, cut into 8-row tiles masked to their
+    expert (``ops.grouped_gemm_tasks``); one A block per task, the experts'
+    weights as the B stack."""
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=ctx.dev).manual_seed(seed)
+    sizes = np.bincount(rng.integers(0, g["experts"], g["rows"]), minlength=g["experts"])
+    a_idx, b_idx, c_idx, lo, hi = ops.grouped_gemm_tasks(sizes, 8)
+    nt = -(-g["rows"] // 8)
+    x = torch.randn((nt * 8, g["d"]), generator=gen, device=ctx.dev)
+    w = torch.randn((g["experts"], g["d"], g["f"]), generator=gen, device=ctx.dev)
+    rows = torch.arange(8, device=ctx.dev)
+    lo_t, hi_t = (torch.from_numpy(m).to(ctx.dev) for m in (lo, hi))
+    sel = (rows[None, :] >= lo_t[:, None]) & (rows[None, :] < hi_t[:, None])
+    a_data = (x.view(nt, 8, g["d"])[torch.from_numpy(a_idx).to(ctx.dev)] * sel[:, :, None]).contiguous()
+    del x, sel
+    tasks = ops.task_arrays(np.arange(a_idx.size), b_idx, c_idx, nt, ctx.dev)
+    return a_data, w, tasks, nt
+
+
+def as_fused(A, B, tasks, nout):
+    """One worker's fused-kernel arguments for a ``block_spmm`` task list: every
+    operand in the worker's own store, an unused one-block receive stack."""
+    import torch
+
+    a_idx, b_idx, run_ptr = tasks
+    zero = torch.zeros_like(a_idx)[None]
+    return (A[None], A.new_zeros((1, 1, 1) + tuple(A.shape[1:])), B[None],
+            B.new_zeros((1, 1, 1) + tuple(B.shape[1:])), zero, a_idx[None], zero.clone(),
+            b_idx[None], run_ptr[None], nout)
+
+
+def autotune_band_list(ctx, bs: int, n: int, hw: int, seed: int):
+    """The paper's band (half-bandwidth ``hw`` elements) at leaf ``bs``, cut
+    to ``n``: the task list the main path's multiplies run (the ``kernel``
+    phase's timing case and small-leaf bands)."""
+    torch = ctx.torch
+    from repro_torch.core.spgemm import spgemm_symbolic
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=ctx.dev).manual_seed(seed)
+    coords = band_coords(-(-n // bs), (hw + bs - 1) // bs)
+    tasks = spgemm_symbolic(coords, coords)
+    A = torch.randn((coords.shape[0], bs, bs), generator=gen, device=ctx.dev)
+    return A, A, ops.task_arrays(tasks.a_idx, tasks.b_idx, tasks.c_idx, tasks.num_out, ctx.dev), \
+        tasks.num_out
+
+
+def device_seconds(ctx, fn) -> float:
+    """One call of ``fn`` queued behind a spin and timed between CUDA events:
+    its device seconds, which the tuner's ``time_call`` takes in place of the
+    wall clock."""
+    torch = ctx.torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+def phase_autotune(ctx, sizes) -> dict:
+    """The tile autotuner (``repro_torch.kernels.autotune``) on the card, each
+    shape in a cache of its own: the reference's round trip (pick, tune over
+    ``candidate_tiles``, drop the memo, pick again) for bs 8-128 in fp32 and
+    bs 128 in bf16 on the tuner's default bench (a random list, device
+    time), whose winner is saved only when asked (``persist=True``); for the
+    main path's own lists with a bench over each (device time): the band at
+    bs 128 / 64 / 32 and the grouped GEMM's ``[8, 4096] @ [4096, 1536]``.
+    Then, per shape, ``block_spmm`` and ``fused_block_spmm`` launched with
+    ``engine=None`` run the winner (``launches_by_tiles``) and give the
+    rule's bits, a corrupt cache gives the rule's launch, and every candidate
+    gives the same bits; the rule's launch is timed against the tuned one on
+    the random lists at bs 8-64 and, in both kernels, on the bands, where the
+    tuned launch must not be slower than the rule's by more than 10 %.  In
+    the rehearsal a plain-version bench exercises the round trip only (no
+    kernel, no launch to count)."""
+    torch = ctx.torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import fused_leaf as fl
+
+    at = sizes["autotune"]
+    t0 = time.perf_counter()
+    platform = autotune.device_platform(ctx.dev)
+    shapes = [(bs, torch.float32) for bs in at["bs"]] + [(bs, torch.bfloat16) for bs in at["bf16_bs"]]
+    cases = []
+    for i, (bs, dtype) in enumerate(shapes):
+        cases.append((f"random_bs{bs}_{str(dtype)[6:]}", (bs, bs, bs), dtype,
+                      lambda bs=bs, dtype=dtype, i=i: autotune_random_list(ctx, bs, dtype, at, 30 + i)))
+    for i, (bs, n) in enumerate(((sizes["mul_bs"], sizes["time_n"]),) + tuple(sizes["small_bands"])):
+        cases.append((f"band_bs{bs}_n{n}", (bs, bs, bs), torch.float32,
+                      lambda bs=bs, n=n, i=i: autotune_band_list(ctx, bs, n, sizes["mul_hw"], 50 + i)))
+    g = at["grouped"]
+    cases.append(("grouped_gemm", (8, g["d"], g["f"]), torch.float32,
+                  lambda: autotune_grouped_list(ctx, g, 40)))
+    results, cache = [], {}
+    saved_env = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="autotune_") as tmp:
+        try:
+            for name, (bm, bk, bn), dtype, make in cases:
+                path = os.path.join(tmp, f"{name}.json")
+                os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = path  # this case's launches read this cache
+                A, B, tasks, nout = make()
+                args = (A, B, *tasks, nout)
+                fargs = as_fused(A, B, tasks, nout)
+                rule = autotune.heuristic_tiles(bm, bk, bn, (A, B))
+                cands = autotune.candidate_tiles(bm, bk, bn, (A, B))
+                key = autotune.tile_key(platform, bm, bk, bn, dtype)
+                random = name.startswith("random")
+                if ctx.rehearse:  # no kernel: every candidate runs the plain version
+                    bench = lambda e, p: lambda: bsp.block_spmm_ref(*args)  # noqa: E731
+                elif random:
+                    bench = None  # the tuner's default bench: its own random list
+                else:
+                    def bench(e, p):
+                        return lambda: device_seconds(ctx, lambda: bsp.block_spmm_cuda(*args, engine=e, pack=p))
+                autotune.clear_memo()
+                before = autotune.pick_tiles(bm, bk, bn, dtype, platform=platform, path=path,
+                                             tensors=(A, B))
+                row = dict(case=name, shape=[bm, bk, bn], dtype=str(dtype)[6:], tasks=int(tasks[0].numel()),
+                           rule=list(rule), pick_before=list(before))
+                if bench is None:  # the default bench's winner is reported, not saved
+                    unsaved, _ = autotune.autotune_tiles(bm, bk, bn, dtype, candidates=cands,
+                                                         platform=platform, path=path)
+                    autotune.clear_memo()
+                    kept = autotune.pick_tiles(bm, bk, bn, dtype, platform=platform, path=path,
+                                               tensors=(A, B))
+                    row.update(unsaved_winner=list(unsaved), pick_after_unsaved=list(kept))
+                    check(key not in autotune.load_tile_cache(path) and tuple(kept) == tuple(rule),
+                          f"autotune {name}: the default bench saved {unsaved} without persist=True")
+                best, rows = autotune.autotune_tiles(bm, bk, bn, dtype, bench=bench, candidates=cands,
+                                                     platform=platform, path=path, persist=True)
+                autotune.clear_memo()
+                after = autotune.pick_tiles(bm, bk, bn, dtype, platform=platform, path=path,
+                                            tensors=(A, B))
+                row.update(candidates=[dict(tiles=list(r["tiles"]), us=r["us"], error=r.get("error"))
+                                       for r in rows],
+                           winner=list(best), pick_after=list(after), roundtrip_ok=tuple(after) == tuple(best))
+                check(tuple(before) == tuple(rule), f"autotune {name}: the empty cache picked {before}, not the rule's {rule}")
+                check(row["roundtrip_ok"], f"autotune {name}: picked {after} after tuning, the winner is {best}")
+                check(all(r["us"] is not None for r in rows), f"autotune {name}: a candidate failed: {rows}")
+                entries = autotune.load_tile_cache(path)
+                check(list(entries) == [key], f"autotune {name}: its cache holds {list(entries)}, not {key}")
+                cache.update(entries)
+                if not ctx.rehearse:
+                    # engine=None under the tuned cache launches the winner, in both kernels
+                    def launched(fn, *a):
+                        counts = (dict(bsp.launches_by_tiles), dict(fl.launches_by_tiles))
+                        out = fn(*a)
+                        ctx.sync()
+                        new = [{k: v - c.get(k, 0) for k, v in m.items() if v != c.get(k, 0)}
+                               for m, c in zip((bsp.launches_by_tiles, fl.launches_by_tiles), counts)]
+                        return out, new
+                    tuned, new = launched(bsp.block_spmm_cuda, *args)
+                    check(new == [{tuple(best): 1}, {}], f"autotune {name}: block_spmm launched {new}, the winner is {best}")
+                    ftuned, fnew = launched(fl.fused_block_spmm_cuda, *fargs)
+                    check(fnew == [{}, {tuple(best): 1}], f"autotune {name}: fused_block_spmm launched {fnew}, the winner is {best}")
+                    want = bsp.block_spmm_cuda(*args, engine=rule[0], pack=rule[1])
+                    fwant = fl.fused_block_spmm_cuda(*fargs, engine=rule[0], pack=rule[1])
+                    ctx.sync()
+                    check(torch.equal(tuned, want) and torch.equal(ftuned, fwant),
+                          f"autotune {name}: the tuned launch differs from the rule's")
+                    check(torch.equal(ftuned[0], want), f"autotune {name}: fused differs from block_spmm")
+                    del ftuned, fwant
+                    # a corrupt cache file reads as empty: the rule's launch
+                    good = open(path).read()
+                    with open(path, "w") as fh:
+                        fh.write("{not json")
+                    autotune.clear_memo()
+                    corrupt, new = launched(bsp.block_spmm_cuda, *args)
+                    _, fnew = launched(fl.fused_block_spmm_cuda, *fargs)
+                    check(new == [{tuple(rule): 1}, {}] and fnew == [{}, {tuple(rule): 1}],
+                          f"autotune {name}: a corrupt cache launched {new} / {fnew}, not the rule's {rule}")
+                    check(torch.equal(corrupt, want), f"autotune {name}: the corrupt-cache launch differs")
+                    with open(path, "w") as fh:
+                        fh.write(good)
+                    autotune.clear_memo()
+                    # every candidate, forced, gives the same bits
+                    same = {f"{e}/{p}": bool(torch.equal(bsp.block_spmm_cuda(*args, engine=e, pack=p), want))
+                            for e, p in cands}
+                    row["candidates_bit_identical"] = all(same.values())
+                    check(row["candidates_bit_identical"], f"autotune {name}: the candidates differ: {same}")
+                    del tuned, want, corrupt
+                    # the rule's launch against the tuned one (engine=None), in turns, device time
+                    timed = []
+                    if random and bm <= 64 and dtype == torch.float32:
+                        timed = [("", bsp.block_spmm_cuda, args, 20)]
+                    elif name.startswith("band"):
+                        timed = [("", bsp.block_spmm_cuda, args, 5), ("fused_", fl.fused_block_spmm_cuda, fargs, 5)]
+                    for prefix, fn, a, reps in timed:
+                        ms = {f"{prefix}rule_ms": [], f"{prefix}tuned_ms": []}
+                        for which in ("rule", "tuned", "tuned", "rule"):
+                            kw = dict(engine=rule[0], pack=rule[1]) if which == "rule" else {}
+                            ms[f"{prefix}{which}_ms"].append(ctx.device_ms(lambda: fn(*a, **kw), reps=reps))
+                        row.update(ms, **{f"{prefix}speedup_over_rule":
+                                          sum(ms[f"{prefix}rule_ms"]) / sum(ms[f"{prefix}tuned_ms"])})
+                        if name.startswith("band"):
+                            check(row[f"{prefix}speedup_over_rule"] >= 1 / 1.1,
+                                  f"autotune {name}: the {prefix or 'block_spmm '}launch tuned on its own "
+                                  f"list is slower than the rule's: {ms}")
+                results.append(row)
+                del A, B, tasks, args, fargs
+                if ctx.dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            # the host's cost of the lookup before a launch that names no engine (a
+            # memo hit), and of one stat of the cache file
+            A = torch.zeros((1, 8, 8), device=ctx.dev)
+            autotune.pick_tiles(8, 8, 8, torch.float32, platform=platform, tensors=(A, A))
+            n = 10_000
+            t1 = time.perf_counter()
+            for _ in range(n):
+                autotune.pick_tiles(8, 8, 8, torch.float32, platform=platform, tensors=(A, A))
+            pick_us = (time.perf_counter() - t1) * 1e6 / n
+            t1 = time.perf_counter()
+            for _ in range(n // 10):
+                os.stat(path)
+            stat_us = (time.perf_counter() - t1) * 1e6 / (n // 10)
+        finally:
+            if saved_env is None:
+                os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = saved_env
+            autotune.clear_memo()
+    out = dict(phase="autotune", platform=platform, seconds=time.perf_counter() - t0,
+               card=ctx.card, shapes=results, cache_entries=cache, pick_us_per_launch=pick_us,
+               stat_us=stat_us, stat_interval_s=autotune.STAT_INTERVAL_S,
+               timing="candidate us: device time (CUDA events on launches queued behind a spin), "
+                      "10 launches a call with the default bench, one on the bands and the "
+                      "grouped GEMM, mean of 3 calls; rule_ms / tuned_ms: CUDA-event means of 20 "
+                      "(random) or 5 (band) launches queued behind a spin, in turns rule / tuned / "
+                      "tuned / rule")
     emit(out)
     return out
 
@@ -3055,16 +3366,25 @@ def main(argv=None) -> int:
     if not args.rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; use --rehearse for the CPU rehearsal", file=sys.stderr)
         return 2
+    card = None
     if not args.rehearse:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True)
-        print(smi.stdout.strip().splitlines()[0], flush=True)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # an empty tile-autotuner cache: no cache in the machine's home moves a
+    # phase's launches (the autotune phase tunes into a cache of its own)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as tmp:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+        return run_phases(torch, args, card)
+
+
+def run_phases(torch, args, card) -> int:
     ctx = Context(torch, args.rehearse)
-    if not args.rehearse:
-        ctx.card = smi.stdout.strip().splitlines()[0]
+    ctx.card = card
     sizes = REHEARSAL if args.rehearse else FULL
     t0 = time.perf_counter()
 
@@ -3077,6 +3397,7 @@ def main(argv=None) -> int:
     phase(phase_build, ctx)
     phase(phase_analysis, ctx)
     kern = phase(phase_kernel, ctx, sizes)
+    tuned = phase(phase_autotune, ctx, sizes)
     fused = phase(phase_fused_kernel, ctx, sizes)
     mul = phase(phase_multiply, ctx, sizes)
     sp2 = phase(phase_sp2, ctx, sizes)
@@ -3123,7 +3444,13 @@ def main(argv=None) -> int:
                        + moe_layer["launches"]),
              max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-             bound_by=timing["bound_by"], library_ms=None,
+             bound_by=timing["bound_by"], library_ms=timing["bmm_yardstick_ms"],
+             library="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
+             autotune=[{k: r.get(k) for k in ("case", "shape", "dtype", "winner", "rule", "rule_ms",
+                                              "tuned_ms", "fused_rule_ms", "fused_tuned_ms")}
+                       | dict(winner_us=min(c["us"] for c in r["candidates"]),
+                              rule_us=next(c["us"] for c in r["candidates"] if c["tiles"] == r["rule"]))
+                       for r in tuned["shapes"]],
              moe_expert_gemms=[dict(gemm=g["gemm"], shape=g["shape"], ms=g["ms"],
                                     library_ms=g["bmm_ms"], bound_ms=g["bound_ms"],
                                     bound_by=g["bound_by"], max_abs_err=g["max_abs_err"])
@@ -3151,7 +3478,8 @@ def main(argv=None) -> int:
                        + dpipe["launches"] + dobs["launches"] + seqs["launches"]),
              max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
              ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
-             bound_by=ftiming["bound_by"], library_ms=None,
+             bound_by=ftiming["bound_by"], library_ms=ftiming["bmm_yardstick_ms"],
+             library="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
              small_blocks=[{k: fused["small_block"][k] for k in (
                  "case", "engine", "ms", "tile64_ms", "plain_ms", "bound_ms", "bound_by")}
                  | dict(library_ms=fused["small_block"]["bmm_yardstick_ms"])]),

@@ -46,6 +46,7 @@ import torch
 
 from ..analysis.errors import PlanError
 from ..kernels import ops as kops
+from ..kernels.block_spmm import launch_tiles
 from ..kernels.fused_leaf import fused_task_runs
 from ..kernels.precision import FP32, Precision
 from .matrix import BSMatrix, resolve_device
@@ -153,6 +154,22 @@ def _exchange_stack(store: torch.Tensor, offsets, sends, keeps=None, live=None) 
     return out
 
 
+def _executable_tiles(memo: dict, stacks) -> tuple[str, int]:
+    """The ``(engine, pack)`` an executable launches on its operand stacks
+    (A's first, B's last): the tile autotuner's pick
+    (:func:`~repro_torch.kernels.block_spmm.launch_tiles`), taken once per
+    dtype and 16-byte alignment of the stacks and kept in ``memo``, as the
+    JAX package fixes its tiles when it traces an executable.  The launch
+    names it and the dispatch span records it, so the two never differ."""
+    key = (stacks[0].dtype, not any(t.data_ptr() % 16 for t in stacks))
+    tiles = memo.get(key)
+    if tiles is None:
+        a, b = stacks[0], stacks[-1]
+        tiles = memo[key] = launch_tiles(None, None, a.shape[-2], a.shape[-1], b.shape[-1],
+                                         a.dtype, stacks, a.device)
+    return tiles
+
+
 def _check_mesh(plan: SpgemmPlan, mesh: WorkerMesh) -> None:
     if mesh.nparts != plan.nparts:
         raise PlanError(
@@ -169,6 +186,8 @@ class SpgemmExecutable:
     GEMM over the resident stores.  ``impl`` is ``"ref"`` (the plain
     version), ``"kernel"`` (the ``block_spmm`` CUDA kernel, which raises off
     the card) or ``"auto"`` (whichever the stores' device takes).
+    ``last_tiles`` is the ``(engine, pack)`` the last call handed the kernel
+    (:func:`_executable_tiles`).
     """
 
     def __init__(self, plan: SpgemmPlan, mesh: WorkerMesh, *, impl: str = "ref"):
@@ -198,6 +217,8 @@ class SpgemmExecutable:
         )
         self._num_out = P * plan.c_cap
         self._tasks = kops.task_arrays(*self._flat[:3], self._num_out, dev)
+        self._tiles: dict = {}
+        self.last_tiles: tuple[str, int] | None = None
 
     def _operands(self, a_store: torch.Tensor, b_store: torch.Tensor):
         plan = self.plan
@@ -211,7 +232,9 @@ class SpgemmExecutable:
 
     def _run(self, a_store, b_store, tasks) -> torch.Tensor:
         a_all, b_all = self._operands(a_store, b_store)
-        c = kops.block_spmm_tensors(a_all, b_all, *tasks, self._num_out, impl=self.impl)
+        self.last_tiles = _executable_tiles(self._tiles, (a_all, b_all))
+        c = kops.block_spmm_tensors(a_all, b_all, *tasks, self._num_out, impl=self.impl,
+                                    tiles=self.last_tiles)
         return c.reshape(self.plan.nparts, self.plan.c_cap, *c.shape[1:])
 
     def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
@@ -249,7 +272,9 @@ class FusedSpgemmExecutable:
     unpack + GEMM + accumulate over all workers.  ``precision`` selects the
     storage/exchange dtype policy (``fp32`` | ``bf16``: bf16 casts the own
     stores before the exchange); ``adaptive`` needs a per-task mask and lives
-    on :class:`MaskedFusedSpgemmExecutable`.
+    on :class:`MaskedFusedSpgemmExecutable`.  ``last_tiles`` is the
+    ``(engine, pack)`` the last call handed the kernel
+    (:func:`_executable_tiles`).
     """
 
     def __init__(self, plan: SpgemmPlan, mesh: WorkerMesh, *, impl: str = "fused",
@@ -274,6 +299,8 @@ class FusedSpgemmExecutable:
         self._run_ptr = _upload(fused_task_runs(plan.task_c, plan.c_cap), dev)
         self._a_sends = [_upload(plan.a_send[d], dev) for d in plan.a_offsets]
         self._b_sends = [_upload(plan.b_send[d], dev) for d in plan.b_offsets]
+        self._tiles: dict = {}
+        self.last_tiles: tuple[str, int] | None = None
 
     def kernel_args(self, a_store, b_store, keeps=None, live=(None, None)) -> tuple:
         """Run the exchange; return the fused engine's positional arguments
@@ -292,8 +319,11 @@ class FusedSpgemmExecutable:
                 self._run_ptr, plan.c_cap)
 
     def _run(self, a_store, b_store, *, keeps=None, live=(None, None), on=None, low=None):
-        return kops.fused_block_spmm(*self.kernel_args(a_store, b_store, keeps, live),
-                                     on=on, low=low, adaptive=self.precision.mode == "adaptive")
+        args = self.kernel_args(a_store, b_store, keeps, live)
+        self.last_tiles = _executable_tiles(self._tiles, args[:4])
+        return kops.fused_block_spmm(*args, on=on, low=low,
+                                     adaptive=self.precision.mode == "adaptive",
+                                     tiles=self.last_tiles)
 
     def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
         """Run on per-worker padded stores ``[P, cap, bs, bs]``; returns C stores

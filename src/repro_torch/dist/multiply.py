@@ -43,7 +43,6 @@ from ..core.distributed import (
 from ..core.quadtree import build_quadtree_index, quadtree_depth
 from ..core.schedule import make_spgemm_plan, structure_fingerprint
 from ..core.spgemm import spamm_symbolic, spgemm_symbolic
-from ..kernels.block_spmm import tile_engine
 from ..kernels.precision import FP32, Precision, low_precision_task_mask
 from ..obs.memory import matrix_worker_bytes
 from ..obs.timing import timed_into
@@ -138,7 +137,7 @@ def _plan_obs_static(plan) -> dict:
 
 
 def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | None = None,
-                              exe=None, stores=()) -> None:
+                              exe=None) -> None:
     """Per-worker attribution + byte/task counters on an executed multiply
     dispatch span.  Callers guard on ``tr.enabled``: this does real work
     (plan byte accounting, cost-model evaluation) that must cost nothing
@@ -146,10 +145,10 @@ def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | N
 
     All workers run in one launch, so the per-worker costs are the load
     balancer's cost model on the executed plan, as the JAX package
-    attributes them.  Where the JAX package records the autotuner's tiles,
-    the span records ``engine``: the GEMM kernels' tile engine for this
-    block size and these operand stores (:func:`~repro_torch.kernels.
-    block_spmm.tile_engine`).
+    attributes them.  As the JAX package does, the span records the tile
+    autotuner's ``tiles``: the ``[engine, pack]`` that the executable handed
+    the kernel in this call (``exe.last_tiles``, the pick it keeps per dtype
+    and stack alignment), and ``engine``, its first item.
     """
     st = _plan_obs_static(plan)
     counters = st["counters"]
@@ -161,7 +160,10 @@ def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | N
     if precision is not None:
         args["precision"] = precision.mode
         args["dtype"] = "bfloat16" if precision.mode == "bf16" else "float32"
-        args["engine"] = tile_engine(plan.bs, plan.bs, plan.bs, stores)
+        tiles = getattr(exe, "last_tiles", None)
+        if tiles is not None:
+            args["tiles"] = list(tiles)
+            args["engine"] = tiles[0]
     ex = getattr(exe, "last_exchange", None)
     if ex is not None:
         args["send_blocks"] = ex["send_blocks"]
@@ -396,8 +398,7 @@ def dist_multiply(
             else:
                 c_store = tr.sync(exe(a.store, b.store))
             if tr.enabled:
-                _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe,
-                                          (a.store, b.store))
+                _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe)
     c = _result(a, b, plan, c_store)
     _note_dispatch_memory(cache, plan, precision, c)
     _note_dispatch_locality(cache, tr, plan, precision, a, b, exe=exe)
@@ -567,8 +568,7 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
             else:
                 c_store = tr.sync(exe(a.store, b.store, task_on))
             if tr.enabled:
-                _annotate_spgemm_dispatch(tr, sp, plan, masked_count, precision, exe,
-                                          (a.store, b.store))
+                _annotate_spgemm_dispatch(tr, sp, plan, masked_count, precision, exe)
         c = _result(a, b, plan, c_store)
         _note_dispatch_memory(cache, plan, precision, c)
         _note_dispatch_locality(cache, tr, plan, precision, a, b, task_on=task_on, exe=exe)
@@ -604,8 +604,7 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
     with tr.span("dispatch", cat="kernel", op="spamm-replan") as sp:
         c_store = tr.sync(exe(a.store, b.store))
         if tr.enabled:
-            _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe,
-                                      (a.store, b.store))
+            _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe)
     c = _result(a, b, plan, c_store)
     _note_dispatch_memory(cache, plan, precision, c)
     _note_dispatch_locality(cache, tr, plan, precision, a, b, exe=exe)

@@ -11,7 +11,9 @@ indices (:func:`task_runs`), and both sum each output block's products in
 ascending task order, so neither uses atomics or a scatter-add.
 
 ``launches`` counts the kernel launches of this process: it is raised by one
-where :func:`block_spmm_cuda` launches the kernel, and nowhere else.
+where :func:`block_spmm_cuda` launches the kernel, and nowhere else;
+``launches_by_tiles`` counts the same launches by the ``(engine, pack)`` they
+ran (:func:`launch_tiles`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,11 @@ __all__ = [
     "block_spmm_ref",
     "engine_id",
     "engine_takes",
+    "full_pack",
+    "launch_tiles",
     "launches",
+    "launches_by_tiles",
+    "pack_id",
     "packed_steps",
     "rows_pack",
     "segment_sum_sorted",
@@ -39,6 +45,8 @@ __all__ = [
 
 #: kernel launches so far (see the module docstring)
 launches = 0
+#: the same launches by ``(engine, pack)``
+launches_by_tiles: dict[tuple[str, int], int] = {}
 
 _C_FUNCTIONS = {torch.float32: "block_spmm_f32", torch.bfloat16: "block_spmm_bf16"}
 
@@ -93,11 +101,54 @@ def engine_id(engine: str | None, bm: int, bk: int, bn: int, tensors=()) -> int:
     return ENGINES[engine]
 
 
+def pack_id(engine: str, pack: int | None, bm: int, bn: int) -> int:
+    """The C entry points' pack argument: 0 (the engine's rule) for ``None``,
+    else ``pack``, which ``engine`` must take (``ValueError``): TileRows any
+    pack from 1 to :func:`rows_pack`, the other engines 1.  The host mirror
+    of ``tile_gemm::pick_pack``."""
+    if pack is None:
+        return 0
+    full = full_pack(engine, bm, bn)
+    if type(pack) is not int or not 1 <= pack <= full:
+        raise ValueError(f"engine {engine!r} takes a pack from 1 to {full} at blocks {bm} x {bn}, "
+                         f"got {pack!r}")
+    return pack
+
+
+def launch_tiles(engine: str | None, pack: int | None, bm: int, bk: int, bn: int, dtype,
+                 tensors, device) -> tuple[str, int]:
+    """The ``(engine, pack)`` a GEMM kernel launches.
+
+    With ``engine=None`` (and no ``pack``): the tile autotuner's pick for the
+    block shape, the dtype and the operand stacks ``tensors``
+    (:func:`repro_torch.kernels.autotune.pick_tiles`: a tuned winner from the
+    on-disk cache, else the rule; a memo lookup, the file ``stat``-ed at most
+    once a second).  A forced
+    ``engine`` must take the shape (:func:`engine_id`) and ``pack`` must be
+    one it takes (:func:`pack_id`; ``None``: its full pack), else
+    ``ValueError`` before any launch.
+    """
+    if engine is None:
+        if pack is not None:
+            raise ValueError("pack= needs engine=: it is the pack of one engine")
+        from .autotune import device_platform, pick_tiles  # autotune imports this module
+
+        return pick_tiles(bm, bk, bn, dtype, platform=device_platform(device), tensors=tensors)
+    engine_id(engine, bm, bk, bn, tensors)
+    return engine, full_pack(engine, bm, bn) if pack is None else pack_id(engine, pack, bm, bn)
+
+
 def rows_pack(bm: int, bn: int) -> int:
     """Output blocks one TileRows tile packs: its rows (64, or 128 with the
     8 x 8 register tile it takes for ``bn`` above 64) over ``bm`` rounded up
     to a multiple of 8."""
     return (128 if bn > 64 else 64) // (-(-bm // TILEROWS_RSTEP) * TILEROWS_RSTEP)
+
+
+def full_pack(engine: str, bm: int, bn: int) -> int:
+    """The most output blocks a tile of ``engine`` packs: :func:`rows_pack`
+    for TileRows, 1 for the others (the rule's pack)."""
+    return rows_pack(bm, bn) if engine == "tilerows" else 1
 
 
 def packed_steps(run_ptr, key, pack: int, on=None) -> list[tuple[int, list[tuple[int, int]]]]:
@@ -188,7 +239,7 @@ def _kernel_function(dtype: torch.dtype):
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -210,16 +261,20 @@ def block_spmm_cuda(
     num_out: int,
     *,
     engine: str | None = None,
+    pack: int | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel; same arguments and result as :func:`block_spmm_ref`.
 
     Runs on PyTorch's current stream and does not synchronise.  Raises on
     what the kernel does not take: a tensor off the card, another dtype, a
     non-contiguous stack, a mismatched shape, or a launch the driver refuses.
-    ``engine`` (internal: tests and benchmarks hold the engines against each
-    other with it) forces a tile engine of :data:`ENGINES`, and raises
-    ``ValueError`` on one that does not take the shape; ``None`` is the
-    kernels' rule (:func:`tile_engine`).
+    ``engine=None`` launches the tile autotuner's ``(engine, pack)`` for the
+    block shape (:func:`launch_tiles`: the kernels' rule unless the on-disk
+    cache holds a tuned winner).  ``engine`` (tests, benchmarks and the tuner
+    hold the engines against each other with it) forces a tile engine of
+    :data:`ENGINES` and ``pack`` the output blocks a TileRows tile packs;
+    either raises ``ValueError`` where the kernel does not take it.  Every
+    pair gives the same bits.
     """
     global launches
     dev = a_data.device
@@ -237,7 +292,7 @@ def block_spmm_cuda(
     if a_idx.shape != b_idx.shape or run_ptr.numel() != num_out + 1 or num_out >= 2**31:
         raise ValueError("task arrays do not match num_out")
     bm, bk, bn = a_data.shape[1], a_data.shape[2], b_data.shape[2]
-    eid = engine_id(engine, bm, bk, bn, (a_data, b_data))
+    tiles = launch_tiles(engine, pack, bm, bk, bn, a_data.dtype, (a_data, b_data), dev)
     out = torch.empty((num_out, bm, bn), dtype=torch.float32, device=dev)
     if num_out == 0:
         return out
@@ -246,9 +301,11 @@ def block_spmm_cuda(
     with torch.cuda.device(dev):
         rc = fn(
             a_data.data_ptr(), b_data.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(),
-            run_ptr.data_ptr(), out.data_ptr(), num_out, bm, bk, bn, stream, eid,
+            run_ptr.data_ptr(), out.data_ptr(), num_out, bm, bk, bn, stream, ENGINES[tiles[0]],
+            tiles[1],
         )
     if rc != 0:
         raise RuntimeError(f"block_spmm kernel launch failed: {_error_string(rc)} ({rc})")
     launches += 1
+    launches_by_tiles[tiles] = launches_by_tiles.get(tiles, 0) + 1
     return out

@@ -18,14 +18,15 @@
 // summation order is fixed (bit-identical results from launch to launch), and
 // an empty run writes zeros, as the reference's segment_sum does.  The engine
 // follows the block shape (tile_gemm::pick_engine), or the engine id the
-// caller forces:
+// caller forces (with TileRows' pack R, tile_gemm::pick_pack: the tile
+// autotuner's pair):
 //
 // - Tile128 (bm and bn multiples of 128, aligned): grid (num_out, bm / 128,
 //   bn / 128), 8 x 8 registers a thread, a three-stage cp.async ring, one
 //   barrier per stage;
 // - TileRows (bm <= 64): a 1-D grid of ceil(num_out / R) * ceil(bn / TN)
-//   tiles, each packing R consecutive output blocks (16 at bm 8 and bn
-//   above 64) that walk their runs in steps sharing one staged B panel
+//   tiles, each packing R consecutive output blocks (at most 16, at bm 8
+//   and bn above 64) that walk their runs in steps sharing one staged B panel
 //   (PackedRuns below), 4 x 8 or 8 x 8 registers a thread, the same ring;
 // - Tile64 (everything else): grid (num_out, ceil(bm / 64), ceil(bn / 64)),
 //   the masked synchronous 64 x 64 engine, so any block size works.
@@ -110,9 +111,9 @@ block_spmm_rows_kernel(const T* __restrict__ A, const T* __restrict__ B,
                        const int64_t* __restrict__ a_idx,
                        const int64_t* __restrict__ b_idx,
                        const int64_t* __restrict__ run_ptr,
-                       float* __restrict__ C, int64_t num_out, int bm, int bk, int bn) {
+                       float* __restrict__ C, int64_t num_out, int bm, int bk, int bn,
+                       int R) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R = Engine::pack(bm);
   int64_t group;
   int ntile;
   Engine::tile_of(blockIdx.x, bn, group, ntile);
@@ -144,60 +145,63 @@ int launch_engine(const void* A, const void* B, const void* a_idx, const void* b
 template <typename T, typename Engine, bool VEC>
 int launch_rows_tn(const void* A, const void* B, const void* a_idx, const void* b_idx,
                    const void* run_ptr, void* C, long long num_out, int bm, int bk, int bn,
-                   cudaStream_t stream) {
+                   int R, cudaStream_t stream) {
+  if (R < 1 || R > Engine::pack(bm)) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = block_spmm_rows_kernel<T, Engine, VEC>;
   const size_t smem = Engine::template smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = Engine::groups(num_out, bm) * Engine::tiles_n(bn);
+  const long long tiles = Engine::groups(num_out, R) * Engine::tiles_n(bn);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(tiles));
   kernel<<<grid, Engine::THREADS, smem, stream>>>(
       static_cast<const T*>(A), static_cast<const T*>(B),
       static_cast<const int64_t*>(a_idx), static_cast<const int64_t*>(b_idx),
-      static_cast<const int64_t*>(run_ptr), static_cast<float*>(C), num_out, bm, bk, bn);
+      static_cast<const int64_t*>(run_ptr), static_cast<float*>(C), num_out, bm, bk, bn, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 // TileRows: TN the least of 32, 64, 128 that holds bn (tiles of 128 past
 // it); whole 16-byte chunks by cp.async where every chunk is whole and
-// aligned, masked scalar loads otherwise.
+// aligned, masked scalar loads otherwise; R output blocks a tile.
 template <typename T, bool VEC>
 int launch_rows_vec(const void* A, const void* B, const void* a_idx, const void* b_idx,
                     const void* run_ptr, void* C, long long num_out, int bm, int bk, int bn,
-                    cudaStream_t stream) {
+                    int R, cudaStream_t stream) {
   if (bn <= 32)
-    return launch_rows_tn<T, TileRows<32, 4>, VEC>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+    return launch_rows_tn<T, TileRows<32, 4>, VEC>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, R, stream);
   if (bn <= 64)
-    return launch_rows_tn<T, TileRows<64, 4>, VEC>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
-  return launch_rows_tn<T, TileRows<128, 8>, VEC>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+    return launch_rows_tn<T, TileRows<64, 4>, VEC>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, R, stream);
+  return launch_rows_tn<T, TileRows<128, 8>, VEC>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, R, stream);
 }
 
 template <typename T>
 int launch_rows(const void* A, const void* B, const void* a_idx, const void* b_idx,
                 const void* run_ptr, void* C, long long num_out, int bm, int bk, int bn,
-                const void* const* ptrs, cudaStream_t stream) {
+                int R, const void* const* ptrs, cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
   if (bk % E == 0 && bn % E == 0 && aligned16(ptrs, 2))
-    return launch_rows_vec<T, true>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
-  return launch_rows_vec<T, false>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+    return launch_rows_vec<T, true>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, R, stream);
+  return launch_rows_vec<T, false>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, R, stream);
 }
 
 template <typename T>
 int launch(const void* A, const void* B, const void* a_idx, const void* b_idx,
            const void* run_ptr, void* C, long long num_out, int bm, int bk,
-           int bn, void* stream_ptr, int engine) {
+           int bn, void* stream_ptr, int engine, int pack) {
   const void* ptrs[2] = {A, B};
   const int picked = pick_engine(engine, bm, bk, bn, ptrs, 2);
   if (picked < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = pick_pack(picked, pack, bm, bn);
+  if (R < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_out <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (picked == ENGINE_TILE128)
     return launch_engine<T, Tile128>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn,
                                      Tile128::smem_bytes<T>(), stream);
   if (picked == ENGINE_TILEROWS)
-    return launch_rows<T>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, ptrs, stream);
+    return launch_rows<T>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, R, ptrs, stream);
   return launch_engine<T, Tile64>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn,
                                   Tile64::smem_bytes, stream);
 }
@@ -205,22 +209,24 @@ int launch(const void* A, const void* B, const void* a_idx, const void* b_idx,
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  `engine` is 0 for the rule or
-// a tile_gemm::Engine id that forces one; an engine that cannot take the
-// shape is refused with cudaErrorInvalidValue.  Each returns
-// cudaGetLastError() after the launch: 0 when the launch was accepted.
+// a tile_gemm::Engine id that forces one; `pack` is 0 for the engine's rule
+// or the output blocks a TileRows tile packs (tile_gemm::pick_pack).  An
+// engine that cannot take the shape, or a pack it does not take, is refused
+// with cudaErrorInvalidValue.  Each returns cudaGetLastError() after the
+// launch: 0 when the launch was accepted.
 extern "C" int block_spmm_f32(const void* A, const void* B, const void* a_idx,
                               const void* b_idx, const void* run_ptr, void* C,
                               long long num_out, int bm, int bk, int bn,
-                              void* stream, int engine) {
-  return launch<float>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream, engine);
+                              void* stream, int engine, int pack) {
+  return launch<float>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream, engine, pack);
 }
 
 extern "C" int block_spmm_bf16(const void* A, const void* B, const void* a_idx,
                                const void* b_idx, const void* run_ptr, void* C,
                                long long num_out, int bm, int bk, int bn,
-                               void* stream, int engine) {
+                               void* stream, int engine, int pack) {
   return launch<__nv_bfloat16>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk,
-                               bn, stream, engine);
+                               bn, stream, engine, pack);
 }
 
 extern "C" const char* block_spmm_error_string(int code) {

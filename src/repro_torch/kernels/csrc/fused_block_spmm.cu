@@ -26,7 +26,8 @@
 // mask: no trash-row redirect, so a masked task in the middle of a run cannot
 // break the run), selects the store or the receive stack pointer per task,
 // and accumulates through a tile engine of tile_gemm.cuh, picked by the same
-// rule as block_spmm.cu (tile_gemm::pick_engine) or forced by the caller:
+// rule as block_spmm.cu (tile_gemm::pick_engine) or forced by the caller
+// with TileRows' pack R (tile_gemm::pick_pack):
 //
 // - Tile128 (bm and bn multiples of 128, aligned stores): grid (num_out,
 //   m-tiles * n-tiles, P), 8 x 8 registers a thread, three-stage cp.async ring;
@@ -179,9 +180,8 @@ fused_block_spmm_rows_kernel(const T* __restrict__ a_store, const T* __restrict_
                              const int64_t* __restrict__ run_ptr,
                              const uint8_t* __restrict__ on,
                              const uint8_t* __restrict__ low,
-                             float* __restrict__ C, Dims d) {
+                             float* __restrict__ C, Dims d, int R) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R = Engine::pack(d.bm);
   int64_t group;
   int ntile;
   Engine::tile_of(blockIdx.x, d.bn, group, ntile);
@@ -227,9 +227,10 @@ template <typename T, typename Engine, bool VEC>
 int launch_rows_tn(const void* a_store, const void* a_recv, const void* b_store,
                    const void* b_recv, const void* a_src, const void* a_off,
                    const void* b_src, const void* b_off, const void* run_ptr,
-                   const void* on, const void* low, void* C, long long nparts, Dims d,
+                   const void* on, const void* low, void* C, long long nparts, Dims d, int R,
                    cudaStream_t stream) {
-  const long long tiles = Engine::groups(d.num_out, d.bm) * Engine::tiles_n(d.bn);
+  if (R < 1 || R > Engine::pack(d.bm)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = Engine::groups(d.num_out, R) * Engine::tiles_n(d.bn);
   if (nparts > 65535 || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto kernel = fused_block_spmm_rows_kernel<T, Engine, VEC>;
   const size_t smem = Engine::template smem_bytes<T>();
@@ -243,26 +244,27 @@ int launch_rows_tn(const void* a_store, const void* a_recv, const void* b_store,
       static_cast<const int64_t*>(a_src), static_cast<const int64_t*>(a_off),
       static_cast<const int64_t*>(b_src), static_cast<const int64_t*>(b_off),
       static_cast<const int64_t*>(run_ptr), static_cast<const uint8_t*>(on),
-      static_cast<const uint8_t*>(low), static_cast<float*>(C), d);
+      static_cast<const uint8_t*>(low), static_cast<float*>(C), d, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 // TileRows: TN the least of 32, 64, 128 that holds bn; cp.async where every
-// chunk is whole and every store aligned, masked scalar loads otherwise.
+// chunk is whole and every store aligned, masked scalar loads otherwise; R
+// output blocks a tile.
 template <typename T, bool VEC>
 int launch_rows_vec(const void* a_store, const void* a_recv, const void* b_store,
                     const void* b_recv, const void* a_src, const void* a_off,
                     const void* b_src, const void* b_off, const void* run_ptr,
-                    const void* on, const void* low, void* C, long long nparts, Dims d,
+                    const void* on, const void* low, void* C, long long nparts, Dims d, int R,
                     cudaStream_t stream) {
   if (d.bn <= 32)
     return launch_rows_tn<T, TileRows<32, 4>, VEC>(a_store, a_recv, b_store, b_recv, a_src, a_off,
-                                                b_src, b_off, run_ptr, on, low, C, nparts, d, stream);
+                                                b_src, b_off, run_ptr, on, low, C, nparts, d, R, stream);
   if (d.bn <= 64)
     return launch_rows_tn<T, TileRows<64, 4>, VEC>(a_store, a_recv, b_store, b_recv, a_src, a_off,
-                                                b_src, b_off, run_ptr, on, low, C, nparts, d, stream);
+                                                b_src, b_off, run_ptr, on, low, C, nparts, d, R, stream);
   return launch_rows_tn<T, TileRows<128, 8>, VEC>(a_store, a_recv, b_store, b_recv, a_src, a_off,
-                                               b_src, b_off, run_ptr, on, low, C, nparts, d, stream);
+                                               b_src, b_off, run_ptr, on, low, C, nparts, d, R, stream);
 }
 
 template <typename T>
@@ -273,10 +275,12 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
            long long num_out, long long t_cap, long long a_cap,
            long long a_rounds, long long a_capu, long long b_cap,
            long long b_rounds, long long b_capu, int bm, int bk, int bn,
-           void* stream_ptr, int engine) {
+           void* stream_ptr, int engine, int pack) {
   const void* ptrs[4] = {a_store, a_recv, b_store, b_recv};
   const int picked = pick_engine(engine, bm, bk, bn, ptrs, 4);
   if (picked < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = pick_pack(picked, pack, bm, bn);
+  if (R < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (nparts <= 0 || num_out <= 0) return 0;
   const Dims d{num_out, t_cap, a_cap, a_rounds, a_capu, b_cap, b_rounds, b_capu,
                bm, bk, bn, 0};
@@ -289,9 +293,9 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
     constexpr int E = 16 / sizeof(T);
     if (bk % E == 0 && bn % E == 0 && aligned16(ptrs, 4))
       return launch_rows_vec<T, true>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src,
-                                      b_off, run_ptr, on, low, C, nparts, d, stream);
+                                      b_off, run_ptr, on, low, C, nparts, d, R, stream);
     return launch_rows_vec<T, false>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src,
-                                     b_off, run_ptr, on, low, C, nparts, d, stream);
+                                     b_off, run_ptr, on, low, C, nparts, d, R, stream);
   }
   return launch_engine<T, Tile64>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off,
                                   run_ptr, on, low, C, nparts, d, Tile64::smem_bytes, stream);
@@ -301,7 +305,9 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
 
 // Plain C entry points, loaded with ctypes.  `on` and `low` may be null (every
 // task on; no rounding).  `engine` is 0 for the rule or a tile_gemm::Engine id
-// that forces one; an engine that cannot take the shape is refused with
+// that forces one; `pack` is 0 for the engine's rule or the output blocks a
+// TileRows tile packs (tile_gemm::pick_pack).  An engine that cannot take
+// the shape, or a pack it does not take, is refused with
 // cudaErrorInvalidValue.  Each returns cudaGetLastError() after the launch:
 // 0 when the launch was accepted.
 #define FUSED_ENTRY(NAME, T)                                                    \
@@ -313,11 +319,11 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
                       long long num_out, long long t_cap, long long a_cap,     \
                       long long a_rounds, long long a_capu, long long b_cap,   \
                       long long b_rounds, long long b_capu, int bm, int bk,    \
-                      int bn, void* stream, int engine) {                      \
+                      int bn, void* stream, int engine, int pack) {            \
     return launch<T>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src,    \
                      b_off, run_ptr, on, low, C, nparts, num_out, t_cap,       \
                      a_cap, a_rounds, a_capu, b_cap, b_rounds, b_capu, bm, bk, \
-                     bn, stream, engine);                                      \
+                     bn, stream, engine, pack);                                \
   }
 
 FUSED_ENTRY(fused_block_spmm_f32, float)

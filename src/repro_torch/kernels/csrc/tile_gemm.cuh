@@ -41,14 +41,17 @@
 //   and one block per tile walking a whole run however long.
 // - TileRows, for every other block of at most 64 rows (bs 8-64, the
 //   dropless grouped GEMM's 8-row tiles, ragged or unaligned shapes).  A
-//   tile of TM rows packs R = TM / bmp consecutive output blocks, bmp being
-//   bm rounded up to a multiple of 8, by TN = 32, 64 or 128 columns (the
+//   tile of TM rows packs up to R = TM / bmp consecutive output blocks, bmp
+//   being bm rounded up to a multiple of 8, by TN = 32, 64 or 128 columns (the
 //   least that holds bn; more tiles past 128).  2 * TN threads each hold
 //   four rows by 8 columns (TM 64) or, at TN 128, eight rows by 8 columns
 //   (TM 128), the 8 columns as two quads TN / 2 apart; a warp covers 32
 //   rows, and the A tile's 16-byte chunks are swizzled so that its reads
 //   meet no bank conflict.  So R is 8 at bm 8 (16 at bn above 64), 2 at bs
-//   24 and 32, 1 at bs 64, and no FFMA runs on a row past bmp.  The tile
+//   24 and 32, 1 at bs 64, and no FFMA runs on a row past bmp.  A launch
+//   may ask for fewer blocks a tile (pick_pack: any R from 1 up): the rows
+//   past R blocks then issue no FFMA, and the grid has ceil(num_out / R)
+//   tiles of a column, so blocks that share no B run on more SMs.  The tile
 //   walks its blocks' runs in steps, and each step names one B operand (the
 //   same stack row, and in the fused kernel the same `low` flag): the head
 //   task of the lowest-numbered block with tasks left, joined by every
@@ -133,6 +136,22 @@ inline int pick_engine(int engine, int bm, int bk, int bn, const void* const* pt
   if (use_tile128(bm, bk, bn, ptrs, nptrs)) return ENGINE_TILE128;
   if (bm > 0 && bm <= TILEROWS_MAX_BM) return ENGINE_TILEROWS;
   return ENGINE_TILE64;
+}
+
+// The most output blocks a TileRows tile packs at a block shape: its rows
+// (64, or 128 for bn above 64) over bm rounded up to a multiple of 8, as
+// TileRows<TN, RM>::pack for the TN the kernels take for bn.
+inline int tilerows_pack(int bm, int bn) { return (bn > 64 ? 128 : 64) / ((bm + 7) / 8 * 8); }
+
+// The pack R a launch of `engine` (as picked) runs: 0 asks for the rule's,
+// TileRows' full pack and 1 for the other engines.  TileRows takes any R
+// from 1 to its full pack (the rows past R blocks issue no FFMA), the other
+// engines 1 only; anything else is refused (-1).  The tile autotuner
+// (kernels/autotune.py) picks the pair (engine, R) per block shape.
+inline int pick_pack(int engine, int pack, int bm, int bn) {
+  const int full = engine == ENGINE_TILEROWS ? tilerows_pack(bm, bn) : 1;
+  if (pack == 0) return full;
+  return pack >= 1 && pack <= full ? pack : -1;
 }
 
 // ---------------------------------------------------------------- Tile64
@@ -477,9 +496,8 @@ struct TileRows {
   // a block's rows in the tile, and the number of blocks the tile packs
   __host__ __device__ static constexpr int rows(int bm) { return (bm + RSTEP - 1) / RSTEP * RSTEP; }
   __host__ __device__ static constexpr int pack(int bm) { return TM / rows(bm); }
-  __host__ __device__ static int64_t groups(int64_t num_out, int bm) {
-    return (num_out + pack(bm) - 1) / pack(bm);
-  }
+  // the tiles of packed output blocks, R (1 <= R <= pack(bm)) a tile
+  __host__ __device__ static int64_t groups(int64_t num_out, int R) { return (num_out + R - 1) / R; }
   __host__ __device__ static int tiles_n(int bn) { return (bn + TN - 1) / TN; }
   // The 1-D grid's block b: the group of packed output blocks and the column
   // tile.  The column tiles of a group are neighbours, so the group's A rows

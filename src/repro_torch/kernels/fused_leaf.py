@@ -28,7 +28,9 @@ TPU kernel in the JAX package's ``repro/kernels/fused_leaf.py``;
 takes and against which the kernel is checked on the card.
 
 ``launches`` counts the kernel launches of this process: it is raised by one
-where :func:`fused_block_spmm_cuda` launches the kernel, and nowhere else.
+where :func:`fused_block_spmm_cuda` launches the kernel, and nowhere else;
+``launches_by_tiles`` counts the same launches by the ``(engine, pack)`` they
+ran (:func:`repro_torch.kernels.block_spmm.launch_tiles`).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .block_spmm import engine_id, segment_sum_sorted
+from .block_spmm import ENGINES, launch_tiles, segment_sum_sorted
 from .build import load_library
 
 __all__ = [
@@ -47,10 +49,13 @@ __all__ = [
     "fused_block_spmm_ref",
     "fused_task_runs",
     "launches",
+    "launches_by_tiles",
 ]
 
 #: kernel launches so far (see the module docstring)
 launches = 0
+#: the same launches by ``(engine, pack)``
+launches_by_tiles: dict[tuple[str, int], int] = {}
 
 _LIBRARY = "fused_block_spmm"
 _C_FUNCTIONS = {torch.float32: "fused_block_spmm_f32", torch.bfloat16: "fused_block_spmm_bf16"}
@@ -166,7 +171,7 @@ def _kernel_function(dtype: torch.dtype):
     fn = getattr(load_library(_LIBRARY), _C_FUNCTIONS[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -194,13 +199,15 @@ def fused_block_spmm_cuda(
     low: torch.Tensor | None = None,
     adaptive: bool = False,
     engine: str | None = None,
+    pack: int | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel; same arguments and result as :func:`fused_block_spmm_ref`.
 
     Runs on PyTorch's current stream and does not synchronise.  Raises on
     what the kernel does not take: a tensor off the card, another dtype, a
     non-contiguous tensor, mismatched shapes, or a launch the driver refuses.
-    ``engine`` (internal, for tests and benchmarks) forces a tile engine as
+    ``engine=None`` launches the tile autotuner's ``(engine, pack)`` for the
+    block shape and the four stores; ``engine`` and ``pack`` force a pair, as
     in :func:`repro_torch.kernels.block_spmm.block_spmm_cuda`.
     """
     global launches
@@ -233,7 +240,7 @@ def fused_block_spmm_cuda(
     if (any(t.shape != (P, T) for t in (a_src, a_off, b_src, b_off) + flags)
             or run_ptr.shape != (P, num_out + 1)):
         raise ValueError("task arrays do not match the stores, each other or num_out")
-    eid = engine_id(engine, bm, bk, bn, blocks)
+    tiles = launch_tiles(engine, pack, bm, bk, bn, a_store.dtype, blocks, dev)
     out = torch.empty((P, num_out, bm, bn), dtype=torch.float32, device=dev)
     if P == 0 or num_out == 0:
         return out
@@ -246,9 +253,11 @@ def fused_block_spmm_cuda(
             a_src.data_ptr(), a_off.data_ptr(), b_src.data_ptr(), b_off.data_ptr(),
             run_ptr.data_ptr(), ptr(on), ptr(low if adaptive else None), out.data_ptr(),
             P, num_out, T, capa, a_recv.shape[1], a_recv.shape[2],
-            capb, b_recv.shape[1], b_recv.shape[2], bm, bk, bn, stream, eid,
+            capb, b_recv.shape[1], b_recv.shape[2], bm, bk, bn, stream, ENGINES[tiles[0]],
+            tiles[1],
         )
     if rc != 0:
         raise RuntimeError(f"fused_block_spmm kernel launch failed: {_error_string(rc)} ({rc})")
     launches += 1
+    launches_by_tiles[tiles] = launches_by_tiles.get(tiles, 0) + 1
     return out

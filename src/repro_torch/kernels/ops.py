@@ -104,14 +104,25 @@ def block_spmm_tensors(
     num_out: int,
     *,
     impl: str = "auto",
+    tiles: tuple[str, int] | None = None,
 ) -> torch.Tensor:
-    """:func:`block_spmm` on a task list already on the device (see :func:`task_arrays`)."""
+    """:func:`block_spmm` on a task list already on the device (see :func:`task_arrays`).
+
+    ``tiles``: the ``(engine, pack)`` the kernel launches (``None``: the tile
+    autotuner's pick, :func:`repro_torch.kernels.block_spmm.launch_tiles`);
+    the plain version ignores it.
+    """
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
     args = (a_data, b_data, a_idx, b_idx, run_ptr, num_out)
     if _route(a_data.device, impl, "block_spmm", a_data, b_data) == "kernel":
-        return _bsp.block_spmm_cuda(*args)
+        return _bsp.block_spmm_cuda(*args, **_tiles_kw(tiles))
     return _bsp.block_spmm_ref(*args)
+
+
+def _tiles_kw(tiles) -> dict:
+    """The GEMM wrappers' ``engine`` / ``pack`` for an ``(engine, pack)`` or ``None``."""
+    return {} if tiles is None else dict(engine=tiles[0], pack=tiles[1])
 
 
 def grouped_gemm_tasks(group_sizes, tile_m: int):
@@ -182,6 +193,7 @@ def fused_block_spmm(
     on: torch.Tensor | None = None,
     low: torch.Tensor | None = None,
     adaptive: bool = False,
+    tiles: tuple[str, int] | None = None,
 ) -> torch.Tensor:
     """The fused leaf engine for every worker of a mesh in one call.
 
@@ -192,14 +204,14 @@ def fused_block_spmm(
     ``adaptive``.  See :mod:`repro_torch.kernels.fused_leaf`.
 
     A CUDA tensor launches the hand-written kernel (any block size, no
-    fallback); a CPU tensor takes the plain version.  Returns fp32
-    ``[P, num_out, bm, bn]``.
+    fallback) with ``tiles`` as :func:`block_spmm_tensors` does; a CPU
+    tensor takes the plain version.  Returns fp32 ``[P, num_out, bm, bn]``.
     """
     args = (a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, run_ptr, num_out)
     kw = dict(on=on, low=low, adaptive=adaptive)
     if _route(a_store.device, "auto", "fused_block_spmm", a_store, a_recv, b_store,
               b_recv) == "kernel":
-        return _fl.fused_block_spmm_cuda(*args, **kw)
+        return _fl.fused_block_spmm_cuda(*args, **kw, **_tiles_kw(tiles))
     return _fl.fused_block_spmm_ref(*args, **kw)
 
 

@@ -5,11 +5,14 @@ the fixture, never at import).  On the card run
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import BSMatrix, multiply
+from repro_torch.kernels import autotune
 from repro_torch.kernels import block_spmm as bsp
 from repro_torch.kernels import fused_leaf as fl
 from repro_torch.kernels import ops
@@ -27,6 +30,17 @@ def cuda():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def tile_cache(tmp_path, monkeypatch):
+    """An empty tile-autotuner cache of the test's own: no cache in the home
+    directory moves the launches that name no engine."""
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(path))
+    autotune.clear_memo()
+    yield str(path)
+    autotune.clear_memo()
 
 
 def _tasks(rng, na, nb, nc, T, empty=()):
@@ -482,6 +496,198 @@ def test_forced_engine_that_does_not_take_the_shape_raises(cuda):
     with pytest.raises(ValueError):
         bsp.block_spmm_cuda(A, A, *args, 1, engine="tile32")
     assert bsp.launches == before
+
+
+# --- the tile autotuner's (engine, pack) pairs ------------------------------
+
+
+def _one_worker(A, B, a, b, c, nc):
+    """A ``block_spmm`` task list as one worker's fused-kernel arguments: the
+    operands in the worker's own store, an unused one-block receive stack."""
+    dev = A.device
+    a_idx, b_idx, run_ptr = ops.task_arrays(a, b, c, nc, dev)
+    zero = torch.zeros_like(a_idx)[None]
+    return (A[None], A.new_zeros((1, 1, 1) + tuple(A.shape[1:])), B[None],
+            B.new_zeros((1, 1, 1) + tuple(B.shape[1:])), zero, a_idx[None], zero.clone(),
+            b_idx[None], run_ptr[None], nc)
+
+
+def _tiles_case(dev, case, dtype):
+    """(A, B, a, b, c, nc) of the Morton band, a random list or the grouped GEMM."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("band"):
+        from repro_torch.core.quadtree import morton_sort
+        from repro_torch.core.spgemm import spgemm_symbolic
+
+        bs, nb, hw = int(case[7:]), 24, 3
+        coords = np.array([(i, j) for i in range(nb) for j in range(nb) if abs(i - j) <= hw])
+        coords = coords[morton_sort(coords)]
+        tasks = spgemm_symbolic(coords, coords)
+        A = torch.randn((len(coords), bs, bs), device=dev).to(dtype)
+        return A, A, tasks.a_idx, tasks.b_idx, tasks.c_idx, tasks.num_out
+    if case.startswith("random"):
+        bs = int(case[9:])
+        A = torch.randn(40, bs, bs, device=dev).to(dtype)
+        B = torch.randn(40, bs, bs, device=dev).to(dtype)
+        return (A, B, *_tasks(rng, 40, 40, 53, 400, empty=(0, 7, 52)), 53)
+    sizes = [3, 2, 11, 0, 30, 0, 0, 45, 1, 70, 9, 17]  # the grouped GEMM, bm 8, bn 160
+    a, b, c, lo, hi = ops.grouped_gemm_tasks(sizes, 8)
+    K, N = 96, 160
+    x = torch.randn((sum(sizes) + (-sum(sizes)) % 8, K), device=dev)
+    rows = torch.arange(8, device=dev)
+    sel = (rows[None] >= torch.from_numpy(lo).to(dev)[:, None]) & (rows[None] < torch.from_numpy(hi).to(dev)[:, None])
+    A = (x.view(-1, 8, K)[torch.from_numpy(a).to(dev)] * sel[:, :, None]).contiguous().to(dtype)
+    W = torch.randn((len(sizes), K, N), device=dev).to(dtype)
+    return A, W, np.arange(len(a)), b, c, int(c.max()) + 1
+
+
+@pytest.mark.parametrize("case", ["band_bs8", "band_bs24", "band_bs64", "random_bs8",
+                                  "random_bs16", "random_bs32", "random_bs64", "grouped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_tiles_candidate_is_bit_for_bit_the_rule(cuda, case, dtype):
+    """Every ``(engine, pack)`` the tuner may pick, forced in both kernels on
+    the same tasks: the rule's bits (the rule's launch within the plain
+    version's limit), the fused kernel's equal to ``block_spmm``'s."""
+    A, B, a, b, c, nc = _tiles_case(cuda, case, dtype)
+    bm, bk, bn = A.shape[1], A.shape[2], B.shape[2]
+    want = _check(A, B, a, b, c, nc)  # engine=None with an empty cache: the rule
+    args = (A, B, *ops.task_arrays(a, b, c, nc, cuda), nc)
+    fargs = _one_worker(A, B, a, b, c, nc)
+    cands = autotune.candidate_tiles(bm, bk, bn, (A, B))
+    assert autotune.heuristic_tiles(bm, bk, bn, (A, B)) in cands
+    assert ("tilerows", bsp.rows_pack(bm, bn)) in cands and ("tilerows", 1) in cands
+    for e, p in cands:
+        assert torch.equal(bsp.block_spmm_cuda(*args, engine=e, pack=p), want), (e, p)
+        assert torch.equal(fl.fused_block_spmm_cuda(*fargs, engine=e, pack=p)[0], want), (e, p)
+
+
+@pytest.mark.parametrize("bs", [8, 24, 64])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "adaptive", "masked"])
+def test_fused_tiles_candidates_agree_across_workers_and_rounds(cuda, bs, mode):
+    """The fused kernel on three workers with receive rounds, every pack of
+    TileRows against the rule's launch, in every precision mode."""
+    rng = np.random.default_rng(bs * 13)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    args = _fused_problem(cuda, rng, 3, 60, bs, bs, bs, dtype, num_out=37, empty=(0, 9, 36))
+    kw = {}
+    if mode == "adaptive":
+        kw = dict(low=torch.from_numpy(rng.random((3, 62)) < 0.5).to(cuda), adaptive=True)
+    if mode == "masked":
+        kw = dict(on=torch.from_numpy(rng.random((3, 62)) < 0.7).to(cuda))
+    want = fl.fused_block_spmm_cuda(*args, **kw)
+    for e, p in autotune.candidate_tiles(bs, bs, bs, args[:4]):
+        assert torch.equal(fl.fused_block_spmm_cuda(*args, **kw, engine=e, pack=p), want), (e, p)
+
+
+def test_pack_out_of_range_is_refused_before_the_launch(cuda):
+    A = torch.randn(3, 8, 8, device=cuda)
+    W = torch.randn(3, 128, 128, device=cuda)
+    tasks = ops.task_arrays(np.array([0, 1]), np.array([1, 2]), np.array([0, 1]), 2, cuda)
+    fargs = _one_worker(A, A, np.array([0, 1]), np.array([1, 2]), np.array([0, 1]), 2)
+    before = (bsp.launches, fl.launches, dict(bsp.launches_by_tiles), dict(fl.launches_by_tiles))
+    for kw in (dict(engine="tilerows", pack=0), dict(engine="tilerows", pack=9),
+               dict(engine="tilerows", pack=-1), dict(engine="tile64", pack=2),
+               dict(engine="tilerows", pack=2.0), dict(pack=1)):
+        with pytest.raises(ValueError):
+            bsp.block_spmm_cuda(A, A, *tasks, 2, **kw)
+        with pytest.raises(ValueError):
+            fl.fused_block_spmm_cuda(*fargs, **kw)
+    with pytest.raises(ValueError):
+        bsp.block_spmm_cuda(W, W, *tasks, 2, engine="tile128", pack=2)
+    assert before == (bsp.launches, fl.launches, bsp.launches_by_tiles, fl.launches_by_tiles)
+    bsp.block_spmm_cuda(A, A, *tasks, 2, engine="tilerows", pack=8)  # the full pack is taken
+    bsp.block_spmm_cuda(W, W, *tasks, 2, engine="tile128", pack=1)
+
+
+def test_tuned_cache_steers_the_launches(cuda, tile_cache):
+    """With no engine named, both kernels launch the cached pair; a stale
+    entry (a pack above the full pack, Tile128 on an unaligned stack) and a
+    corrupt file give the rule's launch; the tuner's default bench round-trips."""
+    A = torch.randn(20, 8, 8, device=cuda)
+    rng = np.random.default_rng(0)
+    a, b, c = _tasks(rng, 20, 20, 30, 200)
+    args = (A, A, *ops.task_arrays(a, b, c, 30, cuda), 30)
+    fargs = _one_worker(A, A, a, b, c, 30)
+    key = autotune.tile_key(torch.cuda.get_device_name(), 8, 8, 8, "float32")
+
+    def launched(entry):
+        if entry is not None:
+            autotune.save_tile_entry(key, entry)
+        counts = (dict(bsp.launches_by_tiles), dict(fl.launches_by_tiles))
+        out = bsp.block_spmm_cuda(*args), fl.fused_block_spmm_cuda(*fargs)
+        new = [{k: v - m0.get(k, 0) for k, v in m.items() if v != m0.get(k, 0)}
+               for m, m0 in zip((bsp.launches_by_tiles, fl.launches_by_tiles), counts)]
+        return out, new
+
+    (rule, frule), new = launched(None)
+    assert new == [{("tilerows", 8): 1}, {("tilerows", 8): 1}]
+    for entry in (("tile64", 1), ("tilerows", 2)):
+        (got, fgot), new = launched(entry)
+        assert new == [{entry: 1}, {entry: 1}]
+        assert torch.equal(got, rule) and torch.equal(fgot, frule)
+    _, new = launched(("tilerows", 9))  # stale: above rows_pack(8, 8)
+    assert new == [{("tilerows", 8): 1}, {("tilerows", 8): 1}]
+    with open(tile_cache, "w") as fh:
+        fh.write("{not json")
+    autotune.clear_memo()
+    _, new = launched(None)
+    assert new == [{("tilerows", 8): 1}, {("tilerows", 8): 1}]
+    # Tile128 cached for bs 128 and a stack off a 16-byte boundary: the rule (Tile64)
+    W = torch.randn(4, 128, 128, device=cuda)
+    autotune.save_tile_entry(autotune.tile_key(torch.cuda.get_device_name(), 128, 128, 128,
+                                               "float32"), ("tile128", 1))
+    tasks = ops.task_arrays(np.array([0, 1]), np.array([2, 3]), np.array([0, 1]), 2, cuda)
+    before = dict(bsp.launches_by_tiles)
+    bsp.block_spmm_cuda(_misaligned(W), W, *tasks, 2)
+    bsp.block_spmm_cuda(W, W, *tasks, 2)
+    assert bsp.launches_by_tiles[("tile64", 1)] == before.get(("tile64", 1), 0) + 1
+    assert bsp.launches_by_tiles[("tile128", 1)] == before.get(("tile128", 1), 0) + 1
+    # the default bench on the card (device time): its random-list winner is
+    # not saved unless asked; asked, it is saved and picked back up
+    key16 = autotune.tile_key(torch.cuda.get_device_name(), 16, 16, 16, "float32")
+    autotune.clear_memo()
+    best, rows = autotune.autotune_tiles(16, 16, 16, "float32", reps=2, path=tile_cache)
+    assert all(r["us"] > 0 for r in rows) and len(rows) == len(autotune.candidate_tiles(16, 16, 16))
+    assert key16 not in autotune.load_tile_cache(tile_cache)
+    best, rows = autotune.autotune_tiles(16, 16, 16, "float32", reps=2, path=tile_cache,
+                                         persist=True)
+    autotune.clear_memo()
+    assert autotune.pick_tiles(16, 16, 16, "float32", path=tile_cache) == best
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_resident_dispatch_span_records_the_tiles_that_launched(cuda, tile_cache, offset):
+    """The dispatch span's ``tiles`` are the pair the fused kernel launched,
+    with the stores on or off a 16-byte boundary at bs 128 (Tile128 or the
+    rule's other engine); a cache tuned mid-process moves a new executable,
+    not the one that already picked."""
+    import repro_torch.obs as tobs
+    from repro_torch.core.distributed import make_worker_mesh
+    from repro_torch.dist import PlanCache, dist_multiply, scatter
+
+    rng = np.random.default_rng(offset)
+    dense = rng.standard_normal((512, 512)).astype(np.float32)
+    dense[np.abs(np.subtract.outer(np.arange(512), np.arange(512))) > 160] = 0
+    x = scatter(BSMatrix.from_dense(dense, 128), make_worker_mesh(4))
+    if offset:
+        x = dataclasses.replace(x, store=_misaligned(x.store))
+    key = autotune.tile_key(torch.cuda.get_device_name(), 128, 128, 128, "float32")
+
+    def run(cache):
+        before = dict(fl.launches_by_tiles)
+        dist_multiply(x, x, cache)
+        torch.cuda.synchronize()
+        new = {k: v - before.get(k, 0) for k, v in fl.launches_by_tiles.items()
+               if v != before.get(k, 0)}
+        spans = [sp.args for sp in cache.tracer.spans if sp.name == "dispatch" and "tasks" in sp.args]
+        return new, spans[-1]["tiles"]
+
+    cache = PlanCache(tracer=tobs.Tracer(sync=False))
+    rule = ("tile64", 1) if offset else ("tile128", 1)
+    assert run(cache) == ({rule: 1}, list(rule))
+    autotune.save_tile_entry(key, ("tile64", 1))
+    assert run(cache) == ({rule: 1}, list(rule))  # this executable keeps its pick
+    assert run(PlanCache(tracer=tobs.Tracer(sync=False))) == ({("tile64", 1): 1}, ["tile64", 1])
 
 
 def _sp2_problem(n, nocc, seed):
