@@ -170,6 +170,29 @@ Phases, one JSON line each:
                       generated sequences (dropless for the MoE); positions
                       where a router's 8th and 9th probabilities tie to fp32
                       rounding are counted and left out.
+    ``mesh_serve``  — the mesh path: qwen3-moe-235b-a22b (2 of 94 layers,
+                      full width) on a (data 2, model 2) mesh of four ranks
+                      sharing the card over gloo (``run_on_mesh``), against
+                      one process on the same seeded weights.  One process
+                      first (its results saved per rank block, its model
+                      freed), then each rank in turn draws the whole model
+                      and keeps its blocks under the prefill rules: the
+                      expert-parallel MoE layer at B 2 x S 4096 through
+                      ``block_spmm`` (3 launches a rank, each held against
+                      the kernel's plain version), within 1e-4 of one
+                      process's at a capacity where no pair drops (checked
+                      from the routing); the prefill ``apply(attn_impl=
+                      "flash", ctx=)`` (2 fp32 flash launches a rank, each
+                      held against its plain version), each rank's logits
+                      block within 1e-4 * max|logits|; ``reshard_state`` to
+                      the decode rules; ``generate_on_mesh`` (4 requests,
+                      prompt 8, 32 greedy tokens, fp32) through
+                      ``make_serve_step(cfg, ctx)``: tokens equal to one
+                      process's unless a request parts at a router or logit
+                      near-tie, step logits within 1e-4 * max|logits| up to
+                      there.  Backend, ranks per card, collectives per
+                      decode step by kind and bytes, ms a step beside one
+                      process's, each rank's shard and peak memory.
     ``examples``    — every ``examples/torch_*.py`` with ``--device cuda``,
                       all seven at once, each in its own process: each checks
                       its own result (against the dense oracle, the
@@ -180,10 +203,11 @@ Phases, one JSON line each:
                       the card's busy share and the fused kernel's time
                       (last, since a profiler session slows later launches).
 15. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
-    its launches per type; ``block_spmm`` and ``fused_block_spmm`` beside
-    ``torch.bmm`` on pre-gathered operands, ``block_spmm`` with the tuned
-    winners, its MoE expert GEMMs beside ``torch.bmm`` and its grouped GEMM
-    beside its bound), then
+    its launches per type; the launches include ``mesh_serve``'s, listed
+    per rank in ``mesh_launches_per_rank``; ``block_spmm`` and
+    ``fused_block_spmm`` beside ``torch.bmm`` on pre-gathered operands,
+    ``block_spmm`` with the tuned winners, its MoE expert GEMMs beside
+    ``torch.bmm`` and its grouped GEMM beside its bound), then
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no ``ok`` line.
@@ -3355,6 +3379,455 @@ def phase_lm_families(ctx, sizes) -> dict:
     return out
 
 
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+# capacity factor of mesh_serve's one process: 4.0 gives it 2,048 slots an
+# expert, far above the ~512 pairs an expert gets; the ranks take the least
+# multiple of 0.25 above their largest expert load (four ranks share the
+# card's memory).  Without drops on either side the two compute the same
+# function; the phase checks that no pair drops
+MESH_NODROP_CF = 4.0
+MESH_EP_SEED = 23  # the EP layer's input, drawn on each rank and in the one process
+# mesh against one process, as a share of max|x|: the psums over the model axis
+# and the expert products sum in another order
+MESH_REL = 1e-4
+
+
+def _expert_loads(x, router, top_k: int, rows: int):
+    """Pairs each expert gets, over the whole batch and over each block of
+    ``rows`` batch rows (a data rank's): ``(whole max, per-block max)``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    _, eidx = moe.route(x, router, top_k)
+    E = router.shape[-1]
+    per_row = eidx.reshape(x.shape[0], -1)
+    whole = torch.bincount(per_row.reshape(-1), minlength=E).max()
+    block = max(int(torch.bincount(per_row[i:i + rows].reshape(-1), minlength=E).max())
+                for i in range(0, x.shape[0], rows))
+    return int(whole), block
+
+
+def _step_ties(calls, n_moe: int, top_k: int):
+    """``[B, steps]`` bool: a decode step where some MoE layer's k-th and
+    (k+1)-th router probabilities lie within :data:`NEAR_TIE_REL` (the
+    calls are recorded step by step, ``n_moe`` a step)."""
+    import torch
+
+    ties = [router_margins(calls[i:i + n_moe], top_k)[:, 0] for i in range(0, len(calls), n_moe)]
+    return torch.stack(ties, dim=1)
+
+
+def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf: float):
+    """One rank of the ``mesh_serve`` phase (spawned by ``run_on_mesh``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate_on_mesh
+    from repro_torch.launch.specs import make_ctx
+    from repro_torch.models import moe, transformer
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = mctx.mesh.device_type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    d, m = (rules.axis_index(mctx, a) for a in MESH_AXES)
+    load = lambda name: torch.from_numpy(np.load(os.path.join(tmp, name))).to(dev)  # noqa: E731
+    peak = lambda: torch.cuda.max_memory_allocated() if card else None  # noqa: E731
+    pctx = make_ctx(mctx, cfg, SHAPES["prefill_32k"])
+    dctx = make_ctx(mctx, cfg, SHAPES["decode_32k"])
+    axes = transformer.param_axes(cfg)
+    out = dict(rank=rank, coord=[d, m], backend=mctx.mesh.backend,
+               ranks_per_card=mctx.mesh.ranks_per_card)
+
+    # the parameters: one rank at a time draws the whole tree (seed 0, as the
+    # one process did) and keeps its blocks under the prefill rules
+    t0 = time.perf_counter()
+    for r in range(world):
+        if r == rank:
+            whole = transformer.init_params(cfg, seed=0, device=dev)
+            params = reshard_state(whole, None, pctx, axes)
+            del whole
+            if card:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    out["build_s"] = time.perf_counter() - t0
+    out["shard_bytes"] = sum(t.to_local().numel() * t.to_local().element_size()
+                             for t in tree_leaves(params))
+    out["build_peak_bytes"] = peak()
+
+    # the expert-parallel MoE layer through block_spmm, every launch held
+    # against the kernel's plain version on the same operands
+    B, S = masks["layer_near"].shape
+    gen_x = torch.Generator(device=dev).manual_seed(MESH_EP_SEED)
+    x = torch.randn((B, S, cfg.d_model), generator=gen_x, device=dev)
+    xd = rules.distribute(pctx, x, "batch", None, None)
+    del x
+    lp = params["layers"][0]["moe"]
+    E_l = cfg.num_experts // mctx.axis_sizes["model"]
+    checks = []
+    block_spmm = ops.block_spmm
+
+    def holding(a, b, *args, **kw):
+        got = block_spmm(a, b, *args, **kw)
+        # the plain version on the same operands, 8 experts (tasks) at a time:
+        # four ranks share the card's memory
+        err = excess = 0.0
+        for lo in range(0, E_l, 8):
+            n = min(8, E_l - lo)
+            tasks = ops.task_arrays(np.arange(n), np.arange(n), np.arange(n), n, dev)
+            a_c, b_c = a[lo:lo + n], b[lo:lo + n]
+            diff = (got[lo:lo + n] - bsp.block_spmm_ref(a_c, b_c, *tasks, n)).abs()
+            err = max(err, float(diff.max()))
+            excess = max(excess, float((diff.flatten(1).amax(1).double()
+                                        / block_tolerance(a_c, b_c, *tasks)).max()))
+            del diff
+        checks.append(dict(shape=[list(a.shape), list(b.shape)], max_abs_err=err,
+                           err_over_limit=excess))
+        return got
+
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, act=cfg.mlp_act,
+              gemm_impl="block_spmm")
+    ops.block_spmm = holding
+    try:
+        with torch.inference_mode():
+            bsp.launches = 0  # the main path's count starts here
+            layer = moe.moe_apply(lp, xd, ctx=pctx, capacity_factor=rank_cf, **kw)
+            sync()
+            out["ep_launches"] = bsp.launches  # ... and is read here
+    finally:
+        ops.block_spmm = block_spmm
+    ref = load(f"layer_{d}.npy")
+    keep = ~torch.from_numpy(masks["layer_near"][d:d + 1]).to(dev)
+    diff = (layer.to_local() - ref).abs().amax(-1)
+    # one call at capacity factor 1.25, warm from the checked call: its wall
+    # time and its collectives (each call gathers the experts over gloo)
+    rules.reset_collective_counts()
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        moe.moe_apply(lp, xd, ctx=pctx, capacity_factor=1.25, **kw)
+    sync()
+    out["ep"] = dict(launch_checks=checks, max_abs_err=float(diff[keep].max()),
+                     excluded_positions=int((~keep).sum()),
+                     ep_ms_cf125=(time.perf_counter() - t0) * 1e3,
+                     collectives=rules.collective_counts())
+    del layer, ref, xd, diff
+    if card:
+        torch.cuda.empty_cache()
+
+    # the prefill forward through the flash kernel, each launch held against
+    # its plain version, the logits against one process's on this rank's block
+    tokens = torch.from_numpy(masks["tokens"]).to(dev)
+    cfg_nd = dataclasses.replace(cfg, moe_capacity_factor=rank_cf)
+    flash_checks = []
+    flash = ops.flash_attention
+
+    def holding_flash(q, k, v, **kw):
+        got = flash(q, k, v, **kw)
+        err, excess = flash_excess(got, q, k, v, **kw)
+        flash_checks.append(dict(shape=list(q.shape), max_abs_err=err, err_over_limit=excess))
+        return got
+
+    ops.flash_attention = holding_flash
+    try:
+        with torch.inference_mode():
+            fa.launches = 0  # the main path's count starts here
+            fa.launches_by_dtype.update(float32=0, bfloat16=0)
+            sync()
+            t0 = time.perf_counter()
+            logits = transformer.apply(params, cfg_nd, {"tokens": tokens}, attn_impl="flash",
+                                       ctx=pctx)
+            sync()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["flash_launches"] = fa.launches  # ... and is read here
+    finally:
+        ops.flash_attention = flash
+    local = logits.to_local()
+    V_l = local.shape[-1]
+    ref = load(f"logits_{d}_{m}.npy")
+    keep = ~torch.from_numpy(masks["forward_near"][d:d + 1]).to(dev)
+    out["prefill"] = dict(local_shape=list(local.shape), spec=list(rules.spec_of(pctx, logits)),
+                          finite=bool(torch.isfinite(local).all()),
+                          max_abs_err=float((local - ref).abs().amax(-1)[keep].max()),
+                          excluded_positions=int((~keep).sum()), flash_checks=flash_checks,
+                          vocab_block=[m * V_l, (m + 1) * V_l])
+    del logits, local, ref
+    out["prefill_peak_bytes"] = peak()
+    if card:
+        torch.cuda.empty_cache()
+
+    # the decode layout, one part at a time (each rank holds one whole leaf at most)
+    rules.reset_collective_counts()
+    sync()
+    t0 = time.perf_counter()
+    dparams = {}
+    for key in list(params):
+        if key == "layers":
+            dparams["layers"] = []
+            for i in range(len(params["layers"])):
+                dparams["layers"].append(reshard_state(params["layers"][i], pctx, dctx,
+                                                       axes["layers"][i]))
+                params["layers"][i] = None
+        else:
+            dparams[key] = reshard_state(params[key], pctx, dctx, axes[key])
+        params[key] = None
+        if card:
+            torch.cuda.empty_cache()
+    sync()
+    out["reshard"] = dict(seconds=time.perf_counter() - t0,
+                          collectives=rules.collective_counts(),
+                          w1_spec=list(rules.spec_of(dctx, dparams["layers"][0]["moe"]["w1"])))
+    del params
+
+    # greedy serving through make_serve_step(cfg, ctx)
+    generate_on_mesh(dctx, cfg, dparams, prompts[:, :2], 2, device=dev)  # warm-up
+    rules.reset_collective_counts()
+    sync()
+    t0 = time.perf_counter()
+    seqs, steps = generate_on_mesh(dctx, cfg, dparams, prompts, gen, dtype=torch.float32,
+                                   device=dev, return_logits=True)
+    sync()
+    secs = time.perf_counter() - t0
+    n_steps = prompts.shape[1] + gen - 1
+    counts = rules.collective_counts()
+    ref = load(f"steps_{d}_{m}.npy")
+    out["serve"] = dict(seqs=seqs.tolist(), seconds=secs, ms_per_decode_step=secs * 1e3 / n_steps,
+                        collectives_per_step={k: {kk: vv / n_steps for kk, vv in v.items()}
+                                              for k, v in counts.items()},
+                        step_err=(steps - ref).abs().amax(-1).cpu().numpy().tolist())
+    out["peak_bytes"] = peak()
+    return out
+
+
+def phase_mesh_serve(ctx, sizes) -> dict:
+    """qwen3-moe-235b-a22b (2 of 94 layers) at full width on a (data 2, model 2)
+    mesh of four ranks sharing the card over gloo, against one process."""
+    import dataclasses
+
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe, transformer
+
+    arch, full_layers, rehearsal_layers = FAMILIES[0]
+    cfg = family_config(arch, rehearsal_layers if sizes["lm_reduced"] else full_layers,
+                        sizes["lm_reduced"])
+    B, S = LM_BATCH, sizes["lm_seq"]
+    R, P, G = SERVE
+    dp = MESH_SHAPE[0]
+    V_l = cfg.vocab_size // MESH_SHAPE[1]
+    cfg_nd = dataclasses.replace(cfg, moe_capacity_factor=MESH_NODROP_CF)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    prompts = rng.integers(0, cfg.vocab_size, (R, P))
+    one = {}
+    calls = []
+    moe_apply = moe.moe_apply
+
+    def recording(p, x, **kw):
+        calls.append((x, p["router"]))
+        return moe_apply(p, x, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        def save(name, t):
+            np.save(os.path.join(tmp, name), t.contiguous().cpu().numpy())
+
+        # one process: the layer, the forward and greedy serving, each rank's block saved
+        params = transformer.init_params(cfg, seed=0, device=ctx.dev)
+        gen_x = torch.Generator(device=ctx.dev).manual_seed(MESH_EP_SEED)
+        x = torch.randn((B, S, cfg.d_model), generator=gen_x, device=ctx.dev)
+        lp = params["layers"][0]["moe"]
+        kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, act=cfg.mlp_act)
+        with torch.inference_mode():
+            layer = moe.moe_apply(lp, x, capacity_factor=MESH_NODROP_CF, **kw)
+            layer_near = router_margins([(x, lp["router"])], cfg.top_k)
+            loads = [_expert_loads(x, lp["router"], cfg.top_k, B // dp)]
+        one["max_abs_layer"] = float(layer.abs().max())
+        for i in range(dp):
+            save(f"layer_{i}.npy", layer[i * B // dp:(i + 1) * B // dp])
+        del layer, x
+        moe.moe_apply = recording
+        try:
+            with torch.inference_mode():
+                logits = transformer.apply(params, cfg_nd,
+                                           {"tokens": torch.from_numpy(tokens).to(ctx.dev)},
+                                           attn_impl="flash")
+                forward_near = router_margins(calls, cfg.top_k)
+                loads += [_expert_loads(xc, r, cfg.top_k, B // dp) for xc, r in calls]
+            calls.clear()
+            one["max_abs_logit"] = float(logits.abs().max())
+            for i in range(dp):
+                for j in range(MESH_SHAPE[1]):
+                    save(f"logits_{i}_{j}.npy", logits[i * B // dp:(i + 1) * B // dp, :,
+                                                       j * V_l:(j + 1) * V_l])
+            del logits
+            generate(cfg, params, prompts[:, :2], 2, device=ctx.dev)  # warm-up
+            calls.clear()
+            ctx.sync()
+            t0 = time.perf_counter()
+            seqs, steps = generate(cfg, params, prompts, G, dtype=torch.float32, device=ctx.dev,
+                                   return_logits=True)
+            ctx.sync()
+            one["ms_per_decode_step"] = (time.perf_counter() - t0) * 1e3 / (P + G - 1)
+            router_ties = _step_ties(calls, cfg.num_layers, cfg.top_k).cpu().numpy()
+        finally:
+            moe.moe_apply = moe_apply
+        smax = one["max_abs_step_logit"] = float(steps.abs().max())
+        top2 = steps.topk(2, dim=-1).values
+        logit_ties = ((top2[..., 0] - top2[..., 1]) <= STEP_REL * smax).cpu().numpy()
+        for i in range(dp):
+            for j in range(MESH_SHAPE[1]):
+                save(f"steps_{i}_{j}.npy", steps[i * R // dp:(i + 1) * R // dp, :,
+                                                 j * V_l:(j + 1) * V_l])
+        seqs = np.asarray(seqs)
+        del params, steps, top2, lp
+        calls.clear()
+        if ctx.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        max_load = dict(one_process=max(w for w, _ in loads), rank=max(b for _, b in loads))
+        rank_tokens = B // dp * S * cfg.top_k
+        rank_cf = math.ceil(4 * max_load["rank"] * cfg.num_experts / rank_tokens + 1) / 4
+        caps = dict(one_process=math.ceil(B * S * cfg.top_k * MESH_NODROP_CF / cfg.num_experts),
+                    rank=math.ceil(rank_tokens * rank_cf / cfg.num_experts))
+        check(max_load["one_process"] <= caps["one_process"] and max_load["rank"] <= caps["rank"],
+              f"mesh_serve: an expert's load {max_load} exceeds the no-drop capacity {caps}")
+
+        masks = dict(tokens=tokens, layer_near=layer_near.cpu().numpy(),
+                     forward_near=forward_near.cpu().numpy())
+        parent_bytes = torch.cuda.memory_allocated() if ctx.dev.type == "cuda" else None
+        # the ranks' allocators grow their segments in place: four processes
+        # share the card, and blocks cached in one are lost to the others
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = run_on_mesh(mesh_serve_rank, MESH_SHAPE, MESH_AXES, device=ctx.dev.type,
+                                args=(cfg, tmp, prompts, G, masks, rank_cf), timeout_s=900)
+        finally:
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        mesh_s = time.perf_counter() - t0
+
+    # the checks: every rank's launches, its kernels against their plain
+    # versions, its blocks against one process's
+    per_flash = 0 if ctx.rehearse else transformer.layer_kinds(cfg).count("attn")
+    lmax, layer_max = one["max_abs_logit"], one["max_abs_layer"]
+    for r in ranks:
+        tag = f"mesh_serve rank {r['rank']} {tuple(r['coord'])}"
+        check(r["ep_launches"] == (0 if ctx.rehearse else 3),
+              f"{tag}: the EP layer launched block_spmm {r['ep_launches']} times, expected 3")
+        check(len(r["ep"]["launch_checks"]) == 3
+              and all(c["err_over_limit"] <= 1.0 for c in r["ep"]["launch_checks"]),
+              f"{tag}: a block_spmm launch is off its plain version: {r['ep']['launch_checks']}")
+        check(r["ep"]["max_abs_err"] <= MESH_REL * layer_max,
+              f"{tag}: the EP layer is off one process's by {r['ep']['max_abs_err']} "
+              f"> {MESH_REL} * {layer_max}")
+        check(r["flash_launches"] == per_flash,
+              f"{tag}: the prefill launched the flash kernel {r['flash_launches']} times, "
+              f"expected {per_flash}")
+        check(len(r["prefill"]["flash_checks"]) == cfg.num_layers
+              and all(c["err_over_limit"] <= 1.0 for c in r["prefill"]["flash_checks"]),
+              f"{tag}: a flash launch is off its plain version: {r['prefill']['flash_checks']}")
+        check(r["prefill"]["finite"] and r["prefill"]["max_abs_err"] <= MESH_REL * lmax,
+              f"{tag}: prefill logits off one process's by {r['prefill']['max_abs_err']} "
+              f"> {MESH_REL} * {lmax}")
+        check(r["serve"]["seqs"] == ranks[0]["serve"]["seqs"], f"{tag}: its tokens differ from rank 0's")
+    mesh_seqs = np.asarray(ranks[0]["serve"]["seqs"])
+    check(mesh_seqs.shape == (R, P + G) and np.array_equal(mesh_seqs[:, :P], prompts),
+          f"mesh_serve: generate_on_mesh returned {mesh_seqs.shape}, or not the prompts")
+    # a request may part from one process's tokens only after a router near-tie
+    # (from its step on) or at a step whose top two logits tie to STEP_REL
+    n_steps = P + G - 1
+    first_diff, excused = [], 0
+    for q in range(R):
+        diff = np.nonzero(mesh_seqs[q] != seqs[q])[0]
+        t = int(diff[0]) if diff.size else P + G
+        first_diff.append(t)
+        if diff.size:
+            tie = bool(router_ties[q, :t].any() or logit_ties[q, t - 1])
+            check(tie, f"mesh_serve: request {q} parts from one process's tokens at {t} "
+                       "without a router or logit tie")
+            excused += 1
+    step_err, compared = 0.0, 0
+    for r in ranks:
+        d = r["coord"][0]
+        for row, errs in enumerate(r["serve"]["step_err"]):
+            q = d * (R // dp) + row
+            tie_at = np.nonzero(router_ties[q])[0]
+            upto = min(first_diff[q], int(tie_at[0]) if tie_at.size else n_steps)
+            if upto:
+                step_err = max(step_err, max(errs[:upto]))
+                compared += upto
+    smax = one["max_abs_step_logit"]
+    check(step_err <= MESH_REL * smax,
+          f"mesh_serve: decode-step logits off one process's by {step_err} > {MESH_REL} * {smax}")
+    gb = lambda b: None if b is None else round(b / 1e9, 3)  # noqa: E731
+    out = dict(phase="mesh_serve", arch=cfg.name, layers=cfg.num_layers, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+               backend=ranks[0]["backend"], ranks_per_card=ranks[0]["ranks_per_card"],
+               card=ctx.card, spawn_and_run_s=mesh_s,
+               no_drop_capacity_factor=dict(one_process=MESH_NODROP_CF, rank=rank_cf),
+               capacity=caps, max_expert_load=max_load,
+               parent_allocated_gb_at_spawn=None if parent_bytes is None else parent_bytes / 1e9,
+               ep_layer=dict(batch=B, seq=S, gemm_impl="block_spmm",
+                             launches_per_rank=[r["ep_launches"] for r in ranks],
+                             max_abs_one_process=layer_max,
+                             max_abs_err=max(r["ep"]["max_abs_err"] for r in ranks),
+                             tol=MESH_REL * layer_max,
+                             excluded_positions=sum(r["ep"]["excluded_positions"] for r in ranks),
+                             kernel_checks=[c for r in ranks for c in r["ep"]["launch_checks"]],
+                             ms_at_cf_1_25_per_rank=[r["ep"]["ep_ms_cf125"] for r in ranks],
+                             collectives_at_cf_1_25=ranks[0]["ep"]["collectives"]),
+               prefill=dict(batch=B, seq=S, attn_impl="flash",
+                            flash_launches_per_rank=[r["flash_launches"] for r in ranks],
+                            logits_spec=ranks[0]["prefill"]["spec"],
+                            local_logits_shape=ranks[0]["prefill"]["local_shape"],
+                            max_abs_logit=lmax,
+                            max_abs_err=max(r["prefill"]["max_abs_err"] for r in ranks),
+                            tol=MESH_REL * lmax,
+                            excluded_positions=sum(r["prefill"]["excluded_positions"] for r in ranks),
+                            flash_checks=[c for r in ranks for c in r["prefill"]["flash_checks"]],
+                            seconds_per_rank=[r["prefill_s"] for r in ranks]),
+               reshard=dict(to="decode rules (embed_e=(), moe_ff=data)",
+                            w1_spec=ranks[0]["reshard"]["w1_spec"],
+                            seconds_per_rank=[r["reshard"]["seconds"] for r in ranks],
+                            collectives=ranks[0]["reshard"]["collectives"]),
+               serve=dict(requests=R, prompt_len=P, new_tokens=G, dtype="float32",
+                          decode_steps=n_steps,
+                          ms_per_decode_step_per_rank=[r["serve"]["ms_per_decode_step"] for r in ranks],
+                          one_process_ms_per_decode_step=one["ms_per_decode_step"],
+                          collectives_per_step=ranks[0]["serve"]["collectives_per_step"],
+                          tokens_equal_one_process=bool(np.array_equal(mesh_seqs, seqs)),
+                          requests_parted_at_a_tie=excused,
+                          router_tie_steps=int(router_ties.sum()),
+                          logit_tie_steps=int(logit_ties.sum()),
+                          max_abs_step_logit=smax, max_abs_step_err=step_err,
+                          tol=MESH_REL * smax, steps_compared=compared,
+                          first_sequence=mesh_seqs[0].tolist()),
+               shard_gb_per_rank=[gb(r["shard_bytes"]) for r in ranks],
+               peak_gb_per_rank=dict(build=[gb(r["build_peak_bytes"]) for r in ranks],
+                                     prefill=[gb(r["prefill_peak_bytes"]) for r in ranks],
+                                     end=[gb(r["peak_bytes"]) for r in ranks]))
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rehearse", action="store_true",
@@ -3418,10 +3891,13 @@ def run_phases(torch, args, card) -> int:
     phase(phase_dryrun, ctx, sizes)
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
+    mesh = phase(phase_mesh_serve, ctx, sizes)
     phase(phase_examples, ctx)
     phase(phase_dist_pipeline_profile, ctx, sizes)
 
     timing, ftiming = kern["timing"], fused["timing"]
+    # the mesh's prefill runs fp32 flash on every rank
+    mesh_flash = dict(float32=sum(mesh["prefill"]["flash_launches_per_rank"]), bfloat16=0)
     flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
 
     def flash_row(dtype):
@@ -3431,7 +3907,9 @@ def run_phases(torch, args, card) -> int:
                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:31",
                     launches=(fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype]
-                              + families["launches_by_dtype"].get(dtype, 0)),
+                              + families["launches_by_dtype"].get(dtype, 0) + mesh_flash[dtype]),
+                    mesh_launches_per_rank=(mesh["prefill"]["flash_launches_per_rank"]
+                                            if dtype == "float32" else None),
                     max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
@@ -3441,7 +3919,8 @@ def run_phases(torch, args, card) -> int:
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
              launches=(mul["launches"] + sp2["kernel_launches"] + douter["launches"]
-                       + moe_layer["launches"]),
+                       + moe_layer["launches"] + sum(mesh["ep_layer"]["launches_per_rank"])),
+             mesh_launches_per_rank=mesh["ep_layer"]["launches_per_rank"],
              max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
              bound_by=timing["bound_by"], library_ms=timing["bmm_yardstick_ms"],

@@ -11,8 +11,8 @@ A checkpoint exists iff its manifest exists; a directory written partly
 clean-up.  Paths are the port's tree paths (``params/layers/3/q/w``,
 :func:`repro_torch.tree.tree_paths`).  bf16 leaves are stored as fp32 (an
 exact conversion: ``np.savez`` has no bf16) and come back in the type of the
-state they are restored into.  Arrays are stored whole, on one card; the
-JAX package's resharding onto another mesh waits for the multi-card port.
+state they are restored into.  Arrays are stored whole; a restored state
+goes onto a mesh of ranks with :func:`repro_torch.runtime.elastic.reshard_state`.
 """
 
 from __future__ import annotations

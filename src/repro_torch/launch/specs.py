@@ -6,8 +6,9 @@ no storage; :func:`repro_torch.models.model.fake_mode`) with the reference's
 shapes and dtypes, and their sharding specs come from the same logical-axis
 rules as the parameters (:mod:`repro_torch.sharding.rules`).  The JAX
 package returns ``NamedSharding``\\s on a device mesh; the port returns the
-spec tuples, since placement waits for the multi-card slice.  Shape-specific
-rule overrides, as the reference's:
+spec tuples, which :func:`repro_torch.sharding.rules.placements` turns into
+a ``DTensor``'s placements on a ``DeviceMesh``.  :func:`make_ctx` takes
+that mesh as well.  Shape-specific rule overrides, as the reference's:
 
 * inference (prefill, decode) keeps dense parameters off the FSDP axis
   (``embed=()``); decode of an MoE moves expert weights' FSDP axis to the
@@ -34,9 +35,15 @@ __all__ = [
 ]
 
 
-def make_ctx(axes, cfg: ArchConfig, shape: ShapeSpec) -> MeshCtx:
-    """The rules in force for a cell on a mesh (``{axis: size}`` or a :class:`MeshCtx`)."""
-    ctx = axes if isinstance(axes, MeshCtx) else MeshCtx.of(axes)
+def make_ctx(mesh, cfg: ArchConfig, shape: ShapeSpec) -> MeshCtx:
+    """The rules in force for a cell on a mesh: ``{axis: size}``, a
+    :class:`MeshCtx`, or a ``DeviceMesh`` (:func:`repro_torch.launch.mesh.make_mesh`)."""
+    if isinstance(mesh, MeshCtx):
+        ctx = mesh
+    elif isinstance(mesh, dict):
+        ctx = MeshCtx.of(mesh)
+    else:
+        ctx = MeshCtx.on(mesh)
     if shape.kind in ("prefill", "decode"):
         # Inference: no optimizer state, so dense params fit TP-only.  Expert
         # weights keep an FSDP axis (MoE volume never fits TP-only): prefill

@@ -14,8 +14,9 @@ device.  A train step returns a new state and modifies none of the one it is
 given, so a failed step can be retried on the same state.
 :func:`abstract_train_state` builds the same tree as fake tensors (shapes and
 dtypes, no storage) for the dry run (:mod:`repro_torch.launch.dryrun`); the
-JAX package's ``grad_reshard`` pins gradients to a multi-device sharding and
-waits for the multi-card slice.  ``cfg.remat`` is
+JAX package's ``grad_reshard`` (gradients pinned to the parameters' sharding
+in a train step on a mesh) has no counterpart yet: serving runs on a mesh
+(:func:`make_serve_step` with a ``ctx``), training on one device.  ``cfg.remat`` is
 applied as the JAX package applies it (:func:`transformer.apply`): each
 period of layers is one ``torch.utils.checkpoint`` unit (``"full"``: recompute
 everything, ``"dots"``: keep the unbatched matrix products), with gradients
@@ -46,8 +47,20 @@ __all__ = [
 
 
 def cast_params(params, dtype: torch.dtype):
-    """Every floating-point tensor of a parameter tree cast to ``dtype`` (others as they are)."""
-    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, params)
+    """Every floating-point tensor of a parameter tree cast to ``dtype`` (others as
+    they are); a ``DTensor``'s local block is cast in place of the ``DTensor``
+    (no collective), and the layout kept."""
+    from torch.distributed.tensor import DTensor
+
+    def cast(t):
+        if not t.is_floating_point() or t.dtype == dtype:
+            return t
+        if isinstance(t, DTensor):
+            return DTensor.from_local(t.to_local().to(dtype), t.device_mesh, t.placements,
+                                      run_check=False, shape=t.shape, stride=t.stride())
+        return t.to(dtype)
+
+    return tree_map(cast, params)
 
 
 def _cast_inputs(batch, dtype):
@@ -224,19 +237,21 @@ def make_train_step(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtyp
     return train_step
 
 
-def make_serve_step(cfg: ArchConfig, *, compute_dtype=torch.bfloat16):
+def make_serve_step(cfg: ArchConfig, ctx=None, *, compute_dtype=torch.bfloat16):
     """Returns ``serve_step(params, cache, tokens, pos) -> (logits, cache)``.
 
     The parameters run in ``compute_dtype``, as in the JAX package's serve
     step.  The cast is made once per parameter tree, on the first step that
     is given it, and kept for the steps that follow: a tree changed in place
-    between steps is not seen, so pass a new tree instead.
+    between steps is not seen, so pass a new tree instead.  With ``ctx`` on a
+    mesh, every rank calls the step with its ``DTensor`` parameters and
+    cache (:func:`transformer.decode_step`).
     """
     cast = {"source": None, "params": None}
 
     def serve_step(params, cache, tokens, pos):
         if cast["source"] is not params:
             cast.update(source=params, params=cast_params(params, compute_dtype))
-        return transformer.decode_step(cast["params"], cfg, cache, tokens, pos)
+        return transformer.decode_step(cast["params"], cfg, cache, tokens, pos, ctx=ctx)
 
     return serve_step
