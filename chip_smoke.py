@@ -193,6 +193,28 @@ Phases, one JSON line each:
                       there.  Backend, ranks per card, collectives per
                       decode step by kind and bytes, ms a step beside one
                       process's, each rank's shard and peak memory.
+    ``mesh_train``  — the train step on the mesh: qwen2-0.5b at full width on
+                      the same (data 2, model 2) mesh of four gloo ranks,
+                      under the train rules (FSDP ``embed -> data``, the
+                      heads, MLP and vocab over ``model``), B 4 x S 1024
+                      from ``TokenPipeline(seed=0)``.  (a) 2 layers, fp32:
+                      one process first (its gradients and new state saved
+                      whole, its card memory freed), then each rank's
+                      ``make_grad_fn`` and one ``make_train_step`` with
+                      ``grad_reshard=True`` and ``False``: the two bit for
+                      bit; the loss and grad_norm within 1e-5 relative of
+                      one process's, every gradient block within 1e-4 *
+                      max|g| of its leaf, the mesh's update of one
+                      process's gradients within 1e-6 * max|x|, and its
+                      own new state within the limits its gradients allow
+                      (moments 1e-4 and 2e-4 of their max, parameters
+                      2 * lr).  (b) all 24 layers, bf16 compute, fp32
+                      parameters and AdamW, ``remat="full"``: 3 steps in
+                      each mode, the median ms of the last 2 beside
+                      ``lm_train``'s one process, collectives a step by
+                      kind, each rank's peak; step 0's loss within 1e-2 of
+                      ``lm_train``'s, one step run twice bit-identical, the
+                      two modes' first steps bit-identical, no kernel.
     ``examples``    — every ``examples/torch_*.py`` with ``--device cuda``,
                       all seven at once, each in its own process: each checks
                       its own result (against the dense oracle, the
@@ -3828,6 +3850,364 @@ def phase_mesh_serve(ctx, sizes) -> dict:
     return out
 
 
+# mesh_train: the timed steps a grad_reshard mode (the median of the last two is
+# reported), and step 0's loss against lm_train's one process (bf16 compute)
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LOSS_REL = 1e-2
+# the parity step's rate (warmup 0: the peak at once) and, for the new state
+# against one process's, the moments' limits: the first step's moments are
+# 0.1 g and 0.05 g^2, so they inherit the gradients' TRAIN_GRAD_REL (twice for
+# g^2); a parameter moves about lr * sign(g), so one whose gradient is rounding
+# noise (a key bias's: softmax ignores a shift of a query's scores) may move
+# 2 * lr either way
+MESH_TRAIN_LR = 3e-4
+
+
+def _leaf_file(tmp: str, tree: str, path: str) -> str:
+    return os.path.join(tmp, f"{tree}.{path.replace('/', '.')}.npy")
+
+
+def _save_tree(tmp: str, name: str, tree, scales: dict) -> None:
+    """Each leaf of ``tree`` as an fp32 ``.npy`` under ``tmp``, and its max|x| in ``scales``."""
+    import numpy as np
+
+    from repro_torch.tree import tree_paths
+
+    for path, t in tree_paths(tree):
+        np.save(_leaf_file(tmp, name, path), t.detach().float().cpu().numpy())
+        scales[f"{name}/{path}"] = float(t.detach().abs().max())
+
+
+def _saved_blocks(tctx, like, tmp: str, name: str, dev):
+    """This rank's blocks of the tree saved under ``name`` (read from the files
+    by memory map), as ``DTensor``\\s laid out as the leaves of ``like``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_paths, tree_unflatten
+
+    def block(path, t):
+        whole = torch.from_numpy(np.load(_leaf_file(tmp, name, path), mmap_mode="c"))
+        local = rules.local_block(tctx, whole, rules.spec_of(tctx, t))
+        return rules.like(t, local.to(device=dev, dtype=rules.block(t).dtype))
+
+    return tree_unflatten(like, [block(path, t) for path, t in tree_paths(like)])
+
+
+def _block_excess(tctx, got, tmp: str, name: str, limit, scales: dict) -> tuple:
+    """``(the worst max|got - want| / limit(max|want|) over the leaves, its path)``:
+    ``got`` a tree of ``DTensor``\\s, ``want`` the one process's tree saved
+    under ``name``, of which each rank reads only its blocks."""
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    want = _saved_blocks(tctx, got, tmp, name, rules.block(tree_leaves(got)[0]).device)
+    worst, where = 0.0, None
+    for (path, g), w in zip(tree_paths(got), tree_leaves(want), strict=True):
+        err = float((rules.block(g).float() - rules.block(w).float()).abs().max())
+        bound = limit(scales[f"{name}/{path}"])
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else math.inf)
+        if ratio > worst or where is None:
+            worst, where = ratio, path
+    return worst, where
+
+
+def _blocks_equal(a, b) -> bool:
+    """Two trees of ``DTensor``\\s hold the same bits on this rank."""
+    import torch
+
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+
+    return all(torch.equal(rules.block(x), rules.block(y))
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch, steps: int,
+                    lr: float):
+    """One rank of the ``mesh_train`` phase (spawned by ``run_on_mesh``)."""
+    import dataclasses
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.launch.specs import make_ctx
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = mctx.mesh.device_type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    peak = lambda: torch.cuda.max_memory_allocated() if card else None  # noqa: E731
+    rank, world = dist.get_rank(), dist.get_world_size()
+    tctx = make_ctx(mctx, cfg, SHAPES["train_4k"])
+    out = dict(rank=rank, coord=[rules.axis_index(mctx, a) for a in MESH_AXES])
+
+    def placed(c):
+        """``c``'s state from seed 0, drawn whole by one rank at a time (as the one
+        process drew it) and kept as this rank's blocks under the train rules."""
+        for r in range(world):
+            if r == rank:
+                whole = model_mod.init_train_state(c, seed=0, device=dev)
+                state = reshard_state(whole, None, tctx, transformer.param_axes(c))
+                del whole
+                if card:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        return state
+
+    def counts():
+        return {k: dict(v) for k, v in rules.collective_counts().items()}
+
+    # (a) fp32 parity: the gradients and one step in each mode against one process's
+    pcfg = dataclasses.replace(cfg, num_layers=parity_layers)
+    state = placed(pcfg)
+    kw = dict(compute_dtype=torch.float32)
+    grads, steps_a, par = {}, {}, {}
+    for rs in (True, False):
+        rules.reset_collective_counts()
+        loss, grads[rs] = model_mod.make_grad_fn(pcfg, tctx, grad_reshard=rs, **kw)(
+            state["params"], batch)
+        par[f"grad_collectives_{rs}"] = counts()
+        par[f"loss_{rs}"] = float(loss)
+        steps_a[rs] = model_mod.make_train_step(pcfg, tctx, warmup=0, lr_peak=lr,
+                                                grad_reshard=rs, **kw)(state, batch)
+    par["modes_bit_identical"] = (
+        _blocks_equal(grads[True], grads[False]) and _blocks_equal(*(s[0] for s in steps_a.values()))
+        and all(float(steps_a[True][1][k]) == float(steps_a[False][1][k])
+                for k in ("loss", "grad_norm")))
+    new, metrics = steps_a[True]
+    par["step_loss"], par["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+    par["grad_excess"] = _block_excess(tctx, grads[True], tmp, "grads",
+                                       lambda mx: TRAIN_GRAD_REL * mx, scales)
+    moments = {"mu": TRAIN_GRAD_REL, "nu": 2 * TRAIN_GRAD_REL}
+    par["new_excess"] = {
+        "params": _block_excess(tctx, new["params"], tmp, "new_params",
+                                lambda mx: 2 * lr * (1 + 1e-3), scales),
+        **{k: _block_excess(tctx, new["opt"][k], tmp, f"new_{k}",
+                            lambda mx, rel=rel: rel * mx, scales) for k, rel in moments.items()}}
+    del grads, steps_a, new
+    # the mesh's update of the one process's own gradients: clip over sharded
+    # blocks and AdamW on blocks, against the one process's update
+    theirs = _saved_blocks(tctx, state["params"], tmp, "grads", dev)
+    upd, um = model_mod.make_update_fn(warmup=0, lr_peak=lr)(state, theirs)
+    par["update_grad_norm"] = float(um["grad_norm"])
+    par["update_excess"] = {k: _block_excess(tctx, tree, tmp, f"new_{k}",
+                                             lambda mx: TRAIN_UPDATE_REL * mx, scales)
+                            for k, tree in (("params", upd["params"]), ("mu", upd["opt"]["mu"]),
+                                            ("nu", upd["opt"]["nu"]))}
+    par["peak_bytes"] = peak()
+    out["parity"] = par
+    del state, theirs, upd
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (b) every layer, bf16 compute, fp32 parameters and AdamW, the config's remat
+    t0 = time.perf_counter()
+    state0 = placed(cfg)
+    out["build_s"] = time.perf_counter() - t0
+    out["shard_bytes"] = sum(rules.block(t).numel() * rules.block(t).element_size()
+                             for t in tree_leaves(state0))
+    out["build_peak_bytes"] = peak()
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    pipe = TokenPipeline(cfg, batch=batch["tokens"].shape[0], seq=batch["tokens"].shape[1],
+                         seed=0)
+    bsp.launches = fl.launches = fa.launches = 0  # the main path's count starts here
+    timed, firsts = {}, {}
+    for rs in (True, False):
+        step = model_mod.make_train_step(cfg, tctx, compute_dtype=torch.bfloat16,
+                                         lr_peak=TRAIN_LR, warmup=1, total_steps=steps,
+                                         grad_reshard=rs)
+        s, ms, losses = state0, [], []
+        for i in range(steps):
+            rules.reset_collective_counts()
+            sync()
+            if card and rs and i == steps - 1:  # the step's own memory, above what is held
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            s, m = step(s, pipe.global_batch(i))
+            losses.append(float(m["loss"]))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                firsts[rs] = (s, m)
+        timed[rs] = dict(step_ms=ms, ms_per_step=statistics.median(ms[1:]), losses=losses,
+                         collectives_per_step=counts())
+        if card and rs:
+            out["step_peak_above_held_bytes"] = torch.cuda.max_memory_allocated() - held
+        del s
+        if rs:  # the first step again, from the same state: the same bits
+            again = step(state0, pipe.global_batch(0))
+            timed[rs]["repeat_bit_identical"] = (
+                _blocks_equal(again[0], firsts[rs][0])
+                and float(again[1]["loss"]) == float(firsts[rs][1]["loss"]))
+            del again
+    out["launches"] = dict(block_spmm=bsp.launches, fused_block_spmm=fl.launches,
+                           flash_attention=fa.launches)  # ... and is read here
+    out["modes_bit_identical"] = (_blocks_equal(firsts[True][0], firsts[False][0])
+                                  and all(float(firsts[True][1][k]) == float(firsts[False][1][k])
+                                          for k in ("loss", "grad_norm")))
+    out["timed"] = {"reduce_scatter" if rs else "all_reduce": v for rs, v in timed.items()}
+    out["peak_bytes"] = peak()  # the steps and the states kept for the checks beside them
+    del firsts, state0
+    return out
+
+
+def phase_mesh_train(ctx, sizes, lm_train: dict) -> dict:
+    """qwen2-0.5b's train step at full width on a (data 2, model 2) mesh of four
+    ranks sharing the card over gloo, against one process: the parity step
+    (2 layers, fp32) and timed steps (every layer, bf16 compute) in both
+    FSDP reductions."""
+    import dataclasses
+
+    torch = ctx.torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.tree import tree_leaves
+
+    t = sizes["train"]
+    cfg = reduced_config("qwen2-0.5b") if sizes["lm_reduced"] else get_config("qwen2-0.5b")
+    pcfg = dataclasses.replace(cfg, num_layers=t["parity_layers"])
+    B, S = t["batch"], t["seq"]
+    batch = TokenPipeline(cfg, batch=B, seq=S, seed=0).global_batch(0)
+    one = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_train_") as tmp:
+        # one process: the parity step's loss, gradients, norm and new state, kept whole on the host
+        state = model_mod.init_train_state(pcfg, seed=0, device=ctx.dev)
+        loss, grads = model_mod.make_grad_fn(pcfg, compute_dtype=torch.float32)(
+            state["params"], batch)
+        scales = {}
+        _save_tree(tmp, "grads", grads, scales)
+        del grads
+        new, m = model_mod.make_train_step(pcfg, compute_dtype=torch.float32, warmup=0,
+                                           lr_peak=MESH_TRAIN_LR)(state, batch)
+        one.update(loss=float(loss), step_loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        _save_tree(tmp, "new_params", new["params"], scales)
+        for k in ("mu", "nu"):
+            _save_tree(tmp, f"new_{k}", new["opt"][k], scales)
+        one["params"] = sum(p.numel() for p in tree_leaves(state["params"]))
+        del state, new, m, loss
+        if ctx.dev.type == "cuda":
+            torch.cuda.empty_cache()  # four ranks share the card next
+        parent_bytes = torch.cuda.memory_allocated() if ctx.dev.type == "cuda" else None
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = run_on_mesh(mesh_train_rank, MESH_SHAPE, MESH_AXES, device=ctx.dev.type,
+                                args=(cfg, t["parity_layers"], tmp, scales, batch,
+                                      MESH_TRAIN_STEPS, MESH_TRAIN_LR), timeout_s=900)
+        finally:
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        mesh_s = time.perf_counter() - t0
+
+    ref_loss = lm_train["losses"][0]
+    for r in ranks:
+        tag = f"mesh_train rank {r['rank']} {tuple(r['coord'])}"
+        p = r["parity"]
+        for key in ("loss_True", "loss_False", "step_loss"):
+            rel = abs(p[key] - one["loss"]) / abs(one["loss"])
+            check(rel <= TRAIN_LOSS_REL, f"{tag}: {key} {p[key]} off one process's "
+                                         f"{one['loss']} by {rel} relative")
+        for key in ("grad_norm", "update_grad_norm"):
+            rel = abs(p[key] - one["grad_norm"]) / abs(one["grad_norm"])
+            check(rel <= TRAIN_LOSS_REL, f"{tag}: {key} {p[key]} off one process's "
+                                         f"{one['grad_norm']} by {rel} relative")
+        check(p["grad_excess"][0] <= 1.0, f"{tag}: gradient {p['grad_excess']} x its limit")
+        for k, (x, where) in {**p["new_excess"], **{f"update_{k}": v for k, v in
+                                                  p["update_excess"].items()}}.items():
+            check(x <= 1.0, f"{tag}: new {k} at {where} is {x} x its limit")
+        check(p["modes_bit_identical"], f"{tag}: grad_reshard True and False differ (parity)")
+        check(r["modes_bit_identical"], f"{tag}: grad_reshard True and False differ (bf16)")
+        check(r["launches"] == dict(block_spmm=0, fused_block_spmm=0, flash_attention=0),
+              f"{tag}: the mesh train step launched kernels {r['launches']}")
+        for mode, tm in r["timed"].items():
+            rel = abs(tm["losses"][0] - ref_loss) / abs(ref_loss)
+            check(rel <= MESH_TRAIN_LOSS_REL, f"{tag}: {mode} step 0's loss {tm['losses'][0]} "
+                                              f"off lm_train's {ref_loss} by {rel} relative")
+            check(all(map(math.isfinite, tm["losses"])), f"{tag}: {mode} a non-finite loss")
+        check(r["timed"]["reduce_scatter"]["repeat_bit_identical"],
+              f"{tag}: two runs of one step differ")
+        rs_counts = r["timed"]["reduce_scatter"]["collectives_per_step"]
+        check("reduce_scatter" in rs_counts
+              and "reduce_scatter" not in r["timed"]["all_reduce"]["collectives_per_step"],
+              f"{tag}: the FSDP reductions ran {sorted(rs_counts)}")
+    gb = lambda b: None if b is None else round(b / 1e9, 3)  # noqa: E731
+    r0 = ranks[0]
+    out = dict(phase="mesh_train", arch=cfg.name, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+               card=ctx.card, rules="train_4k (embed -> data, heads/kv_heads/mlp/vocab -> model)",
+               spawn_and_run_s=mesh_s,
+               parent_allocated_gb_at_spawn=None if parent_bytes is None else parent_bytes / 1e9,
+               parity=dict(layers=t["parity_layers"], batch=B, seq=S, compute="float32",
+                           lr=MESH_TRAIN_LR, one_process=one,
+                           loss_rel_err=max(abs(r["parity"]["loss_True"] - one["loss"])
+                                            / abs(one["loss"]) for r in ranks),
+                           grad_norm_rel_err=max(abs(r["parity"]["grad_norm"] - one["grad_norm"])
+                                                 / abs(one["grad_norm"]) for r in ranks),
+                           grad_err_over_limit=max(r["parity"]["grad_excess"][0] for r in ranks),
+                           grad_limit=f"{TRAIN_GRAD_REL} * max|g| per leaf",
+                           new_state_err_over_limit={
+                               k: max(r["parity"]["new_excess"][k][0] for r in ranks)
+                               for k in ("params", "mu", "nu")},
+                           new_state_limits=dict(params=f"2 * lr = {2 * MESH_TRAIN_LR}",
+                                                 mu=f"{TRAIN_GRAD_REL} * max|mu|",
+                                                 nu=f"{2 * TRAIN_GRAD_REL} * max|nu|"),
+                           update_of_one_process_grads_err_over_limit={
+                               k: max(r["parity"]["update_excess"][k][0] for r in ranks)
+                               for k in ("params", "mu", "nu")},
+                           update_limit=f"{TRAIN_UPDATE_REL} * max|x| per leaf",
+                           modes_bit_identical=all(r["parity"]["modes_bit_identical"]
+                                                   for r in ranks),
+                           grad_collectives=dict(reduce_scatter=r0["parity"]["grad_collectives_True"],
+                                                 all_reduce=r0["parity"]["grad_collectives_False"]),
+                           peak_gb_per_rank=[gb(r["parity"]["peak_bytes"]) for r in ranks]),
+               timed=dict(layers=cfg.num_layers, batch=B, seq=S, compute="bfloat16",
+                          params_dtype="float32", remat=cfg.remat, steps_per_mode=MESH_TRAIN_STEPS,
+                          ms_per_step={mode: [r["timed"][mode]["ms_per_step"] for r in ranks]
+                                       for mode in r0["timed"]},
+                          step_ms={mode: [r["timed"][mode]["step_ms"] for r in ranks]
+                                   for mode in r0["timed"]},
+                          one_process_ms_per_step=dict(
+                              train_loop_median=lm_train["ms_per_step_median"],
+                              remat_full=lm_train["remat"]["full"]["ms_per_step"]),
+                          losses={mode: r0["timed"][mode]["losses"] for mode in r0["timed"]},
+                          lm_train_step0_loss=ref_loss,
+                          collectives_per_step={mode: r0["timed"][mode]["collectives_per_step"]
+                                                for mode in r0["timed"]},
+                          repeat_bit_identical=all(r["timed"]["reduce_scatter"]["repeat_bit_identical"]
+                                                   for r in ranks),
+                          modes_bit_identical=all(r["modes_bit_identical"] for r in ranks),
+                          launches_per_rank=[r["launches"] for r in ranks]),
+               shard_gb_per_rank=[gb(r["shard_bytes"]) for r in ranks],
+               peak_gb_per_rank=dict(build=[gb(r["build_peak_bytes"]) for r in ranks],
+                                     steps=[gb(r["peak_bytes"]) for r in ranks],
+                                     one_step_above_held=[gb(r.get("step_peak_above_held_bytes"))
+                                                          for r in ranks]),
+               build_s_per_rank=[r["build_s"] for r in ranks])
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rehearse", action="store_true",
@@ -3887,11 +4267,12 @@ def run_phases(torch, args, card) -> int:
     fwd = phase(phase_lm_forward, ctx, sizes, model)
     serve = phase(phase_lm_serve, ctx, model)
     del model
-    phase(phase_lm_train, ctx, sizes)
+    train = phase(phase_lm_train, ctx, sizes)
     phase(phase_dryrun, ctx, sizes)
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
     mesh = phase(phase_mesh_serve, ctx, sizes)
+    phase(phase_mesh_train, ctx, sizes, train)
     phase(phase_examples, ctx)
     phase(phase_dist_pipeline_profile, ctx, sizes)
 

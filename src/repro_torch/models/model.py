@@ -13,24 +13,47 @@ A train state is ``{"params", "opt": {"mu", "nu", "count"[, "master"]},
 device.  A train step returns a new state and modifies none of the one it is
 given, so a failed step can be retried on the same state.
 :func:`abstract_train_state` builds the same tree as fake tensors (shapes and
-dtypes, no storage) for the dry run (:mod:`repro_torch.launch.dryrun`); the
-JAX package's ``grad_reshard`` (gradients pinned to the parameters' sharding
-in a train step on a mesh) has no counterpart yet: serving runs on a mesh
-(:func:`make_serve_step` with a ``ctx``), training on one device.  ``cfg.remat`` is
-applied as the JAX package applies it (:func:`transformer.apply`): each
-period of layers is one ``torch.utils.checkpoint`` unit (``"full"``: recompute
-everything, ``"dots"``: keep the unbatched matrix products), with gradients
+dtypes, no storage) for the dry run (:mod:`repro_torch.launch.dryrun`).
+``cfg.remat`` is applied as the JAX package applies it
+(:func:`transformer.apply`): each period of layers is one
+``torch.utils.checkpoint`` unit (``"full"``: recompute everything,
+``"dots"``: keep the unbatched matrix products), with gradients
 bit-identical to ``"none"``'s.
+
+Serving and training both run on a mesh (``ctx`` a
+:class:`~repro_torch.sharding.rules.MeshCtx` on a ``DeviceMesh``, every rank
+making the same call with its ``DTensor`` state, laid out by
+:func:`repro_torch.runtime.elastic.reshard_state`).  The train step on a
+mesh differentiates each rank's blocks through the mesh forward, whose
+collectives have ``shard_map``'s transposes (:mod:`repro_torch.sharding.rules`):
+
+* the loss is the mean cross entropy over the global batch, computed on
+  each rank's ``[B_l, S, V_l]`` logits (vocab-parallel: a max and two sums
+  over the model axis, then a sum over the data axes);
+* a parameter that a mesh axis shards gets its gradient already reduced,
+  as this rank's block: the backward of the FSDP gather over the data axes
+  is a ``reduce_scatter`` with ``grad_reshard=True`` (the reference's pinned
+  gradients) and an ``all_reduce`` and a cut with ``False``; a parameter no
+  data axis shards gets a sum over those axes after the backward;
+* a parameter the loss should reach and does not raises, where one device
+  gives it zeros (hubert's token table, which the loss never reads, gets
+  zeros on both).
+
+The values are one process's up to the order of the sums.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..optim import adamw_init, adamw_update, clip_by_global_norm, cosine_lr
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..sharding import rules
+from ..tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 from . import transformer
 
 __all__ = [
@@ -43,6 +66,7 @@ __all__ = [
     "make_serve_step",
     "make_train_step",
     "make_update_fn",
+    "unreached",
 ]
 
 
@@ -50,15 +74,10 @@ def cast_params(params, dtype: torch.dtype):
     """Every floating-point tensor of a parameter tree cast to ``dtype`` (others as
     they are); a ``DTensor``'s local block is cast in place of the ``DTensor``
     (no collective), and the layout kept."""
-    from torch.distributed.tensor import DTensor
-
     def cast(t):
         if not t.is_floating_point() or t.dtype == dtype:
             return t
-        if isinstance(t, DTensor):
-            return DTensor.from_local(t.to_local().to(dtype), t.device_mesh, t.placements,
-                                      run_check=False, shape=t.shape, stride=t.stride())
-        return t.to(dtype)
+        return rules.like(t, rules.block(t).to(dtype))
 
     return tree_map(cast, params)
 
@@ -80,26 +99,69 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - correct).mean()
 
 
-def make_loss_fn(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtype=torch.bfloat16):
+def _ce_on_mesh(ctx, logits: torch.Tensor, labels: torch.Tensor, spec: tuple,
+                count: int) -> torch.Tensor:
+    """:func:`_ce` over a global batch of ``count`` labels, from this rank's block
+    ``[B_l, S, V_l]`` of the logits (laid out by ``spec``) and its rows of the
+    labels.  The logsumexp takes the max and the sum of exponentials over the
+    model axis, the label's logit comes from the rank whose vocab range holds
+    it, and the rows' sum is summed over the data axes: the same value on
+    every rank, with no ``[B, S, V]`` gather."""
+    logits = logits.float()
+    vocab = rules.mesh_axes(spec[-1])
+    m = logits.detach().amax(-1)
+    if vocab:
+        m = rules.pmax(ctx, m, vocab)
+    V_l = logits.shape[-1]
+    t = labels.long() - rules.block_index(ctx, vocab) * V_l
+    inside = (t >= 0) & (t < V_l)
+    picked = logits.gather(-1, torch.where(inside, t, 0)[..., None])[..., 0]
+    parts = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                         torch.where(inside, picked, 0.0)])
+    if vocab:
+        parts = rules.psum(ctx, parts, vocab)  # the two sums in one all_reduce
+    loss = (m + torch.log(parts[0]) - parts[1]).sum() / count
+    rows = rules.mesh_axes(spec[0])
+    return rules.psum(ctx, loss, rows) if rows else loss
+
+
+def _targets(cfg: ArchConfig, logits, batch):
+    """The logits that predict and the labels they predict: a decoder's next
+    token, an encoder's (hubert) ``labels``, a vision prefix-LM's (paligemma)
+    text after its ``num_patches`` patches."""
+    if cfg.kind == "encoder":
+        return logits, batch["labels"]
+    if cfg.frontend == "vision_stub":
+        return logits[:, cfg.num_patches:-1], batch["tokens"][:, 1:]
+    return logits[:, :-1], batch["tokens"][:, 1:]
+
+
+def _on_mesh(ctx) -> bool:
+    return ctx is not None and ctx.mesh is not None
+
+
+def make_loss_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
+                 compute_dtype=torch.bfloat16):
     """Returns ``loss_fn(params, batch) -> (loss, {"loss": loss})``.
 
     The parameters and the batch's floating inputs are cast to
     ``compute_dtype`` inside the function, so a gradient reaches the
-    parameters in their own type.  Decoders predict the next token; an
-    encoder (hubert) its ``labels``; a vision prefix-LM (paligemma) the text
-    after its ``num_patches`` patches.
+    parameters in their own type.  With ``ctx`` on a mesh every rank passes
+    its ``DTensor`` parameters and the whole batch, and gets the loss of the
+    global batch (:func:`_ce_on_mesh`).
     """
 
     def loss_fn(params, batch):
         logits = transformer.apply(cast_params(params, compute_dtype), cfg,
-                                   _cast_inputs(batch, compute_dtype), attn_impl=attn_impl)
-        if cfg.kind == "encoder":
-            loss = _ce(logits, batch["labels"])
-        elif cfg.frontend == "vision_stub":
-            # prefix-LM: text logits start after the patch prefix
-            loss = _ce(logits[:, cfg.num_patches:-1], batch["tokens"][:, 1:])
-        else:
-            loss = _ce(logits[:, :-1], batch["tokens"][:, 1:])
+                                   _cast_inputs(batch, compute_dtype), attn_impl=attn_impl,
+                                   ctx=ctx)
+        if not _on_mesh(ctx):
+            loss = _ce(*_targets(cfg, logits, batch))
+            return loss, {"loss": loss}
+        spec = rules.spec_of(ctx, logits)
+        local, labels = _targets(cfg, rules.block(logits), batch)
+        loss = _ce_on_mesh(ctx, local, rules.local_block(ctx, labels, (spec[0], None)), spec,
+                           labels.numel())
         return loss, {"loss": loss}
 
     return loss_fn
@@ -148,8 +210,36 @@ def _batch_on(batch, dev: torch.device):
             for k, v in batch.items()}
 
 
-def make_grad_fn(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtype=torch.bfloat16,
-                 grad_accum: int | None = None):
+def unreached(cfg: ArchConfig) -> frozenset:
+    """The paths of the parameters the loss does not read: an audio encoder's
+    token table (hubert looks up no token, and its head is its own)."""
+    if cfg.frontend == "audio_stub" and not cfg.tie_embeddings:
+        return frozenset({"embed/table"})
+    return frozenset()
+
+
+def _sum_replicated(ctx, params: list, grads: list) -> list:
+    """Each gradient block summed over the data axes that do not shard its
+    parameter (its ranks saw other rows of the batch), one ``all_reduce`` per
+    set of axes and type; a parameter a data axis shards was reduced by its
+    gather's backward."""
+    groups: dict = {}
+    for i, (p, g) in enumerate(zip(params, grads)):
+        held = {a for e in rules.spec_of(ctx, p) for a in rules.mesh_axes(e)}
+        axes = tuple(a for a in ctx.dp_axes if a not in held)
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(i)
+    out = list(grads)
+    for (axes, _), idx in groups.items():
+        flat = rules.psum(ctx, torch.cat([grads[i].reshape(-1) for i in idx]), axes)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
+                 compute_dtype=torch.bfloat16, grad_accum: int | None = None,
+                 grad_reshard: bool = False):
     """Returns ``grad_fn(params, batch) -> (loss, grads)``, the loss an fp32 0-d tensor.
 
     ``batch`` holds numpy arrays or tensors; they move to the parameters'
@@ -157,32 +247,70 @@ def make_grad_fn(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtype=t
     that many microbatches, sums their gradients in fp32 in microbatch order
     and divides (the activation-memory lever); the gradients are then fp32,
     and otherwise in the parameters' type.
+
+    With ``ctx`` on a mesh each gradient is a ``DTensor`` laid out as its
+    parameter, every block already reduced (see the module's docstring);
+    ``grad_reshard`` picks the FSDP reduction (``reduce_scatter`` or
+    ``all_reduce``), the values are the same.  Each microbatch's rows must
+    split over the data axes.
     """
-    loss_fn = make_loss_fn(cfg, attn_impl=attn_impl, compute_dtype=compute_dtype)
+    mesh = _on_mesh(ctx)
+    if mesh:
+        ctx = dataclasses.replace(ctx, fsdp_grad="reduce_scatter" if grad_reshard
+                                  else "all_reduce")
+    loss_fn = make_loss_fn(cfg, ctx, attn_impl=attn_impl, compute_dtype=compute_dtype)
     accum = grad_accum if grad_accum is not None else cfg.grad_accum
+    skip = unreached(cfg)
 
     def grads_of(params, mb):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        """The loss and each parameter's gradient (its block, on a mesh)."""
+        held = tree_leaves(params)
+        # the parameters are differentiated in the compute type, as the loss casts
+        # them: the sums over ranks run in that type, and each gradient is cast to
+        # its parameter's type once, after them (the cast's backward)
+        leaves = [rules.block(p).detach().to(compute_dtype).requires_grad_() for p in held]
         with torch.enable_grad():
-            loss, _ = loss_fn(tree_unflatten(params, leaves), mb)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a parameter the loss does not reach (hubert's token table) gets zeros, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        return loss.detach(), tree_unflatten(params, grads)
+            loss, _ = loss_fn(tree_unflatten(params, [rules.like(p, x)
+                                                      for p, x in zip(held, leaves)]), mb)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        for i, (path, _) in enumerate(tree_paths(params)):
+            if grads[i] is None:
+                # a parameter the loss does not reach gets zeros, as in JAX; on a
+                # mesh, a collective without a backward would look the same
+                if mesh and path not in skip:
+                    raise ValueError(f"no gradient reaches {path} on the mesh: a collective "
+                                     f"on its path has no backward")
+                grads[i] = torch.zeros_like(leaves[i])
+        if mesh:
+            grads = _sum_replicated(ctx, held, grads)
+        del leaves
+        for i, p in enumerate(held):  # one leaf's two copies at a time
+            grads[i] = grads[i].to(p.dtype)
+        return loss.detach(), grads
 
     def grad_fn(params, batch):
-        batch = _batch_on(batch, tree_leaves(params)[0].device)
+        held = tree_leaves(params)
+        batch = _batch_on(batch, rules.block(held[0]).device)
+        if mesh:
+            rows = next(iter(batch.values())).shape[0] // max(accum, 1)
+            dp = math.prod(ctx.axis_sizes[a] for a in ctx.dp_axes)
+            if rows % dp:
+                raise ValueError(f"{rows} rows a microbatch do not split over the data axes "
+                                 f"{ctx.dp_axes} ({dp} ranks)")
         if accum <= 1:
-            return grads_of(params, batch)
-        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in batch.items()}
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                         params)
-        loss_sum = 0.0
-        for i in range(accum):
-            loss, g = grads_of(params, {k: v[i] for k, v in micro.items()})
-            grads = tree_map(lambda a, b: a + b.float(), grads, g)
-            loss_sum = loss_sum + loss
-        return loss_sum / accum, tree_map(lambda g: g / accum, grads)
+            loss, grads = grads_of(params, batch)
+        else:
+            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+                     for k, v in batch.items()}
+            grads = [torch.zeros(rules.block(p).shape, dtype=torch.float32,
+                                 device=rules.block(p).device) for p in held]
+            loss_sum = 0.0
+            for i in range(accum):
+                loss, g = grads_of(params, {k: v[i] for k, v in micro.items()})
+                grads = [a + b.float() for a, b in zip(grads, g)]
+                loss_sum = loss_sum + loss
+            loss, grads = loss_sum / accum, [g / accum for g in grads]
+        return loss, tree_unflatten(params, [rules.like(p, g) for p, g in zip(held, grads)])
 
     return grad_fn
 
@@ -193,37 +321,48 @@ def make_update_fn(*, lr_peak: float = 3e-4, warmup: int = 100, total_steps: int
     cosine rate at ``state["step"]``, AdamW, ``step + 1``.  A state whose
     ``opt`` holds a ``master`` copy (see :func:`init_train_state`) is updated
     on that copy, and its parameters become the new master cast to their own
-    types."""
+    types.  A mesh state's ``DTensor``\\s are updated block by block, in
+    their own layouts."""
 
     def update(state, grads):
         params = state["params"]
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        lr = cosine_lr(state["step"], peak=lr_peak, warmup=warmup, total=total_steps)
+        step = rules.block(state["step"])
+        lr = cosine_lr(step, peak=lr_peak, warmup=warmup, total=total_steps)
         master = state["opt"].get("master", params)
         opt_in = {k: v for k, v in state["opt"].items() if k != "master"}
         new_master, new_opt = adamw_update(grads, opt_in, master, lr=lr,
                                            weight_decay=weight_decay)
         if "master" in state["opt"]:
-            new_params = tree_map(lambda m, p: m.to(p.dtype), new_master, params)
+            new_params = tree_map(lambda m, p: rules.like(p, rules.block(m).to(p.dtype)),
+                                  new_master, params)
             new_opt["master"] = new_master
         else:
             new_params = new_master
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": rules.like(state["step"], step + 1)}
         return new_state, {"grad_norm": gnorm, "lr": lr}
 
     return update
 
 
-def make_train_step(cfg: ArchConfig, *, attn_impl: str = "chunked", compute_dtype=torch.bfloat16,
-                    lr_peak: float = 3e-4, warmup: int = 100, total_steps: int = 10_000,
-                    grad_clip: float = 1.0, grad_accum: int | None = None,
-                    weight_decay: float = 0.1, on_update=None):
+def make_train_step(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
+                    compute_dtype=torch.bfloat16, lr_peak: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10_000, grad_clip: float = 1.0,
+                    grad_accum: int | None = None, weight_decay: float = 0.1,
+                    grad_reshard: bool = False, on_update=None):
     """Returns ``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``:
     :func:`make_grad_fn`, then :func:`make_update_fn`.  ``state`` is left as it was.
     ``on_update()``, if given, is called between the two (the dry run's
-    meters start the update's phase there)."""
-    grad_fn = make_grad_fn(cfg, attn_impl=attn_impl, compute_dtype=compute_dtype,
-                           grad_accum=grad_accum)
+    meters start the update's phase there).
+
+    With ``ctx`` on a mesh every rank calls the step with its ``DTensor``
+    state and the whole batch, and gets its blocks of the new state;
+    ``grad_reshard=True`` reduces the FSDP gradients with a
+    ``reduce_scatter`` (the reference's gradients pinned to the parameters'
+    sharding), ``False`` with an ``all_reduce``: the states are the same."""
+    grad_fn = make_grad_fn(cfg, ctx, attn_impl=attn_impl, compute_dtype=compute_dtype,
+                           grad_accum=grad_accum, grad_reshard=grad_reshard)
     update = make_update_fn(lr_peak=lr_peak, warmup=warmup, total_steps=total_steps,
                             grad_clip=grad_clip, weight_decay=weight_decay)
 

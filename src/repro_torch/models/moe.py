@@ -15,8 +15,12 @@ each rank's local blocks, with the port's named-axis collectives:
   ``[e_base, e_base + E_l)`` of its local tokens (capacity from the local
   token count) and the partial outputs are summed over ``model``.  The
   expert weights are first gathered whole on their d_model dim, as the
-  reference's ``in_specs`` ``P(tp, None, None)`` asks (prefill keeps them
-  FSDP-sharded there, ``embed_e -> data``);
+  reference's ``in_specs`` ``P(tp, None, None)`` asks (prefill and training
+  keep them FSDP-sharded there, ``embed_e -> data``).  The body runs under
+  autograd on the einsum route: the gathers' backward reduce-scatters the
+  expert weights' gradients over the data axes, and the tokens' and the
+  router's cotangents are summed over ``model`` (``shard_map``'s transpose of
+  an input replicated along an axis);
 * token dispatch (decode, ``token_dispatch=True``): the decode batch is
   gathered over the data axes, every rank serves its experts' d_ff slice
   (``moe_ff -> data``), one sum over the whole mesh recombines, and each
@@ -220,7 +224,10 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
         out = rules.relayout(ctx, out, (None, None, None), out_spec)  # this rank's rows
         return rules.as_dtensor(ctx, out.contiguous(), out_spec, x.shape)
 
-    # expert parallelism: local tokens, local experts, a sum over the model axis
+    # expert parallelism: local tokens, local experts, a sum over the model axis.
+    # The tokens and the router are the same on every model rank and reach
+    # only its experts: their cotangents are summed over the model axis
+    x_l, router = (rules.pbroadcast(ctx, t, tp) for t in (x_l, router))
     w1 = local(ctx, p["w1"], (tp, None, None))
     wg_l = w1 if wg is None else local(ctx, wg, (tp, None, None))
     w2 = local(ctx, p["w2"], (tp, None, None))

@@ -34,6 +34,15 @@ process's up to the order of the sums over the model axis.  One layer loop
 serves one device and the mesh: without a mesh the helpers that realise
 the rules do nothing.  The ``rec`` and ``ssm`` blocks have no mesh path
 yet.
+
+The mesh forward is differentiable (the train step on a mesh,
+:func:`repro_torch.models.model.make_train_step` with a ``ctx``): the
+gathers' backward reduces each parameter's gradient to its block, and a
+value every model rank holds goes through ``rules.pbroadcast`` where it
+enters a product the model axis splits (q/k/v, ``wi``/``wg``, the head,
+kv heads sliced for the local query heads), so the ranks' partial
+cotangents are summed there (Megatron's ``f``; the row-parallel ``psum``
+is its ``g``).
 """
 
 from __future__ import annotations
@@ -250,6 +259,13 @@ def _split(specs, name: str, key: str, dim: int):
     return None if specs is None else specs[name][key][dim]
 
 
+def _tp_in(ctx, x, split):
+    """``x``, a value every model rank holds, as it enters a product whose weight
+    the model axis splits (``split`` not ``None``): the same values, and in the
+    backward the sum of the ranks' partial cotangents (:func:`rules.pbroadcast`)."""
+    return x if split is None else rules.pbroadcast(ctx, x, ctx.tp_axis)
+
+
 def _row_sum(ctx, y, contracted):
     """A row-parallel product's partial sums over the model axis (none when its
     ``contracted`` dim is whole on every rank)."""
@@ -307,9 +323,12 @@ def _check_kinds(ctx, cfg: ArchConfig) -> None:
 def _logits(ctx, params, cfg: ArchConfig, x, B: int):
     """The final norm and the head: logits ``[B, S, vocab]``, on a mesh a
     ``DTensor`` sharded over the batch and vocab rules."""
-    top, _ = _blocks(ctx, {k: params[k] for k in ("final_norm", "embed", "head") if k in params})
+    top, specs = _blocks(ctx, {k: params[k] for k in ("final_norm", "embed", "head")
+                               if k in params})
     x = apply_norm(_final_norm_kind(cfg), top["final_norm"], x)
-    local = _head(top, cfg, x)
+    tied = cfg.tie_embeddings and "head" not in top
+    local = _head(top, cfg, _tp_in(ctx, x, _split(specs, "embed", "table", 0) if tied
+                                   else _split(specs, "head", "w", 1)))
     if not _on_mesh(ctx):
         return local
     shape = (B, x.shape[1], cfg.vocab_size)
@@ -344,6 +363,7 @@ def _ffn(p, blocks, specs, h2, cfg: ArchConfig, *, ctx=None, batch: int = 0,
         x = rules.as_dtensor(ctx, h2, (_batch_entry(ctx, batch), None, None),
                              (batch, *h2.shape[1:]))
         return moe_mod.moe_apply(p["moe"], x, ctx=ctx, token_dispatch=decode, **kw).to_local()
+    h2 = _tp_in(ctx, h2, _split(specs, "mlp", "wi", 1))  # wi and wg split alike
     return _row_sum(ctx, mlp_apply(blocks["mlp"], h2, cfg.mlp_act), _split(specs, "mlp", "wo", 0))
 
 
@@ -352,15 +372,18 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len=None
     lp, sp = _blocks(ctx, p)
     h = apply_norm(cfg.norm, lp["ln1"], x)
     if kind in ("attn", "local"):
-        q = proj_in(lp["q"], h)  # [B, S, H, hd]
-        k = proj_in(lp["k"], h)
-        v = proj_in(lp["v"], h)
+        # one pbroadcast for the projections the model axis splits; one the
+        # divisibility fallback computes whole reads h itself
+        split = {n: _split(sp, n, "w", 1) for n in ("q", "k", "v")}
+        h_tp = _tp_in(ctx, h, next((e for e in split.values() if e is not None), None))
+        q, k, v = (proj_in(lp[n], h if split[n] is None else h_tp) for n in ("q", "k", "v"))
         if cfg.positions == "rope":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         kv = _kv_heads(ctx, cfg, sp)
-        if kv is not None:
-            k, v = k[:, :, kv], v[:, :, kv]
+        if kv is not None:  # whole kv heads, of which each rank's queries read a slice
+            k = _tp_in(ctx, k, kv)[:, :, kv]
+            v = _tp_in(ctx, v, kv)[:, :, kv]
         out = attn_mod.attention(
             q, k, v,
             causal=cfg.kind != "encoder",

@@ -8,6 +8,12 @@ as XLA computes them (Python floats would be float64).  Every function
 builds new tensors and modifies none of its inputs: a step that fails
 halfway leaves the state it was given as it was, so a retry starts from it
 (:func:`repro_torch.runtime.run_with_retries`).
+
+A mesh's state and gradients are ``DTensor``\\s (:func:`repro_torch.runtime.elastic.reshard_state`
+lays ``mu``, ``nu`` and ``master`` out like the parameters): the update runs
+on each rank's blocks and keeps their layouts, and the clip's norm sums each
+leaf's squares over the mesh axes that shard it, so it counts every element
+once and is the same on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import math
 
 import torch
 
+from ..sharding import rules
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "cosine_lr"]
@@ -38,12 +45,37 @@ def clip_by_global_norm(grads, max_norm: float):
     ``linalg.vector_norm`` and ``_foreach_norm`` accumulate in fp32 one
     element after another and were 1.5 % off at 136 M elements.
     """
-    leaves = [g.float() for g in tree_leaves(grads)]
-    sums = [torch.sum(sq) for sq in torch._foreach_mul(leaves, leaves)]
-    norm = torch.sqrt(torch.sum(torch.stack(sums)))
+    held = tree_leaves(grads)
+    leaves = [rules.block(g).float() for g in held]
+    sums = torch.stack([torch.sum(sq) for sq in torch._foreach_mul(leaves, leaves)])
+    norm = torch.sqrt(torch.sum(_sum_over_shards(held, sums)))
     # a tensor numerator: a Python number over a tensor would multiply by a reciprocal
     scale = torch.clamp(torch.full_like(norm, max_norm) / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_unflatten(grads, torch._foreach_mul(leaves, scale)), norm
+    return tree_unflatten(grads, [rules.like(g, x) for g, x in
+                                  zip(held, torch._foreach_mul(leaves, scale))]), norm
+
+
+def _sum_over_shards(held, sums):
+    """Each leaf's sum of squares of its block summed over the mesh axes whose
+    ``Shard`` placements cut it (one ``all_reduce`` per set of axes); a
+    replicated leaf's, and a plain tensor's, as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    groups: dict = {}
+    for i, g in enumerate(held):
+        if isinstance(g, DTensor):
+            axes = tuple(a for a, pl in zip(g.device_mesh.mesh_dim_names, g.placements)
+                         if isinstance(pl, Shard))
+            if axes:
+                groups.setdefault(axes, []).append(i)
+    if not groups:
+        return sums
+    ctx = rules.MeshCtx.on(next(g for g in held if isinstance(g, DTensor)).device_mesh)
+    out = list(sums.unbind())
+    for axes, idx in groups.items():
+        for i, s in zip(idx, rules.psum(ctx, sums[idx], axes).unbind()):
+            out[i] = s
+    return torch.stack(out)
 
 
 def adamw_update(grads, state, params, *, lr, b1: float = 0.9, b2: float = 0.95,
@@ -57,22 +89,25 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9, b2: float = 0.95,
     by PyTorch's multi-tensor ops (``torch._foreach_*``, out of place): a
     few dozen launches a step, not a dozen per parameter.
     """
-    count = state["count"] + 1
+    count = rules.block(state["count"]) + 1
     cf = count.float()
     bc1 = 1.0 - b1**cf
     bc2 = 1.0 - b2**cf
+    held = tree_leaves(params)
+    blocks = lambda tree: [rules.block(x) for x in tree_leaves(tree)]  # noqa: E731
     with torch.no_grad():
-        g = [x.float() for x in tree_leaves(grads)]
-        p = tree_leaves(params)
+        g = [x.float() for x in blocks(grads)]
+        p = blocks(params)
         p32 = [x.float() for x in p]
         add, mul, div = torch._foreach_add, torch._foreach_mul, torch._foreach_div
-        m = add(mul(tree_leaves(state["mu"]), b1), mul(g, 1 - b1))
-        v = add(mul(tree_leaves(state["nu"]), b2), mul(mul(g, g), 1 - b2))
+        m = add(mul(blocks(state["mu"]), b1), mul(g, 1 - b1))
+        v = add(mul(blocks(state["nu"]), b2), mul(mul(g, g), 1 - b2))
         step = div(div(m, bc1), add(torch._foreach_sqrt(div(v, bc2)), eps))
         newp = torch._foreach_sub(p32, mul(add(step, mul(p32, weight_decay)), lr))
         newp = [x.to(q.dtype) for x, q in zip(newp, p, strict=True)]
-    return tree_unflatten(params, newp), {"mu": tree_unflatten(params, m),
-                                          "nu": tree_unflatten(params, v), "count": count}
+    placed = lambda xs: tree_unflatten(params, [rules.like(r, x) for r, x in zip(held, xs)])  # noqa: E731
+    return placed(newp), {"mu": placed(m), "nu": placed(v),
+                          "count": rules.like(state["count"], count)}
 
 
 def cosine_lr(step, *, peak: float, warmup: int, total: int, floor_frac: float = 0.1):

@@ -28,11 +28,34 @@ class.  Placement is the second half of this module:
 * :func:`relayout` moves a rank's local block from one spec to another, the
   port's ``shard_map`` ``in_specs``: it gathers the mesh axes the new spec
   drops and slices for those it adds;
-* :func:`psum`, :func:`all_gather` and :func:`axis_index` are
+* :func:`psum`, :func:`pbroadcast`, :func:`all_gather`,
+  :func:`psum_scatter`, :func:`pmax` and :func:`axis_index` are
   ``jax.lax``'s collectives over named mesh axes, for the port's
-  ``shard_map``-style bodies, built on ``all_reduce`` and the list form of
-  ``all_gather`` (the two collectives gloo runs on CUDA tensors).  Each
-  counts its calls and bytes by kind (:func:`collective_counts`).
+  ``shard_map``-style bodies, built on ``all_reduce``, the list form of
+  ``all_gather`` and ``reduce_scatter_tensor`` (gloo runs all three on CUDA
+  tensors).  Each counts its calls and bytes by kind
+  (:func:`collective_counts`), in the backward too.
+
+The collectives are ``torch.autograd.Function``\\s with the transposes that
+``shard_map`` gives them, so a train step differentiates through the mesh
+forward (Megatron's ``f``/``g`` pair is :func:`pbroadcast`/:func:`psum`):
+
+=================  ===========================  ==============================
+collective         forward                      backward
+=================  ===========================  ==============================
+``psum``           ``all_reduce``               the cotangent as it is
+``pbroadcast``     identity                     ``all_reduce``
+``all_gather``     list ``all_gather``, tiled   ``reduce_scatter``, or
+                                                ``all_reduce`` and this rank's
+                                                block (``MeshCtx.fsdp_grad``)
+``pmax``           ``all_reduce`` (max)         none: its result is detached
+=================  ===========================  ==============================
+
+A gather's backward sums the ranks' cotangents, so it assumes what every
+gather of the port's train step meets: each rank uses the gathered value on
+rows of its own (a weight's FSDP blocks on a data rank's batch rows), and
+its cotangent is a partial sum.  A replicated value that enters a region
+the model axis splits goes through :func:`pbroadcast`.
 
 Default rule table (mesh axes: pod, data, model):
   embed   -> data          (FSDP: params sharded over the data axis)
@@ -48,13 +71,15 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 from ..obs.timing import Stopwatch
 
-__all__ = ["DEFAULT_RULES", "MeshCtx", "all_gather", "as_dtensor", "axis_index",
-           "collective_counts", "constrain", "distribute", "full_value", "local_block",
-           "logical_to_spec", "mesh_axes", "placements", "psum", "relayout",
-           "reset_collective_counts", "shard_bytes", "shard_shape", "spec_entry", "spec_of",
-           "spec_tree"]
+__all__ = ["DEFAULT_RULES", "MeshCtx", "all_gather", "as_dtensor", "axis_index", "block",
+           "block_index", "collective_counts", "constrain", "distribute", "full_value", "like",
+           "local_block", "logical_to_spec", "mesh_axes", "pbroadcast", "placements", "pmax",
+           "psum", "psum_scatter", "relayout", "reset_collective_counts", "shard_bytes",
+           "shard_shape", "spec_entry", "spec_of", "spec_tree"]
 
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "embed": ("data",),  # FSDP
@@ -80,11 +105,18 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
     """A mesh's axis sizes, the rule table in force on it and, on a rank, the
-    ``DeviceMesh`` (``None`` for the dry run's arithmetic)."""
+    ``DeviceMesh`` (``None`` for the dry run's arithmetic).
+
+    ``fsdp_grad`` is how a gather's backward reduces the ranks' partial
+    gradients: ``"reduce_scatter"`` (each rank receives the sum of its own
+    block: the reference's ``grad_reshard=True``) or ``"all_reduce"`` (every
+    rank receives the whole sum and keeps its block).  The values are the
+    same; the collective and its wire bytes differ."""
 
     axes: tuple[tuple[str, int], ...]
     rules: tuple[tuple[str, tuple[str, ...]], ...] = tuple(DEFAULT_RULES.items())
     mesh: object = dataclasses.field(default=None, compare=False)
+    fsdp_grad: str = dataclasses.field(default="reduce_scatter", compare=False)
 
     @classmethod
     def of(cls, axis_sizes: dict[str, int]) -> "MeshCtx":
@@ -269,40 +301,152 @@ def _count(kind: str, x, seconds: float) -> None:
     c["seconds"] += seconds
 
 
-def psum(ctx, x, axes):
-    """The sum of ``x`` over the ranks of mesh axes ``axes`` (a name or a tuple),
-    one ``all_reduce`` per axis, innermost first; a new tensor."""
+def _axis_size(mesh, a: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(a))
+
+
+def _all_reduce(ctx, x, axes, op=None):
+    """The sum (or ``op``) of ``x`` over mesh axes ``axes``, one ``all_reduce`` per
+    axis, innermost first; a new tensor."""
     import torch.distributed as dist
 
     mesh = _mesh(ctx)
     out = x.contiguous().clone()
     for a in reversed(mesh_axes(axes)):
-        if mesh.size(mesh.mesh_dim_names.index(a)) == 1:
+        if _axis_size(mesh, a) == 1:
             continue
         sw = Stopwatch()
-        dist.all_reduce(out, group=mesh.get_group(a))
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=mesh.get_group(a))
         _count("all_reduce", out, sw.elapsed())
     return out
 
 
-def all_gather(ctx, x, axes, dim: int = 0):
-    """The blocks of ``x`` over mesh axes ``axes`` concatenated along ``dim`` in
-    axis-index order, the first axis major (``jax.lax.all_gather(..., tiled=True)``)."""
-    import torch
+def _gather(ctx, x, a: str, dim: int):
+    """The blocks of ``x`` over mesh axis ``a`` concatenated along ``dim``."""
     import torch.distributed as dist
 
     mesh = _mesh(ctx)
-    out = x.contiguous()
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(_axis_size(mesh, a))]
+    sw = Stopwatch()
+    dist.all_gather(parts, x, group=mesh.get_group(a))
+    _count("all_gather", x, sw.elapsed())
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter(ctx, x, a: str, dim: int):
+    """The sum of ``x`` over mesh axis ``a``, cut along ``dim`` into one block
+    per rank of the axis: this rank's block (``reduce_scatter``)."""
+    import torch.distributed as dist
+
+    mesh = _mesh(ctx)
+    n = _axis_size(mesh, a)
+    whole = x.movedim(dim, 0).contiguous()
+    if whole.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+    out = whole.new_empty((whole.shape[0] // n, *whole.shape[1:]))
+    sw = Stopwatch()
+    dist.reduce_scatter_tensor(out, whole, group=mesh.get_group(a))
+    _count("reduce_scatter", whole, sw.elapsed())
+    return out.movedim(0, dim).contiguous()
+
+
+def _own_block(ctx, x, a: str, dim: int):
+    """This rank's block along ``dim`` of ``x`` cut over mesh axis ``a``."""
+    n = _axis_size(_mesh(ctx), a)
+    step = x.shape[dim] // n
+    return x.narrow(dim, axis_index(ctx, a) * step, step)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ctx, x, axes):
+        return _all_reduce(ctx, x, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, g, None
+
+
+class _Pbroadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ctx, x, axes):
+        fctx.mesh_ctx, fctx.axes = ctx, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _all_reduce(fctx.mesh_ctx, g, fctx.axes), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ctx, x, a, dim):
+        fctx.mesh_ctx, fctx.a, fctx.dim = ctx, a, dim
+        return _gather(ctx, x, a, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, a, dim = fctx.mesh_ctx, fctx.a, fctx.dim
+        # either way a contiguous block: a later sum over it (the clip's norm)
+        # adds its elements in one order
+        if ctx.fsdp_grad == "reduce_scatter":
+            return None, psum_scatter(ctx, g, a, dim), None, None
+        if ctx.fsdp_grad != "all_reduce":
+            raise ValueError(f"fsdp_grad={ctx.fsdp_grad!r}: 'reduce_scatter' or 'all_reduce'")
+        return None, _own_block(ctx, _all_reduce(ctx, g, a), a, dim).contiguous(), None, None
+
+
+def psum(ctx, x, axes):
+    """The sum of ``x`` over the ranks of mesh axes ``axes`` (a name or a tuple),
+    one ``all_reduce`` per axis, innermost first; a new tensor.  Its backward
+    passes the cotangent through (every rank holds the sum)."""
+    return _Psum.apply(ctx, x, axes)
+
+
+def pbroadcast(ctx, x, axes):
+    """``x`` itself, where a value every rank of ``axes`` holds enters a region
+    those axes split; the backward sums the ranks' partial cotangents."""
+    return _Pbroadcast.apply(ctx, x, axes)
+
+
+def pmax(ctx, x, axes):
+    """The largest ``x`` over the ranks of mesh axes ``axes``, detached (for a
+    logsumexp's shift, which no gradient depends on)."""
+    import torch.distributed as dist
+
+    return _all_reduce(ctx, x.detach(), axes, op=dist.ReduceOp.MAX)
+
+
+def all_gather(ctx, x, axes, dim: int = 0):
+    """The blocks of ``x`` over mesh axes ``axes`` concatenated along ``dim`` in
+    axis-index order, the first axis major (``jax.lax.all_gather(..., tiled=True)``).
+    The backward reduces the ranks' partial cotangents to this rank's block
+    (``ctx.fsdp_grad``)."""
     for a in reversed(mesh_axes(axes)):
-        n = mesh.size(mesh.mesh_dim_names.index(a))
-        if n == 1:
-            continue
-        parts = [torch.empty_like(out) for _ in range(n)]
-        sw = Stopwatch()
-        dist.all_gather(parts, out, group=mesh.get_group(a))
-        _count("all_gather", out, sw.elapsed())
-        out = torch.cat(parts, dim=dim)
-    return out
+        if _axis_size(_mesh(ctx), a) > 1:
+            x = _Gather.apply(ctx, x, a, dim)
+    return x.contiguous()
+
+
+def psum_scatter(ctx, x, axes, dim: int = 0):
+    """The sum of ``x`` over mesh axes ``axes``, of which this rank keeps its block
+    along ``dim`` (``jax.lax.psum_scatter(..., tiled=True)``: the blocks in
+    :func:`all_gather`'s order), one ``reduce_scatter`` per axis, the first
+    axis first; a contiguous tensor.  It is the gathers' backward and has
+    none of its own."""
+    for a in mesh_axes(axes):
+        if _axis_size(_mesh(ctx), a) > 1:
+            x = _scatter(ctx, x, a, dim)
+    return x
+
+
+def block_index(ctx, axes) -> int:
+    """This rank's block of a dim cut over mesh axes ``axes``, the first axis major."""
+    sizes, idx = ctx.axis_sizes, 0
+    for a in mesh_axes(axes):
+        idx = idx * sizes[a] + axis_index(ctx, a)
+    return idx
 
 
 def relayout(ctx, local, in_spec: tuple, out_spec: tuple):
@@ -321,13 +465,10 @@ def relayout(ctx, local, in_spec: tuple, out_spec: tuple):
         axes = mesh_axes(out_spec[d])
         if axes:
             n = math.prod(sizes[a] for a in axes)
-            idx = 0
-            for a in axes:
-                idx = idx * sizes[a] + axis_index(ctx, a)
             step = local.shape[d] // n
             if step * n != local.shape[d]:
                 raise ValueError(f"dim {d} of {tuple(local.shape)} does not split {n} ways")
-            local = local.narrow(d, idx * step, step)
+            local = local.narrow(d, block_index(ctx, axes) * step, step)
     return local
 
 
@@ -338,8 +479,28 @@ def local_block(ctx, x, spec: tuple):
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
-        return relayout(ctx, x.to_local(), spec_of(ctx, x), spec)
+        return relayout(ctx, block(x), spec_of(ctx, x), spec)
     return relayout(ctx, x, (None,) * x.dim(), spec)
+
+
+def block(x):
+    """This rank's block of a ``DTensor`` (a plain tensor as it is).  Under
+    autograd the block's gradient is this rank's block of ``x``'s: the
+    placements stay, so no backward calls ``redistribute``."""
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local(grad_placements=x.placements) if isinstance(x, DTensor) else x
+
+
+def like(ref, local):
+    """``local`` as a ``DTensor`` laid out as ``ref`` is (``local`` itself where
+    ``ref`` is a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(ref, DTensor):
+        return local
+    return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
 
 
 def as_dtensor(ctx, local, spec: tuple, shape):

@@ -263,6 +263,26 @@ def test_kv_heads_that_do_not_split_compute_whole(runs):
         np.testing.assert_array_equal(rank["seqs"], want_seqs)
 
 
+def test_train_gradients_where_kv_heads_do_not_split(runs):
+    """The same reduced qwen2-0.5b on (2, 4) under the train rules: the kv
+    projections compute whole and each rank's queries read a slice of their
+    heads, so the slice's cotangents are summed over the model axis; the loss
+    and every gradient equal one process's (which tests/test_torch_train.py
+    holds against the JAX package) within its limits."""
+    from repro_torch.tree import tree_paths
+
+    cfg, params = runs["gqa_cfg"], runs["gqa_params"]
+    tokens = runs["inp"]["tokens"][:, :8]
+    loss, grads = tmodel.make_grad_fn(cfg, compute_dtype=torch.float32)(params,
+                                                                       {"tokens": tokens})
+    for rank in runs["gqa"]:
+        got = rank["train"]
+        assert got["k_spec"] == ("data", None, None)
+        assert abs(got["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+        for path, g in tree_paths(grads):
+            _close(got["grads"][path], g.numpy(), 1e-4)
+
+
 def test_make_mesh_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

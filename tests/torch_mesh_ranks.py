@@ -17,7 +17,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 from repro_torch.runtime.elastic import reshard_state, state_shardings, state_specs
 from repro_torch.sharding import rules
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_paths
 
 MOE_AXES = {"router": ("embed", None), "w1": ("expert", "embed_e", "moe_ff"),
             "wg": ("expert", "embed_e", "moe_ff"), "w2": ("expert", "moe_ff", "embed_e")}
@@ -126,6 +126,14 @@ def gqa_body(ctx, cfg, params, tokens, prompts, new_tokens):
         steps.append(_whole(dctx, lg)[:, 0])
     out["decode"] = np.stack(steps, 1)
     out["seqs"] = generate_on_mesh(dctx, cfg, dp, prompts, new_tokens, device="cpu")
+    # the gradients under the train rules: the kv projections whole, each rank's
+    # queries reading a slice of their heads
+    tctx = make_ctx(ctx, cfg, SHAPES["train_4k"])
+    loss, grads = tmodel.make_grad_fn(cfg, tctx, compute_dtype=torch.float32)(
+        reshard_state(params, None, tctx, axes), {"tokens": tokens})
+    out["train"] = dict(loss=float(loss), grads={path: _whole(tctx, g)
+                                                 for path, g in tree_paths(grads)},
+                        k_spec=rules.spec_of(tctx, grads["layers"][0]["k"]["w"]))
     return out
 
 
