@@ -192,7 +192,19 @@ Phases, one JSON line each:
                       near-tie, step logits within 1e-4 * max|logits| up to
                       there.  Backend, ranks per card, collectives per
                       decode step by kind and bytes, ms a step beside one
-                      process's, each rank's shard and peak memory.
+                      process's, each rank's shard and peak memory.  Then
+                      the recurrent families on the same mesh, in one more
+                      spawn: recurrentgemma-9b (5 of 38 layers: rec, rec,
+                      local, rec, rec) and mamba2-370m (all 48) at full
+                      width, one process first and each rank in turn
+                      drawing the model, as above; the prefill ``apply(
+                      attn_impl="flash", ctx=)`` at B 2 x S 4096 (each
+                      rank's logits block within 1e-4 * max|logits|) and
+                      ``generate_on_mesh`` as above, with no kernel
+                      launched on any rank (the local layer takes the
+                      banded path, as one process does); collectives per
+                      decode step, ms a step beside one process's and
+                      ``lm_families``', each rank's shard and peak.
     ``mesh_train``  — the train step on the mesh: qwen2-0.5b at full width on
                       the same (data 2, model 2) mesh of four gloo ranks,
                       under the train rules (FSDP ``embed -> data``, the
@@ -3440,6 +3452,17 @@ def _step_ties(calls, n_moe: int, top_k: int):
     return torch.stack(ties, dim=1)
 
 
+def warm_placement(mctx, dev) -> None:
+    """One ``DTensor`` made on every rank at once: its first construction in a
+    process imports ``torch.distributed.tensor``'s machinery (seconds), which
+    the ranks' one-at-a-time draws would otherwise pay in turn."""
+    import torch
+
+    from repro_torch.sharding import rules
+
+    rules.as_dtensor(mctx, torch.zeros(1, device=dev), (None,), (1,))
+
+
 def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf: float):
     """One rank of the ``mesh_serve`` phase (spawned by ``run_on_mesh``)."""
     import dataclasses
@@ -3476,6 +3499,7 @@ def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf
 
     # the parameters: one rank at a time draws the whole tree (seed 0, as the
     # one process did) and keeps its blocks under the prefill rules
+    warm_placement(mctx, dev)
     t0 = time.perf_counter()
     for r in range(world):
         if r == rank:
@@ -3634,9 +3658,10 @@ def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf
     return out
 
 
-def phase_mesh_serve(ctx, sizes) -> dict:
+def phase_mesh_serve(ctx, sizes, lm_families: dict) -> dict:
     """qwen3-moe-235b-a22b (2 of 94 layers) at full width on a (data 2, model 2)
-    mesh of four ranks sharing the card over gloo, against one process."""
+    mesh of four ranks sharing the card over gloo, against one process; then
+    the recurrent families (:func:`mesh_families`)."""
     import dataclasses
 
     import numpy as np
@@ -3845,9 +3870,270 @@ def phase_mesh_serve(ctx, sizes) -> dict:
                shard_gb_per_rank=[gb(r["shard_bytes"]) for r in ranks],
                peak_gb_per_rank=dict(build=[gb(r["build_peak_bytes"]) for r in ranks],
                                      prefill=[gb(r["prefill_peak_bytes"]) for r in ranks],
-                                     end=[gb(r["peak_bytes"]) for r in ranks]))
+                                     end=[gb(r["peak_bytes"]) for r in ranks]),
+               families=mesh_families(ctx, sizes, lm_families))
     emit(out)
     return out
+
+
+def mesh_family_rank(mctx, cfg, tmp: str, tokens, prompts, gen: int) -> dict:
+    """One rank's part of a recurrent family in ``mesh_serve``: the model drawn
+    one rank at a time, the prefill and greedy serving, every kernel launch
+    counted (none is expected)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_leaf as fl
+    from repro_torch.launch.serve import generate_on_mesh
+    from repro_torch.launch.specs import make_ctx
+    from repro_torch.models import transformer
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+
+    card = mctx.mesh.device_type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    d, m = (rules.axis_index(mctx, a) for a in MESH_AXES)
+    # memory-mapped: four ranks hold no host copy of their 2.1 GB logits blocks
+    load = lambda name: torch.from_numpy(  # noqa: E731
+        np.load(os.path.join(tmp, name), mmap_mode="c")).to(dev)
+    peak = lambda: torch.cuda.max_memory_allocated() if card else None  # noqa: E731
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    pctx = make_ctx(mctx, cfg, SHAPES["prefill_32k"])
+    dctx = make_ctx(mctx, cfg, SHAPES["decode_32k"])
+    check(pctx.rules == dctx.rules, f"{cfg.name}: the decode rules move the parameters")
+
+    def kernel_launches():
+        return dict(block_spmm=bsp.launches, fused_block_spmm=fl.launches, flash=fa.launches)
+
+    def zero_launches():
+        bsp.launches = fl.launches = fa.launches = 0
+
+    warm_placement(mctx, dev)
+    t0 = time.perf_counter()
+    own = {}  # this rank's turn: drawing, keeping its blocks, freeing the rest
+    for r in range(world):
+        if r == rank:
+            t1 = time.perf_counter()
+            whole = transformer.init_params(cfg, seed=0, device=dev)
+            sync()
+            t2 = time.perf_counter()
+            params = reshard_state(whole, None, pctx, transformer.param_axes(cfg))
+            sync()
+            t3 = time.perf_counter()
+            del whole
+            if card:
+                torch.cuda.empty_cache()
+            own = dict(draw_s=t2 - t1, blocks_s=t3 - t2, free_s=time.perf_counter() - t3)
+        dist.barrier()
+    out = dict(rank=rank, coord=[d, m], build_s=time.perf_counter() - t0, build_own=own,
+               shard_bytes=sum(t.to_local().numel() * t.to_local().element_size()
+                               for t in tree_leaves(params)),
+               build_peak_bytes=peak())
+
+    tokens = torch.from_numpy(tokens).to(dev)
+    rules.reset_collective_counts()
+    with torch.inference_mode():
+        zero_launches()  # the main path's count starts here
+        sync()
+        t0 = time.perf_counter()
+        logits = transformer.apply(params, cfg, {"tokens": tokens}, attn_impl="flash", ctx=pctx)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = kernel_launches()  # ... and is read here
+    out["prefill_collectives"] = rules.collective_counts()
+    local = logits.to_local()
+    ref = load(f"logits_{d}_{m}.npy")
+    out["prefill"] = dict(local_shape=list(local.shape), spec=list(rules.spec_of(pctx, logits)),
+                          finite=bool(torch.isfinite(local).all()),
+                          max_abs_err=float((local - ref).abs().max()))
+    del logits, local, ref
+    out["prefill_peak_bytes"] = peak()
+    if card:
+        torch.cuda.empty_cache()
+
+    generate_on_mesh(dctx, cfg, params, prompts[:, :2], 2, device=dev)  # warm-up
+    rules.reset_collective_counts()
+    zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    seqs, steps = generate_on_mesh(dctx, cfg, params, prompts, gen, dtype=torch.float32,
+                                   device=dev, return_logits=True)
+    sync()
+    secs = time.perf_counter() - t0
+    n_steps = prompts.shape[1] + gen - 1
+    out["serve_launches"] = kernel_launches()
+    ref = load(f"steps_{d}_{m}.npy")
+    out["serve"] = dict(seqs=seqs.tolist(), seconds=secs, ms_per_decode_step=secs * 1e3 / n_steps,
+                        collectives_per_step={k: {kk: vv / n_steps for kk, vv in v.items()}
+                                              for k, v in rules.collective_counts().items()},
+                        step_err=(steps - ref).abs().amax(-1).cpu().numpy().tolist())
+    out["peak_bytes"] = peak()
+    del params, steps, ref
+    if card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_families_rank(mctx, cases: list, tmp: str) -> dict:
+    """Both recurrent families on this rank, one after the other (one spawn)."""
+    return {case["cfg"].name: mesh_family_rank(mctx, tmp=os.path.join(tmp, case["cfg"].name),
+                                               **case) for case in cases}
+
+
+def mesh_families(ctx, sizes, lm_families: dict) -> list:
+    """recurrentgemma-9b (5 of 38 layers) and mamba2-370m (48) at full width on
+    the (data 2, model 2) mesh: per family one process first (each rank's
+    blocks of its prefill logits and step logits saved), then the ranks, each
+    block held against one process's."""
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+
+    B, S = LM_BATCH, sizes["lm_seq"]
+    R, P, G = SERVE
+    dp, tp = MESH_SHAPE
+    n_steps = P + G - 1
+    cases, one = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_families_") as tmp:
+        for i, (arch, full_layers, rehearsal_layers) in enumerate(FAMILIES[1:]):
+            cfg = family_config(arch, rehearsal_layers if sizes["lm_reduced"] else full_layers,
+                                sizes["lm_reduced"])
+            V_l = cfg.vocab_size // tp
+            rng = np.random.default_rng(30 + i)
+            tokens = rng.integers(0, cfg.vocab_size, (B, S))
+            prompts = rng.integers(0, cfg.vocab_size, (R, P))
+            os.mkdir(os.path.join(tmp, cfg.name))
+
+            def save(name, t, blocks):
+                for a in range(dp):
+                    for b in range(tp):
+                        np.save(os.path.join(tmp, cfg.name, f"{name}_{a}_{b}.npy"),
+                                t[a * blocks // dp:(a + 1) * blocks // dp, :,
+                                  b * V_l:(b + 1) * V_l].contiguous().cpu().numpy())
+
+            params = transformer.init_params(cfg, seed=0, device=ctx.dev)
+            with torch.inference_mode():
+                logits = transformer.apply(params, cfg,
+                                           {"tokens": torch.from_numpy(tokens).to(ctx.dev)},
+                                           attn_impl="flash")
+            o = dict(max_abs_logit=float(logits.abs().max()))
+            save("logits", logits, B)
+            del logits
+            generate(cfg, params, prompts[:, :2], 2, device=ctx.dev)  # warm-up
+            ctx.sync()
+            t0 = time.perf_counter()
+            seqs, steps = generate(cfg, params, prompts, G, dtype=torch.float32, device=ctx.dev,
+                                   return_logits=True)
+            ctx.sync()
+            o["ms_per_decode_step"] = (time.perf_counter() - t0) * 1e3 / n_steps
+            o["max_abs_step_logit"] = float(steps.abs().max())
+            top2 = steps.topk(2, dim=-1).values
+            o["logit_ties"] = ((top2[..., 0] - top2[..., 1])
+                               <= STEP_REL * o["max_abs_step_logit"]).cpu().numpy()
+            save("steps", steps, R)
+            o["seqs"] = np.asarray(seqs)
+            one[cfg.name] = o
+            cases.append(dict(cfg=cfg, tokens=tokens, prompts=prompts, gen=G))
+            del params, steps, top2
+            if ctx.dev.type == "cuda":
+                torch.cuda.empty_cache()
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = run_on_mesh(mesh_families_rank, MESH_SHAPE, MESH_AXES, device=ctx.dev.type,
+                                args=(cases, tmp), timeout_s=900)
+        finally:
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        spawn_s = time.perf_counter() - t0
+
+    gb = lambda b: None if b is None else round(b / 1e9, 3)  # noqa: E731
+    no_launch = dict(block_spmm=0, fused_block_spmm=0, flash=0)
+    rows = []
+    for case in cases:
+        cfg = case["cfg"]
+        o, per_rank = one[cfg.name], [r[cfg.name] for r in ranks]
+        lmax, smax = o["max_abs_logit"], o["max_abs_step_logit"]
+        for r in per_rank:
+            tag = f"mesh_serve {cfg.name} rank {r['rank']} {tuple(r['coord'])}"
+            check(r["prefill_launches"] == no_launch and r["serve_launches"] == no_launch,
+                  f"{tag}: launched {r['prefill_launches']} in the prefill and "
+                  f"{r['serve_launches']} serving, expected none")
+            check(r["prefill"]["finite"] and r["prefill"]["max_abs_err"] <= MESH_REL * lmax,
+                  f"{tag}: prefill logits off one process's by {r['prefill']['max_abs_err']} "
+                  f"> {MESH_REL} * {lmax}")
+            check(r["serve"]["seqs"] == per_rank[0]["serve"]["seqs"],
+                  f"{tag}: its tokens differ from rank 0's")
+        mesh_seqs = np.asarray(per_rank[0]["serve"]["seqs"])
+        check(mesh_seqs.shape == (R, P + G) and np.array_equal(mesh_seqs[:, :P], case["prompts"]),
+              f"mesh_serve {cfg.name}: generate_on_mesh returned {mesh_seqs.shape}, "
+              "or not the prompts")
+        # a request may part from one process's tokens only at a step whose top
+        # two logits tie to STEP_REL; its step logits are held up to there
+        first_diff = []
+        for q in range(R):
+            diff = np.nonzero(mesh_seqs[q] != o["seqs"][q])[0]
+            t = int(diff[0]) if diff.size else P + G
+            first_diff.append(t)
+            check(not diff.size or bool(o["logit_ties"][q, t - 1]),
+                  f"mesh_serve {cfg.name}: request {q} parts from one process's tokens at {t} "
+                  "without a logit tie")
+        step_err, compared = 0.0, 0
+        for r in per_rank:
+            for row, errs in enumerate(r["serve"]["step_err"]):
+                upto = min(first_diff[r["coord"][0] * (R // dp) + row], n_steps)
+                if upto:
+                    step_err = max(step_err, max(errs[:upto]))
+                    compared += upto
+        check(step_err <= MESH_REL * smax,
+              f"mesh_serve {cfg.name}: decode-step logits off one process's by {step_err} "
+              f"> {MESH_REL} * {smax}")
+        fam = next(f for f in lm_families["families"] if f["arch"] == cfg.name)
+        rows.append(dict(
+            arch=cfg.name, layers=cfg.num_layers, kinds=sorted(set(transformer.layer_kinds(cfg))),
+            launches_per_rank=[dict(prefill=r["prefill_launches"], serve=r["serve_launches"])
+                               for r in per_rank],
+            prefill=dict(batch=B, seq=S, attn_impl="flash",
+                         logits_spec=per_rank[0]["prefill"]["spec"],
+                         local_logits_shape=per_rank[0]["prefill"]["local_shape"],
+                         max_abs_logit=lmax,
+                         max_abs_err=max(r["prefill"]["max_abs_err"] for r in per_rank),
+                         tol=MESH_REL * lmax, seconds_per_rank=[r["prefill_s"] for r in per_rank],
+                         collectives=per_rank[0]["prefill_collectives"]),
+            serve=dict(requests=R, prompt_len=P, new_tokens=G, dtype="float32",
+                       decode_steps=n_steps,
+                       ms_per_decode_step_per_rank=[r["serve"]["ms_per_decode_step"]
+                                                    for r in per_rank],
+                       one_process_ms_per_decode_step=o["ms_per_decode_step"],
+                       lm_families_ms_per_decode_step=fam["gen"]["ms_per_decode_step"],
+                       collectives_per_step=per_rank[0]["serve"]["collectives_per_step"],
+                       tokens_equal_one_process=bool(np.array_equal(mesh_seqs, o["seqs"])),
+                       requests_parted_at_a_tie=sum(t < P + G for t in first_diff),
+                       logit_tie_steps=int(o["logit_ties"].sum()),
+                       max_abs_step_logit=smax, max_abs_step_err=step_err,
+                       tol=MESH_REL * smax, steps_compared=compared,
+                       first_sequence=mesh_seqs[0].tolist()),
+            build_s_per_rank=[r["build_s"] for r in per_rank],
+            build_own_turn_per_rank=[r["build_own"] for r in per_rank],
+            shard_gb_per_rank=[gb(r["shard_bytes"]) for r in per_rank],
+            peak_gb_per_rank=dict(build=[gb(r["build_peak_bytes"]) for r in per_rank],
+                                  prefill=[gb(r["prefill_peak_bytes"]) for r in per_rank],
+                                  end=[gb(r["peak_bytes"]) for r in per_rank])))
+    return dict(spawn_and_run_s=spawn_s, rows=rows)
 
 
 # mesh_train: the timed steps a grad_reshard mode (the median of the last two is
@@ -3954,6 +4240,7 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
     rank, world = dist.get_rank(), dist.get_world_size()
     tctx = make_ctx(mctx, cfg, SHAPES["train_4k"])
     out = dict(rank=rank, coord=[rules.axis_index(mctx, a) for a in MESH_AXES])
+    warm_placement(mctx, dev)
 
     def placed(c):
         """``c``'s state from seed 0, drawn whole by one rank at a time (as the one
@@ -4271,7 +4558,7 @@ def run_phases(torch, args, card) -> int:
     phase(phase_dryrun, ctx, sizes)
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
-    mesh = phase(phase_mesh_serve, ctx, sizes)
+    mesh = phase(phase_mesh_serve, ctx, sizes, families)
     phase(phase_mesh_train, ctx, sizes, train)
     phase(phase_examples, ctx)
     phase(phase_dist_pipeline_profile, ctx, sizes)

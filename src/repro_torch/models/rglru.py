@@ -11,6 +11,16 @@ fp32 (``ceil(log2 S)`` doubling steps of plain tensor ops, the counterpart
 of ``jax.lax.associative_scan``); decode keeps ``h`` as O(1) state.  Gate
 weights are block-diagonal per head.  The block: linear-in (two branches) ->
 causal depthwise conv (width 4) -> RG-LRU -> gated merge -> linear-out.
+
+On a mesh (``ctx`` and ``specs``, the model-axis entries of the rank's
+parameter blocks, from ``transformer._blocks``) the block runs on the
+rank's ``rnn`` channels: ``w_in_x`` / ``w_in_g`` column-parallel, the conv,
+``lam`` and the scan per channel, ``w_out`` row-parallel with one sum over
+the model axis.  The gates need whole heads: where the heads do not split
+but the channels do (the divisibility fallback), the conv's output is
+gathered over the model axis, the gates computed whole and the rank's
+channels kept.  The decode state's blocks (``h`` and ``conv`` on ``rnn``)
+are the rank's channels.  Without a mesh every helper does nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.matrix import resolve_device
+from ..sharding import rules
 from .layers import _normal, causal_conv, linspace_f32
 
 __all__ = ["rglru_block_apply", "rglru_block_init", "rglru_decode_step", "rglru_init_state"]
@@ -43,12 +54,26 @@ def rglru_block_init(gen, d: int, heads: int):
     return p
 
 
-def _gates(p, u: torch.Tensor, heads: int):
+def _gates(p, u: torch.Tensor, heads: int, ctx=None, specs=None):
+    """``(r, i)`` on ``u``'s channels: the rank's, on a mesh.  ``heads``: the
+    model's; the rank's share where the heads split."""
+    rnn, split_heads = rules.spec_at(specs, "w_in_x", 1), rules.spec_at(specs, "w_r", 0)
+    w_r, w_i = p["w_r"], p["w_i"]
+    gather = rnn is not None and split_heads is None  # the rank holds part of a head
+    D_l = u.shape[-1]
+    if split_heads is not None:
+        heads //= ctx.tp_size()
+    if gather:
+        u = rules.all_gather(ctx, u, rnn, dim=-1)
+        w_r, w_i = (rules.tp_in(ctx, w, rnn) for w in (w_r, w_i))
     B, S, D = u.shape
     uh = u.reshape(B, S, heads, D // heads)
-    r = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, p["w_r"].to(u.dtype)))
-    i = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, p["w_i"].to(u.dtype)))
-    return r.reshape(B, S, D), i.reshape(B, S, D)
+    r = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, w_r.to(u.dtype))).reshape(B, S, D)
+    i = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, w_i.to(u.dtype))).reshape(B, S, D)
+    if gather:
+        lo = rules.axis_index(ctx, ctx.tp_axis) * D_l
+        r, i = r[..., lo:lo + D_l], i[..., lo:lo + D_l]
+    return r, i
 
 
 def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,21 +91,26 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rglru_scan(p, u: torch.Tensor, heads: int):
+def _rglru_scan(p, u: torch.Tensor, heads: int, ctx=None, specs=None):
     """u ``[B, S, D]`` -> ``(y in u's type, h_last fp32)``, from h = 0."""
-    r, i = _gates(p, u, heads)
+    r, i = _gates(p, u, heads, ctx, specs)
     a = torch.exp(-_C * F.softplus(p["lam"].float()) * r.float())
     gated = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-12)) * (i.float() * u.float())
     h = _scan(a, gated)
     return h.to(u.dtype), h[:, -1]
 
 
-def rglru_block_apply(p, x: torch.Tensor, *, heads: int) -> torch.Tensor:
+def _branches(p, x: torch.Tensor, ctx, specs):
+    """The two linear-in branches ``(u, gelu(g))`` on the rank's channels."""
+    x = rules.tp_in(ctx, x, rules.spec_at(specs, "w_in_x", 1))  # w_in_x and w_in_g split alike
+    return x @ p["w_in_x"].to(x.dtype), F.gelu(x @ p["w_in_g"].to(x.dtype), approximate="tanh")
+
+
+def rglru_block_apply(p, x: torch.Tensor, *, heads: int, ctx=None, specs=None) -> torch.Tensor:
     """The full block: ``[B, S, D] -> [B, S, D]``."""
-    u = x @ p["w_in_x"].to(x.dtype)
-    g = F.gelu(x @ p["w_in_g"].to(x.dtype), approximate="tanh")
-    y, _ = _rglru_scan(p, causal_conv(p["conv"], u), heads)
-    return (y * g) @ p["w_out"].to(x.dtype)
+    u, g = _branches(p, x, ctx, specs)
+    y, _ = _rglru_scan(p, causal_conv(p["conv"], u), heads, ctx, specs)
+    return rules.row_sum(ctx, (y * g) @ p["w_out"].to(x.dtype), rules.spec_at(specs, "w_out", 0))
 
 
 def rglru_init_state(batch: int, d: int, dtype=torch.float32, device="cuda"):
@@ -90,19 +120,20 @@ def rglru_init_state(batch: int, d: int, dtype=torch.float32, device="cuda"):
             "conv": torch.zeros((batch, _CONV_W - 1, d), dtype=dtype, device=device)}
 
 
-def rglru_decode_step(p, x: torch.Tensor, state, *, heads: int):
+def rglru_decode_step(p, x: torch.Tensor, state, *, heads: int, ctx=None, specs=None):
     """One token: x ``[B, 1, D]`` -> ``(y [B, 1, D], new state)``.
 
     The new conv tail is the old one's last two rows and this step's input,
-    concatenated with PyTorch's type promotion (as ``jnp.concatenate``).
+    concatenated with PyTorch's type promotion (as ``jnp.concatenate``).  On
+    a mesh ``state`` holds the rank's blocks, which are its channels.
     """
-    u = x @ p["w_in_x"].to(x.dtype)
-    g = F.gelu(x @ p["w_in_g"].to(x.dtype), approximate="tanh")
+    u, g = _branches(p, x, ctx, specs)
     tail = state["conv"]
     u_c = causal_conv(p["conv"], u, tail=tail)
-    r, i = _gates(p, u_c, heads)
+    r, i = _gates(p, u_c, heads, ctx, specs)
     a = torch.exp(-_C * F.softplus(p["lam"].float()) * r[:, 0].float())
     h = a * state["h"] + torch.sqrt(torch.clamp(1 - a.square(), min=1e-12)) * (
         i[:, 0].float() * u_c[:, 0].float())
-    y = (h.to(x.dtype)[:, None] * g) @ p["w_out"].to(x.dtype)
+    y = rules.row_sum(ctx, (h.to(x.dtype)[:, None] * g) @ p["w_out"].to(x.dtype),
+                      rules.spec_at(specs, "w_out", 0))
     return y, {"h": h, "conv": torch.cat([tail[:, 1:], u], dim=1)}

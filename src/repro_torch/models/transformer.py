@@ -32,8 +32,10 @@ of a training ctx) is gathered before use, and a dim the divisibility
 fallback replicates is computed whole on every rank.  The values are one
 process's up to the order of the sums over the model axis.  One layer loop
 serves one device and the mesh: without a mesh the helpers that realise
-the rules do nothing.  The ``rec`` and ``ssm`` blocks have no mesh path
-yet.
+the rules do nothing.  The ``rec`` (RG-LRU) and ``ssm`` (SSD) blocks run on
+the rank's ``rnn`` channels and heads (:mod:`.rglru`, :mod:`.ssd`: the
+blocks and their specs are passed in), and a recurrent layer's new decode
+state is put back in its cache's layout (``rules.like``).
 
 The mesh forward is differentiable (the train step on a mesh,
 :func:`repro_torch.models.model.make_train_step` with a ``ctx``): the
@@ -254,28 +256,10 @@ def _blocks(ctx, tree):
     return tree_map(lambda t, spec: rules.local_block(ctx, t, spec), tree, specs), specs
 
 
-def _split(specs, name: str, key: str, dim: int):
-    """The mesh axes of dim ``dim`` of block ``specs[name][key]`` (``None``: whole)."""
-    return None if specs is None else specs[name][key][dim]
-
-
-def _tp_in(ctx, x, split):
-    """``x``, a value every model rank holds, as it enters a product whose weight
-    the model axis splits (``split`` not ``None``): the same values, and in the
-    backward the sum of the ranks' partial cotangents (:func:`rules.pbroadcast`)."""
-    return x if split is None else rules.pbroadcast(ctx, x, ctx.tp_axis)
-
-
-def _row_sum(ctx, y, contracted):
-    """A row-parallel product's partial sums over the model axis (none when its
-    ``contracted`` dim is whole on every rank)."""
-    return y if contracted is None else rules.psum(ctx, y, ctx.tp_axis)
-
-
 def _kv_heads(ctx, cfg: ArchConfig, specs):
     """The kv heads this rank's query heads read when the model axis splits the
     query heads and not the kv heads (``None``: all of the local ones)."""
-    if _split(specs, "q", "w", 1) is None or _split(specs, "k", "w", 1) is not None:
+    if rules.spec_at(specs, "q", "w", 1) is None or rules.spec_at(specs, "k", "w", 1) is not None:
         return None
     group = cfg.num_heads // cfg.num_kv_heads
     H_l = cfg.num_heads // ctx.tp_size()
@@ -289,7 +273,7 @@ def _lookup(ctx, specs):
     """The embedding lookup for a table block: vocab-parallel (each rank looks up
     the tokens in its vocab range, zeros elsewhere, a sum over the model axis:
     one term is non-zero, so the sum is exact) when the vocab dim is sharded."""
-    if _split(specs, "embed", "table", 0) is None:
+    if rules.spec_at(specs, "embed", "table", 0) is None:
         return F.embedding
 
     def lookup(tokens, table):
@@ -314,12 +298,6 @@ def _rows(ctx, x, B: int):
     return rules.local_block(ctx, x, (_batch_entry(ctx, B),) + (None,) * (x.dim() - 1))
 
 
-def _check_kinds(ctx, cfg: ArchConfig) -> None:
-    if _on_mesh(ctx):
-        for kind in set(layer_kinds(cfg)) - {"attn", "local"}:
-            raise NotImplementedError(f"a {kind!r} block has no mesh path yet (attn and local do)")
-
-
 def _logits(ctx, params, cfg: ArchConfig, x, B: int):
     """The final norm and the head: logits ``[B, S, vocab]``, on a mesh a
     ``DTensor`` sharded over the batch and vocab rules."""
@@ -327,8 +305,9 @@ def _logits(ctx, params, cfg: ArchConfig, x, B: int):
                                if k in params})
     x = apply_norm(_final_norm_kind(cfg), top["final_norm"], x)
     tied = cfg.tie_embeddings and "head" not in top
-    local = _head(top, cfg, _tp_in(ctx, x, _split(specs, "embed", "table", 0) if tied
-                                   else _split(specs, "head", "w", 1)))
+    split = (rules.spec_at(specs, "embed", "table", 0) if tied
+             else rules.spec_at(specs, "head", "w", 1))
+    local = _head(top, cfg, rules.tp_in(ctx, x, split))
     if not _on_mesh(ctx):
         return local
     shape = (B, x.shape[1], cfg.vocab_size)
@@ -363,8 +342,9 @@ def _ffn(p, blocks, specs, h2, cfg: ArchConfig, *, ctx=None, batch: int = 0,
         x = rules.as_dtensor(ctx, h2, (_batch_entry(ctx, batch), None, None),
                              (batch, *h2.shape[1:]))
         return moe_mod.moe_apply(p["moe"], x, ctx=ctx, token_dispatch=decode, **kw).to_local()
-    h2 = _tp_in(ctx, h2, _split(specs, "mlp", "wi", 1))  # wi and wg split alike
-    return _row_sum(ctx, mlp_apply(blocks["mlp"], h2, cfg.mlp_act), _split(specs, "mlp", "wo", 0))
+    h2 = rules.tp_in(ctx, h2, rules.spec_at(specs, "mlp", "wi", 1))  # wi and wg split alike
+    return rules.row_sum(ctx, mlp_apply(blocks["mlp"], h2, cfg.mlp_act),
+                         rules.spec_at(specs, "mlp", "wo", 0))
 
 
 def _apply_block(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len=None,
@@ -374,16 +354,16 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len=None
     if kind in ("attn", "local"):
         # one pbroadcast for the projections the model axis splits; one the
         # divisibility fallback computes whole reads h itself
-        split = {n: _split(sp, n, "w", 1) for n in ("q", "k", "v")}
-        h_tp = _tp_in(ctx, h, next((e for e in split.values() if e is not None), None))
+        split = {n: rules.spec_at(sp, n, "w", 1) for n in ("q", "k", "v")}
+        h_tp = rules.tp_in(ctx, h, next((e for e in split.values() if e is not None), None))
         q, k, v = (proj_in(lp[n], h if split[n] is None else h_tp) for n in ("q", "k", "v"))
         if cfg.positions == "rope":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         kv = _kv_heads(ctx, cfg, sp)
         if kv is not None:  # whole kv heads, of which each rank's queries read a slice
-            k = _tp_in(ctx, k, kv)[:, :, kv]
-            v = _tp_in(ctx, v, kv)[:, :, kv]
+            k = rules.tp_in(ctx, k, kv)[:, :, kv]
+            v = rules.tp_in(ctx, v, kv)[:, :, kv]
         out = attn_mod.attention(
             q, k, v,
             causal=cfg.kind != "encoder",
@@ -391,12 +371,14 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len=None
             prefix_len=prefix_len,
             impl=attn_impl,
         )
-        mixed = _row_sum(ctx, proj_out(lp["o"], out), _split(sp, "o", "w", 0))
+        mixed = rules.row_sum(ctx, proj_out(lp["o"], out), rules.spec_at(sp, "o", "w", 0))
     elif kind == "rec":
-        mixed = rec_mod.rglru_block_apply(p["mix"], h, heads=cfg.num_heads)
+        mixed = rec_mod.rglru_block_apply(lp["mix"], h, heads=cfg.num_heads, ctx=ctx,
+                                          specs=rules.spec_at(sp, "mix"))
     else:  # ssm: a Mamba block has no MLP
-        return x + ssm_mod.ssd_block_apply(p["mix"], h, d_inner=cfg.d_inner, heads=cfg.ssm_heads,
-                                           d_state=cfg.ssm_state)
+        return x + ssm_mod.ssd_block_apply(lp["mix"], h, d_inner=cfg.d_inner, heads=cfg.ssm_heads,
+                                           d_state=cfg.ssm_state, ctx=ctx,
+                                           specs=rules.spec_at(sp, "mix"))
     x = x + mixed
     return x + _ffn(p, lp, sp, apply_norm(cfg.norm, lp["ln2"], x), cfg, ctx=ctx, batch=batch)
 
@@ -469,7 +451,6 @@ def apply(params, cfg: ArchConfig, inputs, *, attn_impl: str = "chunked", ctx=No
     """
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={cfg.remat!r}: 'none', 'full' or 'dots'")
-    _check_kinds(ctx, cfg)
     B = next(iter(inputs.values())).shape[0]
     emb, emb_spec = _blocks(ctx, {k: params[k] for k in ("embed", "frontend") if k in params})
     x = _embed_inputs(emb, cfg, {k: _rows(ctx, v, B) for k, v in inputs.items()},
@@ -563,7 +544,7 @@ def _cache_view(ctx, c, specs, batch: int):
     the view is a gathered copy, and only the new row goes back."""
     if not _on_mesh(ctx):
         return c, lambda slot: None
-    bspec, kv_entry = _batch_entry(ctx, batch), _split(specs, "k", "w", 1)
+    bspec, kv_entry = _batch_entry(ctx, batch), rules.spec_at(specs, "k", "w", 1)
     held = {name: rules.spec_of(ctx, t) for name, t in c.items()}
     want = {name: (bspec, None, kv_entry, None)[:t.dim()] for name, t in c.items()}
     view = {name: rules.relayout(ctx, t.to_local(), held[name], want[name])
@@ -613,7 +594,7 @@ def _decode_attention(ctx, p, specs, cache, h, cfg: ArchConfig, kind: str, pos: 
         k_scale=sel(c.get("k_scale")),
         v_scale=sel(c.get("v_scale")),
     )
-    return _row_sum(ctx, proj_out(p["o"], out), _split(specs, "o", "w", 0))
+    return rules.row_sum(ctx, proj_out(p["o"], out), rules.spec_at(specs, "o", "w", 0))
 
 
 def _decode_block(p, c, x, cfg: ArchConfig, kind: str, pos: int, *, ctx=None, batch: int = 0):
@@ -621,14 +602,19 @@ def _decode_block(p, c, x, cfg: ArchConfig, kind: str, pos: int, *, ctx=None, ba
     h = apply_norm(cfg.norm, lp["ln1"], x)
     if kind in ("attn", "local"):
         mixed = _decode_attention(ctx, lp, sp, c, h, cfg, kind, pos, batch)
-    elif kind == "rec":
-        mixed, state = rec_mod.rglru_decode_step(p["mix"], h, c, heads=cfg.num_heads)
-        c.update(state)
-    else:  # ssm: a Mamba block has no MLP
-        mixed, state = ssm_mod.ssd_decode_step(p["mix"], h, c, d_inner=cfg.d_inner,
-                                               heads=cfg.ssm_heads, d_state=cfg.ssm_state)
-        c.update(state)
-        return x + mixed
+    else:  # rec / ssm: the state's blocks in, the new state back in the cache's layout
+        state = {name: rules.block(t) for name, t in c.items()}
+        if kind == "rec":
+            mixed, state = rec_mod.rglru_decode_step(lp["mix"], h, state, heads=cfg.num_heads,
+                                                     ctx=ctx, specs=rules.spec_at(sp, "mix"))
+        else:
+            mixed, state = ssm_mod.ssd_decode_step(
+                lp["mix"], h, state, d_inner=cfg.d_inner, heads=cfg.ssm_heads,
+                d_state=cfg.ssm_state, ctx=ctx, specs=rules.spec_at(sp, "mix"),
+                tail_split=rules.spec_of(ctx, c["conv"])[-1])
+        c.update({name: rules.like(c[name], t) for name, t in state.items()})
+        if kind == "ssm":  # a Mamba block has no MLP
+            return x + mixed
     x = x + mixed
     return x + _ffn(p, lp, sp, apply_norm(cfg.norm, lp["ln2"], x), cfg, ctx=ctx, batch=batch,
                     decode=True)
@@ -645,7 +631,6 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: int, 
     (the reference's ``token_dispatch=True``) and the logits are a
     vocab-sharded ``DTensor``.
     """
-    _check_kinds(ctx, cfg)
     B = tokens.shape[0]
     emb, emb_spec = _blocks(ctx, {"embed": params["embed"]})
     x = _lookup(ctx, emb_spec)(_rows(ctx, tokens, B), emb["embed"]["table"])

@@ -78,8 +78,9 @@ from ..obs.timing import Stopwatch
 __all__ = ["DEFAULT_RULES", "MeshCtx", "all_gather", "as_dtensor", "axis_index", "block",
            "block_index", "collective_counts", "constrain", "distribute", "full_value", "like",
            "local_block", "logical_to_spec", "mesh_axes", "pbroadcast", "placements", "pmax",
-           "psum", "psum_scatter", "relayout", "reset_collective_counts", "shard_bytes",
-           "shard_shape", "spec_entry", "spec_of", "spec_tree"]
+           "psum", "psum_scatter", "relayout", "reset_collective_counts", "row_sum",
+           "shard_bytes", "shard_shape", "spec_at", "spec_entry", "spec_of", "spec_tree",
+           "tp_in"]
 
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "embed": ("data",),  # FSDP
@@ -408,6 +409,30 @@ def pbroadcast(ctx, x, axes):
     """``x`` itself, where a value every rank of ``axes`` holds enters a region
     those axes split; the backward sums the ranks' partial cotangents."""
     return _Pbroadcast.apply(ctx, x, axes)
+
+
+def spec_at(specs, *path):
+    """The entry at ``path`` (keys, then a dim) of a tree of block specs: the mesh
+    axes that dim is split over, ``None`` where it is whole or without specs
+    (no mesh)."""
+    for key in path:
+        if specs is None:
+            return None
+        specs = specs[key]
+    return specs
+
+
+def tp_in(ctx, x, split):
+    """``x``, a value every model rank holds, as it enters a product whose weight
+    the model axis splits (``split`` not ``None``): the same values, and in the
+    backward the sum of the ranks' partial cotangents (:func:`pbroadcast`)."""
+    return x if split is None else pbroadcast(ctx, x, ctx.tp_axis)
+
+
+def row_sum(ctx, y, contracted):
+    """A row-parallel product's partial sums over the model axis (none when its
+    ``contracted`` dim is whole on every rank)."""
+    return y if contracted is None else psum(ctx, y, ctx.tp_axis)
 
 
 def pmax(ctx, x, axes):

@@ -8,6 +8,11 @@ the gradients of its loss.  The port runs the same state and batch as gloo
 processes, one per rank (``run_on_mesh(device="cpu")``), one spawn per mesh
 shape, while the subprocess runs; weights cross with ``convert``.
 
+The recurrent families (reduced recurrentgemma-9b and mamba2-370m, the
+latter also with ``d_model`` 16 so that its ``in_proj`` gathers the weight
+rather than the outputs, and each with one head, the divisibility
+fallbacks) take every check the attention cases take.
+
 Limits, those of ``tests/test_torch_train.py``: the loss and the gradient
 norm within ``LOSS_REL`` relative, each gradient leaf within ``GRAD_REL``
 times its largest magnitude (bf16 parameters: plus one bf16 rounding of
@@ -58,6 +63,18 @@ CASES = {
                          (True, False)),
     "moe_ep": ("qwen3-moe-235b-a22b", (2, 2), ("data", "model"), {}, 1, False, (True, False)),
     "qwen2_bf16": ("qwen2-0.5b", (2, 2), ("data", "model"), {}, 1, True, (True,)),
+    "rglru_2x2": ("recurrentgemma-9b", (2, 2), ("data", "model"), {}, 1, False, (True, False)),
+    "ssd_2x2": ("mamba2-370m", (2, 2), ("data", "model"), {}, 1, False, (True, False)),
+    # d_model 16: a data rank's 32 rows outnumber in_proj's 16, so the SSD
+    # gathers the weight's column block, not its outputs
+    "ssd_weight_gather": ("mamba2-370m", (2, 2), ("data", "model"), {"d_model": 16}, 1, False,
+                          (True, False)),
+    # one head: the divisibility fallbacks (heads whole, channels / d_inner split;
+    # mamba2's 289 in_proj columns whole)
+    "rglru_fallback": ("recurrentgemma-9b", (2, 2), ("data", "model"), {"num_heads": 1}, 1, False,
+                       (True,)),
+    "ssd_fallback": ("mamba2-370m", (2, 2), ("data", "model"), {"ssm_heads": 1}, 1, False,
+                     (True,)),
 }
 
 _JAX_SCRIPT = r"""

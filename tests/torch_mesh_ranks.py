@@ -226,3 +226,54 @@ def dying_body(ctx, exit_code):
         os._exit(exit_code)
     time.sleep(300)
     return True
+
+
+def _calls_bytes() -> dict:
+    return {k: {"calls": c["calls"], "bytes": c["bytes"]}
+            for k, c in rules.collective_counts().items()}
+
+
+def recurrent_family(ctx, cfg, params, tokens, decode_steps, prompts=None, new_tokens=0,
+                     long_tokens=None):
+    """A reduced ``rec`` / ``ssm`` family on this mesh: the prefill-ctx forward
+    (and one at ``long_tokens``' length) with its collectives, the layouts of
+    the parameters and the cache, ``decode_steps`` serve steps under the
+    decode ctx (the last one's collectives counted), the cache after them,
+    gathered, and greedy serving when ``prompts`` are given."""
+    axes = tt.param_axes(cfg)
+    pctx = make_ctx(ctx, cfg, SHAPES["prefill_32k"])
+    dctx = make_ctx(ctx, cfg, SHAPES["decode_32k"])
+    pp = reshard_state(params, None, pctx, axes)
+    out = dict(param_specs={path: rules.spec_of(pctx, t) for path, t in tree_paths(pp)})
+    for key, toks in (("prefill", tokens), ("prefill_long", long_tokens)):
+        if toks is not None:
+            rules.reset_collective_counts()
+            logits = tt.apply(pp, cfg, {"tokens": torch.from_numpy(toks)}, ctx=pctx)
+            out[f"{key}_counts"] = _calls_bytes()
+            out[key] = _whole(pctx, logits)
+    dp = reshard_state(pp, pctx, dctx, axes)
+    B, S = tokens.shape
+    cache = tt.init_cache(cfg, B, S, torch.float32, device="cpu", ctx=dctx)
+    layout = {path: (rules.spec_of(dctx, t), tuple(t.to_local().shape))
+              for path, t in tree_paths(cache)}
+    serve = tmodel.make_serve_step(cfg, dctx, compute_dtype=torch.float32)
+    steps = []
+    for pos in range(decode_steps):
+        rules.reset_collective_counts()
+        lg, cache = serve(dp, cache, torch.from_numpy(tokens[:, pos:pos + 1]).long(), pos)
+        out["step_counts"] = _calls_bytes()
+        steps.append(_whole(dctx, lg)[:, 0])
+    out["decode"] = np.stack(steps, 1)
+    out["cache_specs"] = {path: spec for path, (spec, _) in layout.items()}
+    out["cache_layout_kept"] = all(
+        (rules.spec_of(dctx, t), tuple(t.to_local().shape)) == layout[path]
+        for path, t in tree_paths(cache))
+    out["cache"] = {path: _whole(dctx, t) for path, t in tree_paths(cache)}
+    if prompts is not None:
+        out["seqs"] = generate_on_mesh(dctx, cfg, dp, prompts, new_tokens, device="cpu")
+    return out
+
+
+def families_body(ctx, cases: dict) -> dict:
+    """Every family case of this mesh, in one spawn."""
+    return {name: recurrent_family(ctx, **case) for name, case in cases.items()}
