@@ -135,11 +135,17 @@ Phases, one JSON line each:
                       (every full config's): ms a step and peak memory of
                       each, ``"full"``'s peak below ``"none"``'s, and the
                       first step's loss and gradients bit-identical.
-    ``dryrun``      — the one-card dry run (``repro_torch.launch.dryrun``: each
+    ``dryrun``      — the dry run (``repro_torch.launch.dryrun``: each
                       cell's step on fake tensors, host only): all 40 (arch x
-                      shape) cells at full width over worker processes, 31
-                      ``ok`` and 9 ``skipped`` with the reference's reasons,
-                      none in ``error``; then qwen2-0.5b's train step at
+                      shape) cells at full width over worker processes, each
+                      also as rank 0 of the 16 x 16 mesh on a fake process
+                      group (the 2 x 16 x 16 mesh is the tests' and the
+                      command line's), 31 ``ok`` with a finite collective
+                      term and 9 ``skipped`` with the reference's reasons,
+                      none in ``error``, and the five cells whose collective
+                      term is largest against their compute term (a
+                      prediction for NVLink and InfiniBand, not measured
+                      here); then qwen2-0.5b's train step at
                       ``lm_train``'s shape under ``remat="none"`` and
                       ``"full"`` and one decode step of its full
                       ``decode_32k`` cell (B 128, 32,768 cached positions,
@@ -204,7 +210,20 @@ Phases, one JSON line each:
                       launched on any rank (the local layer takes the
                       banded path, as one process does); collectives per
                       decode step, ms a step beside one process's and
-                      ``lm_families``', each rank's shard and peak.
+                      ``lm_families``', each rank's shard and peak.  Each
+                      spawn also runs one decode step alone at the served
+                      shape (collectives by kind and axis, ms, peak).  Then,
+                      in the families' spawn, the ``long_500k`` cell under
+                      its rules (B 1 replicated, the KV cache's sequence
+                      over ``data``): the cache of 524,288 positions filled
+                      from a seed, whole and alike in every process, two
+                      greedy runs of 16 steps from positions 522,232 (the
+                      2,048-slot ring wraps from data rank 1's slots to
+                      rank 0's) and 523,256 (rank 0's slots to rank 1's):
+                      each step's logits within 1e-4 * max|logits| of one
+                      process on the same cache, the tokens equal, no
+                      kernel; collectives and ms a step beside one
+                      process's.
     ``mesh_train``  — the train step on the mesh: qwen2-0.5b at full width on
                       the same (data 2, model 2) mesh of four gloo ranks,
                       under the train rules (FSDP ``embed -> data``, the
@@ -227,6 +246,16 @@ Phases, one JSON line each:
                       kind, each rank's peak; step 0's loss within 1e-2 of
                       ``lm_train``'s, one step run twice bit-identical, the
                       two modes' first steps bit-identical, no kernel.
+    ``dryrun_mesh`` — the dry run held to the mesh phases: its (data 2,
+                      model 2) prediction (``dryrun.measure_on_mesh``, a
+                      fake mesh in worker processes) of each step the mesh
+                      phases counted — qwen3-moe's decode step,
+                      recurrentgemma's and mamba2's at the served shape and
+                      under ``long_500k``, qwen2-0.5b's 24-layer train step
+                      in both FSDP reductions — equals every rank's
+                      collectives exactly (calls and operand bytes by kind
+                      and axis), and each predicted peak lies within 15 %
+                      of the rank's measured one.
     ``examples``    — every ``examples/torch_*.py`` with ``--device cuda``,
                       all seven at once, each in its own process: each checks
                       its own result (against the dense oracle, the
@@ -2995,7 +3024,8 @@ def phase_dryrun(ctx, sizes) -> dict:
     d = sizes["dryrun"]
     t0 = time.perf_counter()
     cells = [(a, s, False) for a in ARCH_IDS for s in SHAPES]
-    recs = dryrun.run_cells(cells, workers=min(d["workers"], os.cpu_count() or 1))
+    recs = dryrun.run_cells(cells, workers=min(d["workers"], os.cpu_count() or 1),
+                            meshes=("16x16",))  # 2 x 16 x 16: the tests and the command line
     sweep_s = time.perf_counter() - t0
     status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
     for r in recs:
@@ -3007,8 +3037,29 @@ def phase_dryrun(ctx, sizes) -> dict:
     check(status == dict(ok=31, skipped=9, error=0), f"dryrun: sweep {status}")
     fits = sorted(f"{r['arch']} x {r['shape']}" for r in recs
                   if r["status"] == "ok" and r["fits_one_card"])
+    ok = [r for r in recs if r["status"] == "ok"]
+    bad = [f"{r['arch']} x {r['shape']}" for r in ok
+           if not (isinstance(r["collective_term_s"], float)
+                   and math.isfinite(r["collective_term_s"]))]
+    check(not bad, f"dryrun: no finite collective term on 16 x 16 for {bad}")
+    on16 = lambda r: r["on_mesh"]["16x16"]  # noqa: E731
+    most = sorted(ok, key=lambda r: -on16(r)["collective_term_s"]
+                  / max(on16(r)["compute_term_s"], 1e-12))[:5]
     emit(dict(phase="dryrun_sweep", card=ctx.card, cells=len(recs), **status, sweep_s=sweep_s,
-              workers=d["workers"], fit_one_card=fits))
+              workers=d["workers"], fit_one_card=fits, meshes=["16x16"],
+              collective_terms="a prediction for NVLink 4 within an 8-card H100 node and one "
+                               "400 Gb/s InfiniBand link a card between nodes; this one-card "
+                               "machine does not measure it",
+              most_collective_bound=[dict(
+                  arch=r["arch"], shape=r["shape"],
+                  collective_over_compute=on16(r)["collective_term_s"]
+                  / max(on16(r)["compute_term_s"], 1e-12),
+                  collective_term_s=on16(r)["collective_term_s"],
+                  compute_term_s=on16(r)["compute_term_s"],
+                  peak_gb_per_device=on16(r)["peak_bytes_card"] / 1e9,
+                  wire_bytes_by_kind={k: v["wire_bytes"]
+                                      for k, v in on16(r)["collectives_by_kind"].items()})
+                  for r in most]))
 
     arch = d["arch"]
     over = dryrun.reduced_overrides(arch) if d["reduced"] else {}
@@ -3023,7 +3074,8 @@ def phase_dryrun(ctx, sizes) -> dict:
     pipe = TokenPipeline(cfg, batch=tshape.global_batch, seq=tshape.seq_len, seed=0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.global_batch(0).items()}
     for remat in ("none", "full"):
-        pred = dryrun.lower_cell(arch, tshape, cfg_overrides={**over, "remat": remat})
+        pred = dryrun.lower_cell(arch, tshape, cfg_overrides={**over, "remat": remat},
+                                 meshes=())  # one card's account
         step = model_mod.make_train_step(dataclasses.replace(cfg, remat=remat),
                                          compute_dtype=torch.bfloat16)
 
@@ -3047,7 +3099,8 @@ def phase_dryrun(ctx, sizes) -> dict:
     # one decode step of the decode cell at full size
     dshape = (SHAPES[d["decode_shape"]] if not d["reduced"]
               else ShapeSpec("decode_rehearsal", d["decode_seq"], d["decode_batch"], "decode"))
-    pred = dryrun.lower_cell(arch, dshape, cfg_overrides=over or None, pos=d["decode_pos"])
+    pred = dryrun.lower_cell(arch, dshape, cfg_overrides=over or None, pos=d["decode_pos"],
+                             meshes=())
     check(pred["fits_one_card"], f"dryrun: {arch} x {dshape.name} is predicted not to fit")
     params = model_mod.cast_params(transformer.init_params(cfg, seed=0, device=dev), torch.bfloat16)
     cache = transformer.init_cache(cfg, dshape.global_batch, dshape.seq_len, torch.bfloat16,
@@ -3079,6 +3132,106 @@ def phase_dryrun(ctx, sizes) -> dict:
               f"dryrun: {name} predicted {r['predicted_peak_bytes']} bytes at peak, the card "
               f"{r['measured_peak_bytes']} ({r['peak_rel_err']:+.1%})")
     out = dict(phase="dryrun", card=ctx.card, arch=arch, sweep_s=sweep_s, **status, **results)
+    emit(out)
+    return out
+
+
+#: processes for the dry run's (2, 2) predictions in ``dryrun_mesh``
+MESH_PREDICT_WORKERS = 6
+
+
+def _mesh_prediction(task):
+    """One dry-run prediction on the (data 2, model 2) fake mesh, in a worker
+    (``chip_smoke`` is re-imported there)."""
+    name, arch, layers, reduced, shape, kw = task
+    from repro_torch.launch import dryrun
+
+    return name, dryrun.measure_on_mesh(family_config(arch, layers, reduced), shape,
+                                        dict(zip(MESH_AXES, MESH_SHAPE)), **kw)
+
+
+def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
+    """The dry run's prediction held to the card: its collectives a step on the
+    (data 2, model 2) mesh (``dryrun.measure_on_mesh``: the step as rank 0 of
+    a fake mesh, on fake tensors) at the shapes ``mesh_serve`` and
+    ``mesh_train`` ran must equal what every rank counted running the step
+    (calls and operand bytes by kind and axis): qwen3-moe's decode step,
+    recurrentgemma's and mamba2's under ``decode_32k`` and ``long_500k``,
+    qwen2-0.5b's train step in both FSDP reductions.  Each predicted peak
+    lies within 15 % of the rank's measured one (the step's peak above what
+    was allocated before it, plus its inputs)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    torch = ctx.torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+
+    red = sizes["lm_reduced"]
+    f32 = dict(param_dtype=torch.float32, kv_dtype=torch.float32, compute_dtype=torch.float32)
+    measured, tasks = {}, []
+    ds = mesh["decode_step"]
+    moe_arch = FAMILIES[0][0]
+    tasks.append(("qwen3_moe_decode", moe_arch, mesh["layers"], red,
+                  ShapeSpec("decode_32k", ds["cache_len"], ds["batch"], "decode"),
+                  dict(f32, pos=ds["pos"])))
+    measured["qwen3_moe_decode"] = (ds["collectives_per_rank"], ds["peak_bytes_per_rank"])
+    for row in mesh["families"]["rows"]:
+        tag = row["arch"].split("-")[0]
+        ds = row["decode_step"]
+        tasks.append((f"{tag}_decode_32k", row["arch"], row["layers"], red,
+                      ShapeSpec("decode_32k", ds["cache_len"], ds["batch"], "decode"),
+                      dict(f32, pos=ds["pos"])))
+        measured[f"{tag}_decode_32k"] = (ds["collectives_per_rank"], ds["peak_bytes_per_rank"])
+        for run in row["long_500k"]["runs"]:
+            name = f"{tag}_long_500k_from_{run['start']}"
+            tasks.append((name, row["arch"], row["layers"], red, SHAPES["long_500k"],
+                          dict(f32, pos=run["step_pos"])))
+            measured[name] = (run["collectives_by_axis_per_rank"], run["step_peak_bytes_per_rank"])
+    tm = mesh_train["timed"]
+    for mode in ("reduce_scatter", "all_reduce"):
+        name = f"qwen2_train_{mode}"
+        tasks.append((name, mesh_train["arch"], tm["layers"], red,
+                      ShapeSpec("train_4k", tm["seq"], tm["batch"], "train"),
+                      dict(param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                           grad_reshard=mode == "reduce_scatter")))
+        measured[name] = (tm["collectives_by_axis_per_rank"][mode],
+                          tm["step_peak_bytes_per_rank"][mode])
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(MESH_PREDICT_WORKERS, len(tasks)),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        predicted = dict(pool.map(_mesh_prediction, tasks))
+    predict_s = time.perf_counter() - t0
+
+    rows = []
+    for name, (per_rank, peaks) in measured.items():
+        p = predicted[name]
+        want = {k: {a: dict(calls=v["calls"], bytes=v["operand_bytes"])
+                    for a, v in c["by_axis"].items()} for k, c in p["collectives_by_kind"].items()}
+        for rank, got in enumerate(per_rank):
+            got = {k: {a: dict(calls=v["calls"], bytes=v["bytes"]) for a, v in per.items()}
+                   for k, per in got.items()}
+            check(got == want, f"dryrun_mesh {name} rank {rank}: measured collectives {got}, "
+                               f"the dry run predicted {want}")
+        p_peak = max(p["peak_bytes_card"].values())  # the step's phases' largest
+        rel = [None if b is None else p_peak / b - 1.0 for b in peaks]
+        for rank, e in enumerate(rel):
+            if e is not None:  # the card's peak (none on the CPU)
+                check(abs(e) <= DRYRUN_PEAK_REL,
+                      f"dryrun_mesh {name} rank {rank}: predicted peak {p_peak} bytes, "
+                      f"measured {peaks[rank]} ({e:+.1%})")
+        rows.append(dict(
+            step=name, collectives_equal=True,
+            collectives={k: dict(calls=c["calls"], bytes=c["operand_bytes"],
+                                 wire_bytes=c["wire_bytes"])
+                         for k, c in p["collectives_by_kind"].items()},
+            predicted_peak_bytes=p_peak, measured_peak_bytes_per_rank=peaks,
+            peak_rel_err_per_rank=rel, predicted_flops=p["flops"],
+            predicted_argument_bytes=p["argument_bytes"]))
+    out = dict(phase="dryrun_mesh", card=ctx.card, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+               predict_s=predict_s, steps=rows,
+               note="collective counts and peaks predicted on a fake mesh in one process; "
+                    "the wire time over NVLink or InfiniBand is not measured on one card")
     emit(out)
     return out
 
@@ -3452,6 +3605,131 @@ def _step_ties(calls, n_moe: int, top_k: int):
     return torch.stack(ties, dim=1)
 
 
+# the long_500k cell on the mesh: the cache (524,288 positions) filled from this
+# seed, two runs of LONG_STEPS greedy steps from each start: the first wraps
+# recurrentgemma's 2,048-slot ring from data rank 1's slots to rank 0's (slot
+# 2040), the second crosses from rank 0's slots to rank 1's (slot 1016)
+LONG_CACHE_SEED = 41
+LONG_STARTS = (522_232, 523_256)
+LONG_STEPS = 16
+
+
+def _card_bytes(tree) -> int:
+    """The bytes the caching allocator holds for the storages of ``tree``'s
+    leaves (a ``DTensor``'s block's), each rounded up to 512 bytes, each
+    storage once: what the dry run counts as a step's inputs."""
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(tree):
+        st = rules.block(t).untyped_storage()
+        seen[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+    return sum(seen.values())
+
+
+def counted_step(card: bool, fn, inputs):
+    """``fn()`` once, its collectives counted by kind and mesh axis: ``(its
+    output, {"collectives", "ms", "peak_bytes"})``, ``peak_bytes`` the card's
+    peak during the call above what was allocated before it, plus the
+    allocator's bytes of ``inputs`` (None on the CPU) — the dry run's
+    ``peak_bytes_card`` of the same step."""
+    import torch
+
+    from repro_torch.sharding import rules
+
+    if card:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    rules.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    coll = rules.collective_counts(by_axis=True)
+    peak = (torch.cuda.max_memory_allocated() - held + _card_bytes(inputs)) if card else None
+    return out, dict(collectives=coll, ms=ms, peak_bytes=peak)
+
+
+def long_cache(cfg, dev, ctx=None):
+    """The ``long_500k`` cell's cache (B 1, 524,288 positions, fp32), every leaf
+    filled whole from :data:`LONG_CACHE_SEED` (the same numbers in every
+    process on one device), as ``DTensor`` blocks laid out by ``ctx``'s rules
+    when it is given."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import transformer
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_map, tree_paths
+
+    whole = transformer.init_cache(cfg, 1, SHAPES["long_500k"].seq_len, torch.float32,
+                                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LONG_CACHE_SEED)
+    for _, t in tree_paths(whole):
+        t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=dev))
+    if ctx is None:
+        return whole
+    specs = rules.spec_tree(ctx, whole, transformer.cache_axes(cfg))
+    return tree_map(lambda t, spec: rules.as_dtensor(
+        ctx, rules.local_block(ctx, t, spec).contiguous().clone(), spec, t.shape), whole, specs)
+
+
+def long_decode(cfg, params, cache, first: int, start: int, steps: int, dev, ctx=None,
+                card: bool = False):
+    """Greedy decode of ``steps`` tokens from position ``start`` on ``cache``, the
+    first token ``first``, fp32: ``(tokens [steps + 1], logits [steps, V_l],
+    ms a step (the median after the first), the last step's counts)``.  On a
+    mesh (``ctx``) each step is ``make_serve_step(cfg, ctx)``'s, the logits
+    this rank's vocab block, the next token :func:`greedy_tokens`' (its
+    gather left out of the step's counts)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.launch.serve import greedy_tokens
+    from repro_torch.models import model as model_mod
+
+    serve = model_mod.make_serve_step(cfg, ctx, compute_dtype=torch.float32)
+    tok = torch.full((1, 1), first, dtype=torch.long, device=dev)
+    tokens, logits, ms, last = [first], [], [], None
+    with torch.inference_mode():
+        for i in range(steps):
+            (lg, cache), last = counted_step(card, lambda: serve(params, cache, tok, start + i),
+                                             (params, cache, tok))
+            ms.append(last["ms"])
+            if ctx is None:
+                logits.append(lg[0, 0].float())
+                tok = lg[:, 0].argmax(-1)[:, None]
+            else:
+                logits.append(lg.to_local()[0, 0].float())
+                tok = greedy_tokens(ctx, lg)
+            tokens.append(int(tok[0, 0]))
+    return tokens, torch.stack(logits), statistics.median(ms[1:]), last
+
+
+def decode_step_alone(card: bool, dctx, cfg, params, prompts, gen: int, dev) -> dict:
+    """One ``make_serve_step(cfg, dctx)`` step alone, at the shape ``generate_on_mesh``
+    served (``len(prompts)`` rows, a fresh fp32 cache of ``P + gen``
+    positions), after a warm step: its collectives by kind and axis, ms and
+    peak (:func:`counted_step`), the dry run's prediction of the same step."""
+    import torch
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+
+    R, L = prompts.shape[0], prompts.shape[1] + gen
+    cache = transformer.init_cache(cfg, R, L, torch.float32, device=dev, ctx=dctx)
+    serve = model_mod.make_serve_step(cfg, dctx, compute_dtype=torch.float32)
+    tok = torch.from_numpy(prompts[:, :1]).to(dev)
+    with torch.inference_mode():
+        serve(params, cache, tok, 0)
+        _, got = counted_step(card, lambda: serve(params, cache, tok, L - 2), (params, cache, tok))
+    return dict(got, batch=R, cache_len=L, pos=L - 2)
+
+
 def warm_placement(mctx, dev) -> None:
     """One ``DTensor`` made on every rank at once: its first construction in a
     process imports ``torch.distributed.tensor``'s machinery (seconds), which
@@ -3654,6 +3932,8 @@ def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf
                         collectives_per_step={k: {kk: vv / n_steps for kk, vv in v.items()}
                                               for k, v in counts.items()},
                         step_err=(steps - ref).abs().amax(-1).cpu().numpy().tolist())
+    del steps, ref
+    out["decode_step"] = decode_step_alone(card, dctx, cfg, dparams, prompts, gen, dev)
     out["peak_bytes"] = peak()
     return out
 
@@ -3827,6 +4107,10 @@ def phase_mesh_serve(ctx, sizes, lm_families: dict) -> dict:
           f"mesh_serve: decode-step logits off one process's by {step_err} > {MESH_REL} * {smax}")
     gb = lambda b: None if b is None else round(b / 1e9, 3)  # noqa: E731
     out = dict(phase="mesh_serve", arch=cfg.name, layers=cfg.num_layers, mesh=dict(zip(MESH_AXES, MESH_SHAPE)),
+               decode_step=dict(ranks[0]["decode_step"], ms_per_rank=[
+                   r["decode_step"]["ms"] for r in ranks], peak_bytes_per_rank=[
+                   r["decode_step"]["peak_bytes"] for r in ranks],
+                   collectives_per_rank=[r["decode_step"]["collectives"] for r in ranks]),
                backend=ranks[0]["backend"], ranks_per_card=ranks[0]["ranks_per_card"],
                card=ctx.card, spawn_and_run_s=mesh_s,
                no_drop_capacity_factor=dict(one_process=MESH_NODROP_CF, rank=rank_cf),
@@ -3876,10 +4160,13 @@ def phase_mesh_serve(ctx, sizes, lm_families: dict) -> dict:
     return out
 
 
-def mesh_family_rank(mctx, cfg, tmp: str, tokens, prompts, gen: int) -> dict:
+def mesh_family_rank(mctx, cfg, tmp: str, tokens, prompts, gen: int, long_first) -> dict:
     """One rank's part of a recurrent family in ``mesh_serve``: the model drawn
-    one rank at a time, the prefill and greedy serving, every kernel launch
-    counted (none is expected)."""
+    one rank at a time, the prefill and greedy serving, one decode step
+    alone (counted by kind and axis, its peak), then the ``long_500k`` cell
+    (B 1, the cache's sequence over ``data``): greedy runs of
+    :data:`LONG_STEPS` from each of :data:`LONG_STARTS` on the seeded cache,
+    every kernel launch counted (none is expected)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3893,7 +4180,7 @@ def mesh_family_rank(mctx, cfg, tmp: str, tokens, prompts, gen: int) -> dict:
     from repro_torch.models import transformer
     from repro_torch.runtime.elastic import reshard_state
     from repro_torch.sharding import rules
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_paths
 
     card = mctx.mesh.device_type == "cuda"
     dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
@@ -3975,8 +4262,29 @@ def mesh_family_rank(mctx, cfg, tmp: str, tokens, prompts, gen: int) -> dict:
                         collectives_per_step={k: {kk: vv / n_steps for kk, vv in v.items()}
                                               for k, v in rules.collective_counts().items()},
                         step_err=(steps - ref).abs().amax(-1).cpu().numpy().tolist())
+    del steps, ref
+    out["decode_step"] = decode_step_alone(card, dctx, cfg, params, prompts, gen, dev)
+
+    # long_500k: the cell's rules (the cache's sequence over data, B 1 replicated);
+    # the parameters keep their layout
+    lctx = make_ctx(mctx, cfg, SHAPES["long_500k"])
+    runs = []
+    for start, first in zip(LONG_STARTS, long_first):
+        cache = long_cache(cfg, dev, lctx)
+        if not runs:
+            out["long_cache_specs"] = {path: list(rules.spec_of(lctx, t))
+                                       for path, t in tree_paths(cache)}
+        zero_launches()
+        toks, logits, ms, last = long_decode(cfg, params, cache, first, start, LONG_STEPS, dev,
+                                             ctx=lctx, card=card)
+        ref = load(f"long_{start}_{m}.npy")
+        runs.append(dict(start=start, tokens=toks, ms_per_step=ms, step=last,
+                         launches=kernel_launches(), finite=bool(torch.isfinite(logits).all()),
+                         max_abs_err=float((logits - ref).abs().max())))
+        del cache, logits, ref
+    out["long"] = runs
     out["peak_bytes"] = peak()
-    del params, steps, ref
+    del params
     if card:
         torch.cuda.empty_cache()
     return out
@@ -4043,8 +4351,26 @@ def mesh_families(ctx, sizes, lm_families: dict) -> list:
                                <= STEP_REL * o["max_abs_step_logit"]).cpu().numpy()
             save("steps", steps, R)
             o["seqs"] = np.asarray(seqs)
+            # long_500k in one process: each run's logits saved per model rank's vocab block
+            long_first = [int(x) for x in rng.integers(0, cfg.vocab_size, len(LONG_STARTS))]
+            o["long"] = []
+            for start, first in zip(LONG_STARTS, long_first):
+                cache = long_cache(cfg, ctx.dev)
+                toks, lg, ms, _ = long_decode(cfg, params, cache, first, start, LONG_STEPS,
+                                              ctx.dev, card=ctx.dev.type == "cuda")
+                for b in range(tp):
+                    np.save(os.path.join(tmp, cfg.name, f"long_{start}_{b}.npy"),
+                            lg[:, b * V_l:(b + 1) * V_l].contiguous().cpu().numpy())
+                top2 = lg.topk(2, dim=-1).values
+                lmax_long = float(lg.abs().max())
+                o["long"].append(dict(start=start, tokens=toks, ms_per_step=ms,
+                                      max_abs_logit=lmax_long, logit_ties=int(
+                                          ((top2[:, 0] - top2[:, 1]) <= STEP_REL * lmax_long)
+                                          .sum())))
+                del cache, lg
             one[cfg.name] = o
-            cases.append(dict(cfg=cfg, tokens=tokens, prompts=prompts, gen=G))
+            cases.append(dict(cfg=cfg, tokens=tokens, prompts=prompts, gen=G,
+                              long_first=long_first))
             del params, steps, top2
             if ctx.dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -4102,6 +4428,36 @@ def mesh_families(ctx, sizes, lm_families: dict) -> list:
         check(step_err <= MESH_REL * smax,
               f"mesh_serve {cfg.name}: decode-step logits off one process's by {step_err} "
               f"> {MESH_REL} * {smax}")
+        long_rows = []
+        for j, lo in enumerate(o["long"]):
+            for r in per_rank:
+                run = r["long"][j]
+                tag = f"mesh_serve long_500k {cfg.name} from {lo['start']} rank {r['rank']}"
+                check(run["launches"] == no_launch, f"{tag}: launched {run['launches']}")
+                check(run["finite"] and run["max_abs_err"] <= MESH_REL * lo["max_abs_logit"],
+                      f"{tag}: logits off one process's by {run['max_abs_err']} "
+                      f"> {MESH_REL} * {lo['max_abs_logit']}")
+                check(run["tokens"] == lo["tokens"],
+                      f"{tag}: greedy tokens {run['tokens']} differ from one process's "
+                      f"{lo['tokens']}")
+            last = per_rank[0]["long"][j]["step"]
+            long_rows.append(dict(
+                start=lo["start"], steps=LONG_STEPS, slot_window=cfg.window,
+                first_slot=lo["start"] % cfg.window if cfg.window else None,
+                ms_per_step_per_rank=[r["long"][j]["ms_per_step"] for r in per_rank],
+                one_process_ms_per_step=lo["ms_per_step"],
+                collectives_per_step={k: {"calls": sum(a["calls"] for a in v.values()),
+                                          "bytes": sum(a["bytes"] for a in v.values())}
+                                      for k, v in last["collectives"].items()},
+                step_peak_gb_per_rank=[gb(r["long"][j]["step"]["peak_bytes"]) for r in per_rank],
+                step_peak_bytes_per_rank=[r["long"][j]["step"]["peak_bytes"] for r in per_rank],
+                step_pos=lo["start"] + LONG_STEPS - 1,
+                collectives_by_axis_per_rank=[r["long"][j]["step"]["collectives"]
+                                              for r in per_rank],
+                max_abs_logit=lo["max_abs_logit"],
+                max_abs_err=max(r["long"][j]["max_abs_err"] for r in per_rank),
+                tol=MESH_REL * lo["max_abs_logit"], logit_ties=lo["logit_ties"],
+                tokens_equal_one_process=True, tokens=lo["tokens"]))
         fam = next(f for f in lm_families["families"] if f["arch"] == cfg.name)
         rows.append(dict(
             arch=cfg.name, layers=cfg.num_layers, kinds=sorted(set(transformer.layer_kinds(cfg))),
@@ -4127,6 +4483,12 @@ def mesh_families(ctx, sizes, lm_families: dict) -> list:
                        max_abs_step_logit=smax, max_abs_step_err=step_err,
                        tol=MESH_REL * smax, steps_compared=compared,
                        first_sequence=mesh_seqs[0].tolist()),
+            decode_step=dict(per_rank[0]["decode_step"], ms_per_rank=[
+                r["decode_step"]["ms"] for r in per_rank], peak_bytes_per_rank=[
+                r["decode_step"]["peak_bytes"] for r in per_rank],
+                collectives_per_rank=[r["decode_step"]["collectives"] for r in per_rank]),
+            long_500k=dict(batch=1, cache_positions=524_288, dtype="float32",
+                           cache_specs=per_rank[0]["long_cache_specs"], runs=long_rows),
             build_s_per_rank=[r["build_s"] for r in per_rank],
             build_own_turn_per_rank=[r["build_own"] for r in per_rank],
             shard_gb_per_rank=[gb(r["shard_bytes"]) for r in per_rank],
@@ -4323,7 +4685,7 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
         for i in range(steps):
             rules.reset_collective_counts()
             sync()
-            if card and rs and i == steps - 1:  # the step's own memory, above what is held
+            if card and i == steps - 1:  # the step's own memory, above what is held
                 held = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -4334,7 +4696,12 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
             if i == 0:
                 firsts[rs] = (s, m)
         timed[rs] = dict(step_ms=ms, ms_per_step=statistics.median(ms[1:]), losses=losses,
-                         collectives_per_step=counts())
+                         collectives_per_step=counts(),
+                         collectives_by_axis=rules.collective_counts(by_axis=True),
+                         # the last step's peak with its inputs (the state it was given),
+                         # the dry run's peak_bytes_card of the same step
+                         step_peak_bytes=(torch.cuda.max_memory_allocated() - held
+                                          + _card_bytes(state0)) if card else None)
         if card and rs:
             out["step_peak_above_held_bytes"] = torch.cuda.max_memory_allocated() - held
         del s
@@ -4481,6 +4848,12 @@ def phase_mesh_train(ctx, sizes, lm_train: dict) -> dict:
                           lm_train_step0_loss=ref_loss,
                           collectives_per_step={mode: r0["timed"][mode]["collectives_per_step"]
                                                 for mode in r0["timed"]},
+                          collectives_by_axis_per_rank={
+                              mode: [r["timed"][mode]["collectives_by_axis"] for r in ranks]
+                              for mode in r0["timed"]},
+                          step_peak_bytes_per_rank={
+                              mode: [r["timed"][mode]["step_peak_bytes"] for r in ranks]
+                              for mode in r0["timed"]},
                           repeat_bit_identical=all(r["timed"]["reduce_scatter"]["repeat_bit_identical"]
                                                    for r in ranks),
                           modes_bit_identical=all(r["modes_bit_identical"] for r in ranks),
@@ -4559,7 +4932,8 @@ def run_phases(torch, args, card) -> int:
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
     mesh = phase(phase_mesh_serve, ctx, sizes, families)
-    phase(phase_mesh_train, ctx, sizes, train)
+    mtrain = phase(phase_mesh_train, ctx, sizes, train)
+    phase(phase_dryrun_mesh, ctx, sizes, mesh, mtrain)
     phase(phase_examples, ctx)
     phase(phase_dist_pipeline_profile, ctx, sizes)
 

@@ -1,14 +1,17 @@
 """Perf hillclimbing: re-run a dry-run cell under a named variant and diff the terms.
 
 Port of the JAX package's ``repro/launch/hillclimb.py``.  Each variant
-encodes one hypothesis; :data:`VARIANTS` is the reference's table.  Those
-that change what one card runs go through :func:`repro_torch.launch.dryrun.lower_cell`:
-``accum*`` (microbatches), ``remat_*``, ``kv_int8``, ``moe_cf*`` and
-``bf16master``.  The rest change only how work is split across cards —
-sequence parallelism (``sp*``), gradients pinned to the parameter sharding
-(``gradrs``, ``bf16_rs*``) and the decode MoE's token dispatch
-(``token_dispatch``) — and are recorded as ``needs_multi_card``: they wait
-for the multi-card slice, and nothing is faked for them.
+encodes one hypothesis; :data:`VARIANTS` is the reference's table.  Every
+variant the port runs goes through :func:`repro_torch.launch.dryrun.lower_cell`,
+whose record holds the one-card counts and each production mesh's
+per-device counts and collective term: ``accum*`` (microbatches),
+``remat_*``, ``kv_int8``, ``moe_cf*``, ``bf16master``, gradients pinned to
+the parameter sharding (``gradrs``, ``bf16_rs*``: the FSDP reduction as a
+``reduce_scatter``) and the decode MoE's token dispatch (``token_dispatch``,
+the port's decode path on a mesh).  Sequence parallelism (``sp*``: the
+residual stream sharded over the model axis between blocks) is not in the
+port's mesh path; those variants are recorded as ``not_ported`` with that
+reason.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --arch qwen2-72b \\
       --shape train_4k --variant accum4 --out results/hillclimb_torch
@@ -22,9 +25,9 @@ import os
 
 import torch
 
-from .dryrun import lower_cell
+from .dryrun import MESHES, lower_cell
 
-__all__ = ["VARIANTS", "MULTI_CARD", "run_variant"]
+__all__ = ["NOT_PORTED", "NOT_PORTED_WHY", "VARIANTS", "run_variant"]
 
 VARIANTS = {
     # H-accum: FSDP re-gathers weights once per microbatch; collective term
@@ -66,24 +69,24 @@ VARIANTS = {
                            cfg_overrides={"remat": "dots"}),
 }
 
-#: variants whose hypothesis is about splitting work across cards
-MULTI_CARD = frozenset(k for k in VARIANTS if k.startswith(("sp", "gradrs", "bf16_rs"))
-                       or k == "token_dispatch")
+#: variants the port's mesh path cannot run: the residual stream sequence-sharded
+#: over the model axis between blocks
+NOT_PORTED = frozenset(k for k in VARIANTS if "rules_override" in VARIANTS[k])
+NOT_PORTED_WHY = "not ported: sequence parallelism of the residual stream"
 
 
 def run_variant(arch: str, shape, variant: str, multi_pod: bool = False, *,
-                cfg_overrides=None) -> dict:
+                cfg_overrides=None, meshes=MESHES) -> dict:
     """The dry-run record of ``arch`` x ``shape`` under ``variant``;
     ``cfg_overrides`` (a reduced config's, say) apply beneath the variant's.
-    ``multi_pod`` only labels the record's mesh, as in :func:`lower_cell`."""
+    ``multi_pod`` labels the record's mesh and ``meshes`` are the production
+    meshes its ``on_mesh`` holds, as in :func:`lower_cell`."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    if variant in MULTI_CARD:
+    if variant in NOT_PORTED:
         return {"arch": arch, "shape": getattr(shape, "name", shape),
                 "mesh": "2x16x16" if multi_pod else "16x16", "variant": variant,
-                "status": "needs_multi_card",
-                "why": "the variant changes how work is split across cards; "
-                       "it waits for the multi-card slice"}
+                "status": "not_ported", "why": NOT_PORTED_WHY}
     kw = dict(VARIANTS[variant])
     if cfg_overrides:
         base = {k: v for k, v in cfg_overrides.items()
@@ -94,7 +97,7 @@ def run_variant(arch: str, shape, variant: str, multi_pod: bool = False, *,
         if topts.get("param_dtype") == "bf16":
             topts["param_dtype"] = torch.bfloat16
         kw["train_opts"] = topts
-    rec = lower_cell(arch, shape, multi_pod, **kw)
+    rec = lower_cell(arch, shape, multi_pod, meshes=tuple(meshes), **kw)
     rec["variant"] = variant
     return rec
 
@@ -112,9 +115,13 @@ def main(argv=None) -> int:
     with open(os.path.join(args.out, fn), "w") as f:
         json.dump(rec, f, indent=1)
     if rec["status"] == "ok":
+        m = rec["on_mesh"][rec["mesh"]]
         print(f"[{args.variant}] {args.arch}|{args.shape}: compute={rec['compute_term_s']:.3f}s "
               f"memory={rec['memory_term_s']:.3f}s useful={rec['useful_flops_ratio']:.2f} "
-              f"frac={rec['roofline_fraction']:.3f} peak={rec['peak_bytes_card'] / 2**30:.1f}GiB")
+              f"frac={rec['roofline_fraction']:.3f} peak={rec['peak_bytes_card'] / 2**30:.1f}GiB"
+              f" | {rec['mesh']} per device: compute={m['compute_term_s']:.3f}s "
+              f"memory={m['memory_term_s']:.3f}s collective={m['collective_term_s']:.3f}s "
+              f"(predicted links) peak={m['peak_bytes_card'] / 2**30:.1f}GiB")
     else:
         print(f"[{args.variant}] {rec['status']}: {rec.get('error', rec.get('why'))}")
     return 0

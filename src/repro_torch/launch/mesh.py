@@ -17,10 +17,18 @@ The backend follows one rule (:func:`mesh_backend`): ``nccl`` where every
 rank has a card of its own, ``gloo`` where ranks share one (NCCL refuses two
 ranks on one device) or run on the CPU.  Rank ``r`` takes card
 ``r % device_count``.  The mesh records ``backend`` and ``ranks_per_card``.
+
+:func:`fake_mesh` is a mesh of any size in one process: torch's ``fake``
+process-group backend (``torch.testing._internal.distributed.fake_pg``),
+whose collectives return at once and move nothing, with this process as
+rank 0 of the group.  The dry run runs a cell's step there on fake tensors
+to count one device's collectives on the production meshes
+(:func:`make_fake_production_mesh`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
@@ -30,8 +38,8 @@ from datetime import timedelta
 
 import torch
 
-__all__ = ["make_mesh", "make_production_mesh", "mesh_backend", "production_mesh_axes",
-           "rank_device", "run_on_mesh"]
+__all__ = ["fake_mesh", "make_fake_production_mesh", "make_mesh", "make_production_mesh",
+           "mesh_backend", "production_mesh_axes", "rank_device", "run_on_mesh"]
 
 #: how often :func:`run_on_mesh` looks for a rank that has ended without a result
 _POLL_S = 1.0
@@ -49,6 +57,43 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     """The production mesh over the process group's ranks (256 or 512 of them)."""
     axes = production_mesh_axes(multi_pod)
     return make_mesh(tuple(axes.values()), tuple(axes), device=device)
+
+
+def _init_fake_group(world: int) -> None:
+    """This process as rank 0 of a ``world``-rank group on the ``fake`` backend."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; destroy it first")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+
+
+def make_fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (256 or 512 ranks) on the CPU over the ``fake``
+    backend, this process rank 0: :func:`make_production_mesh`'s
+    ``DeviceMesh``, for counting (see :func:`fake_mesh`).  The group stays
+    initialised; ``torch.distributed.destroy_process_group()`` ends it, as a
+    process that builds both meshes must between them."""
+    _init_fake_group(math.prod(production_mesh_axes(multi_pod).values()))
+    return make_production_mesh(multi_pod=multi_pod, device="cpu")
+
+
+@contextlib.contextmanager
+def fake_mesh(axes: dict[str, int]):
+    """``with fake_mesh({"data": 16, "model": 16}) as mesh``: a ``DeviceMesh`` of
+    those axes on the CPU over torch's ``fake`` process-group backend, this
+    process rank 0, the group destroyed on exit.  Its collectives return at
+    once and leave their outputs as they were: the values are meaningless,
+    the shapes, the calls and their groups are the real program's.  Meant
+    for fake tensors (:func:`repro_torch.models.model.fake_mode`)."""
+    import torch.distributed as dist
+
+    _init_fake_group(math.prod(axes.values()))
+    try:
+        yield make_mesh(tuple(axes.values()), tuple(axes), device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def _check_device(device: str) -> str:

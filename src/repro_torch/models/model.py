@@ -226,7 +226,7 @@ def _sum_replicated(ctx, params: list, grads: list) -> list:
     groups: dict = {}
     for i, (p, g) in enumerate(zip(params, grads)):
         held = {a for e in rules.spec_of(ctx, p) for a in rules.mesh_axes(e)}
-        axes = tuple(a for a in ctx.dp_axes if a not in held)
+        axes = tuple(a for a in ctx.dp_axes if a not in held and a not in ctx.same_rows)
         if axes:
             groups.setdefault((axes, g.dtype), []).append(i)
     out = list(grads)
@@ -251,18 +251,24 @@ def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
     With ``ctx`` on a mesh each gradient is a ``DTensor`` laid out as its
     parameter, every block already reduced (see the module's docstring);
     ``grad_reshard`` picks the FSDP reduction (``reduce_scatter`` or
-    ``all_reduce``), the values are the same.  Each microbatch's rows must
-    split over the data axes.
+    ``all_reduce``), the values are the same.  A microbatch whose rows do not
+    split over the data axes is replicated over them, as the divisibility
+    fallback lays it out: every data rank computes all its rows, and no
+    gradient is summed over the data axes (``MeshCtx.same_rows``).
     """
     mesh = _on_mesh(ctx)
     if mesh:
         ctx = dataclasses.replace(ctx, fsdp_grad="reduce_scatter" if grad_reshard
                                   else "all_reduce")
     loss_fn = make_loss_fn(cfg, ctx, attn_impl=attn_impl, compute_dtype=compute_dtype)
+    if mesh:  # a microbatch the data axes do not split: the same rows on every data rank
+        whole_ctx = dataclasses.replace(ctx, same_rows=ctx.dp_axes)
+        whole_loss_fn = make_loss_fn(cfg, whole_ctx, attn_impl=attn_impl,
+                                     compute_dtype=compute_dtype)
     accum = grad_accum if grad_accum is not None else cfg.grad_accum
     skip = unreached(cfg)
 
-    def grads_of(params, mb):
+    def grads_of(params, mb, whole: bool = False):
         """The loss and each parameter's gradient (its block, on a mesh)."""
         held = tree_leaves(params)
         # the parameters are differentiated in the compute type, as the loss casts
@@ -270,8 +276,8 @@ def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
         # its parameter's type once, after them (the cast's backward)
         leaves = [rules.block(p).detach().to(compute_dtype).requires_grad_() for p in held]
         with torch.enable_grad():
-            loss, _ = loss_fn(tree_unflatten(params, [rules.like(p, x)
-                                                      for p, x in zip(held, leaves)]), mb)
+            loss, _ = (whole_loss_fn if whole else loss_fn)(
+                tree_unflatten(params, [rules.like(p, x) for p, x in zip(held, leaves)]), mb)
             grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
         for i, (path, _) in enumerate(tree_paths(params)):
             if grads[i] is None:
@@ -282,7 +288,7 @@ def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
                                      f"on its path has no backward")
                 grads[i] = torch.zeros_like(leaves[i])
         if mesh:
-            grads = _sum_replicated(ctx, held, grads)
+            grads = _sum_replicated(whole_ctx if whole else ctx, held, grads)
         del leaves
         for i, p in enumerate(held):  # one leaf's two copies at a time
             grads[i] = grads[i].to(p.dtype)
@@ -291,14 +297,10 @@ def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
     def grad_fn(params, batch):
         held = tree_leaves(params)
         batch = _batch_on(batch, rules.block(held[0]).device)
-        if mesh:
-            rows = next(iter(batch.values())).shape[0] // max(accum, 1)
-            dp = math.prod(ctx.axis_sizes[a] for a in ctx.dp_axes)
-            if rows % dp:
-                raise ValueError(f"{rows} rows a microbatch do not split over the data axes "
-                                 f"{ctx.dp_axes} ({dp} ranks)")
+        rows = next(iter(batch.values())).shape[0] // max(accum, 1)
+        whole = mesh and rows % math.prod(ctx.axis_sizes[a] for a in ctx.dp_axes) != 0
         if accum <= 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = grads_of(params, batch, whole)
         else:
             micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                      for k, v in batch.items()}
@@ -306,7 +308,7 @@ def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
                                  device=rules.block(p).device) for p in held]
             loss_sum = 0.0
             for i in range(accum):
-                loss, g = grads_of(params, {k: v[i] for k, v in micro.items()})
+                loss, g = grads_of(params, {k: v[i] for k, v in micro.items()}, whole)
                 grads = [a + b.float() for a, b in zip(grads, g)]
                 loss_sum = loss_sum + loss
             loss, grads = loss_sum / accum, [g / accum for g in grads]

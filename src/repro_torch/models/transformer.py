@@ -539,9 +539,13 @@ def _cache_view(ctx, c, specs, batch: int):
     which puts row ``slot`` of that view back into the cache's own layout.
 
     The view is the cache itself without a mesh, and a view of the cache's
-    own block unless the divisibility fallback laid the cache out otherwise
-    (head_dim over the model axis, where the kv heads do not split): then
-    the view is a gathered copy, and only the new row goes back."""
+    own block unless the cache is laid out otherwise: head_dim over the
+    model axis where the kv heads do not split (the divisibility fallback),
+    or the sequence over the data axis (``long_500k``'s ``seq_kv``).  Then
+    the view is a gathered copy, and only the new row goes back: each rank
+    cuts its own block of the row's other dims, and along a sharded
+    sequence only the ranks whose block holds ``slot`` write it, at their
+    local row.  No one-row tensor is cut over the sequence's axes."""
     if not _on_mesh(ctx):
         return c, lambda slot: None
     bspec, kv_entry = _batch_entry(ctx, batch), rules.spec_at(specs, "k", "w", 1)
@@ -552,9 +556,16 @@ def _cache_view(ctx, c, specs, batch: int):
 
     def write_back(slot: int) -> None:
         for name, t in c.items():
-            if held[name] != want[name]:
-                row = rules.relayout(ctx, view[name][:, slot:slot + 1], want[name], held[name])
-                t.to_local()[:, slot] = row[:, 0]
+            if held[name] == want[name]:
+                continue
+            local = t.to_local()
+            seq_axes = rules.mesh_axes(held[name][1])
+            row_spec = (held[name][0], None, *held[name][2:])
+            w_l = local.shape[1]
+            if seq_axes and rules.block_index(ctx, seq_axes) != slot // w_l:
+                continue  # another rank's block holds the slot
+            row = rules.relayout(ctx, view[name][:, slot:slot + 1], want[name], row_spec)
+            local[:, slot % w_l] = row[:, 0]
 
     return view, write_back
 

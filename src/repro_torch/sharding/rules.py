@@ -112,12 +112,19 @@ class MeshCtx:
     gradients: ``"reduce_scatter"`` (each rank receives the sum of its own
     block: the reference's ``grad_reshard=True``) or ``"all_reduce"`` (every
     rank receives the whole sum and keeps its block).  The values are the
-    same; the collective and its wire bytes differ."""
+    same; the collective and its wire bytes differ.
+
+    ``same_rows`` names the data axes whose ranks compute the same rows: a
+    batch the divisibility fallback replicates (a microbatch of 16 rows on
+    32 data ranks).  Their cotangents are then whole, not partial sums: a
+    gather's backward over such an axis keeps its own block of the
+    cotangent, and no gradient is summed over it."""
 
     axes: tuple[tuple[str, int], ...]
     rules: tuple[tuple[str, tuple[str, ...]], ...] = tuple(DEFAULT_RULES.items())
     mesh: object = dataclasses.field(default=None, compare=False)
     fsdp_grad: str = dataclasses.field(default="reduce_scatter", compare=False)
+    same_rows: tuple[str, ...] = dataclasses.field(default=(), compare=False)
 
     @classmethod
     def of(cls, axis_sizes: dict[str, int]) -> "MeshCtx":
@@ -282,24 +289,37 @@ def axis_index(ctx, axis: str) -> int:
 #: calls, bytes (this rank's payload) and host seconds of each collective kind
 #: since the last reset
 _COUNTS: dict[str, dict[str, float]] = {}
+#: calls and bytes of each collective kind by the mesh axis it ran over, with
+#: the axis's size (the group's ranks)
+_BY_AXIS: dict[str, dict[str, dict[str, int]]] = {}
 
 
-def collective_counts() -> dict[str, dict[str, float]]:
+def collective_counts(by_axis: bool = False) -> dict:
     """``{kind: {"calls", "bytes", "seconds"}}`` of this process's collectives since
     the last reset; ``seconds`` is the host's wall time inside the calls
-    (they return when their result is in place)."""
+    (they return when their result is in place).  ``bytes`` is the operand
+    this rank passes: its block for an ``all_gather``, the whole input of a
+    ``reduce_scatter``.  ``by_axis``: ``{kind: {axis: {"calls", "bytes",
+    "group"}}}`` instead, ``group`` the axis's size."""
+    if by_axis:
+        return {k: {a: dict(c) for a, c in v.items()} for k, v in _BY_AXIS.items()}
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
+    _BY_AXIS.clear()
 
 
-def _count(kind: str, x, seconds: float) -> None:
+def _count(kind: str, x, seconds: float, axis: str, group: int) -> None:
+    nbytes = x.numel() * x.element_size()
     c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
     c["calls"] += 1
-    c["bytes"] += x.numel() * x.element_size()
+    c["bytes"] += nbytes
     c["seconds"] += seconds
+    a = _BY_AXIS.setdefault(kind, {}).setdefault(axis, {"calls": 0, "bytes": 0, "group": group})
+    a["calls"] += 1
+    a["bytes"] += nbytes
 
 
 def _axis_size(mesh, a: str) -> int:
@@ -314,11 +334,12 @@ def _all_reduce(ctx, x, axes, op=None):
     mesh = _mesh(ctx)
     out = x.contiguous().clone()
     for a in reversed(mesh_axes(axes)):
-        if _axis_size(mesh, a) == 1:
+        n = _axis_size(mesh, a)
+        if n == 1:
             continue
         sw = Stopwatch()
         dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=mesh.get_group(a))
-        _count("all_reduce", out, sw.elapsed())
+        _count("all_reduce", out, sw.elapsed(), a, n)
     return out
 
 
@@ -331,7 +352,7 @@ def _gather(ctx, x, a: str, dim: int):
     parts = [torch.empty_like(x) for _ in range(_axis_size(mesh, a))]
     sw = Stopwatch()
     dist.all_gather(parts, x, group=mesh.get_group(a))
-    _count("all_gather", x, sw.elapsed())
+    _count("all_gather", x, sw.elapsed(), a, len(parts))
     return torch.cat(parts, dim=dim)
 
 
@@ -348,7 +369,7 @@ def _scatter(ctx, x, a: str, dim: int):
     out = whole.new_empty((whole.shape[0] // n, *whole.shape[1:]))
     sw = Stopwatch()
     dist.reduce_scatter_tensor(out, whole, group=mesh.get_group(a))
-    _count("reduce_scatter", whole, sw.elapsed())
+    _count("reduce_scatter", whole, sw.elapsed(), a, n)
     return out.movedim(0, dim).contiguous()
 
 
@@ -391,6 +412,8 @@ class _Gather(torch.autograd.Function):
         ctx, a, dim = fctx.mesh_ctx, fctx.a, fctx.dim
         # either way a contiguous block: a later sum over it (the clip's norm)
         # adds its elements in one order
+        if a in ctx.same_rows:  # every rank of the axis holds the whole cotangent
+            return None, _own_block(ctx, g, a, dim).contiguous(), None, None
         if ctx.fsdp_grad == "reduce_scatter":
             return None, psum_scatter(ctx, g, a, dim), None, None
         if ctx.fsdp_grad != "all_reduce":

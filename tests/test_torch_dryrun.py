@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import types
 
@@ -191,7 +192,8 @@ def test_counted_train_flops_equal_the_matrix_products():
              + 3 * 2 * T * d * ff)
     fwd = cfg.num_layers * layer + 2 * T * d * V
     assert cfg.tie_embeddings and cfg.mlp_act == "silu"
-    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", S, B, "train"), cfg_overrides=over)
+    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", S, B, "train"), cfg_overrides=over,
+                            meshes=())  # one card's counts
     assert rec["flops"] == 3 * fwd
     assert sum(rec["flops_by_dtype"].values()) == rec["flops"]
     # the attention products run in fp32 (the chunked and direct paths upcast q, k, v)
@@ -208,16 +210,21 @@ EXTRAPOLATED = ("flops", "flops_by_dtype", "bytes", "activation_bytes", "peak_by
 @pytest.mark.parametrize("cell", ["train-none", "train-full", "prefill", "decode"])
 @pytest.mark.parametrize("arch,layers", [("qwen2-0.5b", 6), ("recurrentgemma-9b", 14)])
 def test_extrapolation_equals_a_full_depth_run(arch, layers, cell):
+    """One card's counts and the 16 x 16 mesh's rank 0's (its collectives too)."""
     kind, _, remat = cell.partition("-")
     shape = ShapeSpec(cell, 64, 4 if kind == "train" else 2, kind)
     over = {**dryrun.reduced_overrides(arch), "num_layers": layers, "remat": remat or "none"}
-    got = dryrun.lower_cell(arch, shape, cfg_overrides=over)
+    got = dryrun.lower_cell(arch, shape, cfg_overrides=over, meshes=("16x16",))
     full_cfg = dataclasses.replace(get_config(arch), **over)
-    want = dryrun._measure(full_cfg, shape)  # the step at full depth
-    assert got["extrapolation"] == "per-period"
-    want["peak_bytes"] = max(want["peak_bytes"].values())
-    want["peak_bytes_card"] = max(want["peak_bytes_card"].values())
-    assert {k: got[k] for k in EXTRAPOLATED} == {k: want[k] for k in EXTRAPOLATED}
+    axes = {"data": 16, "model": 16}
+    for have, want in ((got, dryrun._measure(full_cfg, shape)),  # the step at full depth
+                       (got["on_mesh"]["16x16"], dryrun._on_fake_mesh(axes, full_cfg, shape))):
+        assert have["extrapolation"] == "per-period"
+        want["peak_bytes"] = max(want["peak_bytes"].values())
+        want["peak_bytes_card"] = max(want["peak_bytes_card"].values())
+        assert {k: have[k] for k in EXTRAPOLATED} == {k: want[k] for k in EXTRAPOLATED}
+    assert got["on_mesh"]["16x16"]["collectives_by_kind"] == dryrun.collectives_by_kind(
+        axes, want["collectives"])
     state, _ = dryrun._state_tree(full_cfg, shape, kv_dtype=None, param_dtype=torch.float32)
     assert got["state_bytes"] == sum(t.numel() * t.element_size() for t in tree_leaves(state))
 
@@ -225,7 +232,7 @@ def test_extrapolation_equals_a_full_depth_run(arch, layers, cell):
 def test_a_short_cell_runs_at_full_depth():
     over = dryrun.reduced_overrides("recurrentgemma-9b")  # 5 layers: one period of 3, tail 2
     rec = dryrun.lower_cell("recurrentgemma-9b", ShapeSpec("t", 32, 2, "train"),
-                            cfg_overrides=over)
+                            cfg_overrides=over, meshes=())
     assert rec["extrapolation"] == "exact"
 
 
@@ -254,27 +261,34 @@ def test_train_peak_is_the_larger_phase_and_the_inputs_are_live():
     counts = dryrun._measure(cfg, ShapeSpec("t", 32, 2, "train"))
     assert set(counts["peak_bytes"]) == {"forward", "backward", "update"}
     assert min(counts["peak_bytes"].values()) >= counts["input_bytes"]
-    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"), cfg_overrides=over)
+    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"), cfg_overrides=over,
+                            meshes=())
     assert rec["peak_bytes"] == max(counts["peak_bytes"].values())
     assert rec["activation_bytes"] > 0 and rec["fits_one_card"]
     full = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"),
-                             cfg_overrides={**over, "remat": "full"})
+                             cfg_overrides={**over, "remat": "full"}, meshes=())
     assert full["activation_bytes"] < rec["activation_bytes"]
     assert full["flops"] > rec["flops"]  # the recompute
 
 
 def test_state_bytes_per_device_follow_the_rules():
     rec = dryrun.lower_cell("qwen2-72b", "decode_32k",
-                            cfg_overrides=dryrun.reduced_overrides("qwen2-72b"))
+                            cfg_overrides=dryrun.reduced_overrides("qwen2-72b"), meshes=())
     per = rec["state_bytes_per_device"]
     assert set(per) == {"16x16", "2x16x16"}
     assert rec["state_bytes"] / 512 <= per["2x16x16"] <= per["16x16"] <= rec["state_bytes"]
 
 
 def test_lower_cell_refuses_what_needs_several_cards():
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"),
-                          train_opts={"grad_reshard": True})
+    """A mesh the port does not model is refused; ``grad_reshard``, once refused,
+    runs on the production meshes (``tests/test_torch_dryrun_mesh.py``)."""
+    with pytest.raises(ValueError, match="unknown meshes"):
+        dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 2, "train"), meshes=("4x4",))
+    rec = dryrun.lower_cell("qwen2-0.5b", ShapeSpec("t", 32, 32, "train"),
+                            cfg_overrides=dryrun.reduced_overrides("qwen2-0.5b"),
+                            train_opts={"grad_reshard": True}, meshes=("16x16",))
+    assert rec["grad_reshard"] and "reduce_scatter" in rec["on_mesh"]["16x16"][
+        "collectives_by_kind"]
 
 
 # --- hillclimb ---------------------------------------------------------------------
@@ -286,13 +300,15 @@ def test_hillclimb_variant_at_a_reduced_cell(variant):
     over = dryrun.reduced_overrides(arch)
     kind = "decode" if variant == "kv_int8" else "train"
     shape = ShapeSpec(f"reduced_{kind}", 32, 8, kind)
-    rec = hillclimb.run_variant(arch, shape, variant, cfg_overrides=over)
+    # the one-card counts alone (the meshes' are tests/test_torch_dryrun_mesh.py's)
+    rec = hillclimb.run_variant(arch, shape, variant, cfg_overrides=over, meshes=())
     assert rec["variant"] == variant
-    if variant in hillclimb.MULTI_CARD:
-        assert rec["status"] == "needs_multi_card" and "multi-card" in rec["why"]
+    if variant in hillclimb.NOT_PORTED:
+        assert rec["status"] == "not_ported" and rec["why"] == hillclimb.NOT_PORTED_WHY
+        assert variant.startswith("sp")
         return
     assert rec["status"] == "ok"
-    base = hillclimb.run_variant(arch, shape, "baseline", cfg_overrides=over)
+    base = hillclimb.run_variant(arch, shape, "baseline", cfg_overrides=over, meshes=())
     if variant.startswith("accum"):
         assert rec["grad_accum"] == int(variant[5:])
         assert rec["flops"] == base["flops"]  # the same products over fewer rows at a time
@@ -305,7 +321,7 @@ def test_hillclimb_variant_at_a_reduced_cell(variant):
     elif variant.startswith("moe_cf"):
         cf = float(variant[6:])
         assert rec["flops"] != base["flops"] or cf == over["moe_capacity_factor"]
-    assert set(hillclimb.VARIANTS) >= hillclimb.MULTI_CARD
+    assert set(hillclimb.VARIANTS) >= hillclimb.NOT_PORTED
 
 
 # --- the command lines and the roofline table ---------------------------------------
@@ -333,6 +349,12 @@ def test_dryrun_cli_and_the_roofline_table(tmp_path, capsys):
     s = rf.summary(recs)
     assert (s["cells_ok"], s["cells_skipped"], s["cells_error"]) == (1, 1, 0)
     assert s["fit_one_card"] == [("mamba2-370m", "long_500k")]
+    row = next(line for line in table.splitlines() if "| mamba2-370m |" in line).split("|")
+    assert math.isclose(float(row[5]), recs[0]["collective_term_s"], rel_tol=1e-3)
+    (arch, shape, ratio), = s["most_collective_bound"]
+    m = recs[0]["on_mesh"]["16x16"]
+    assert (arch, shape) == ("mamba2-370m", "long_500k")
+    assert ratio == m["collective_term_s"] / m["compute_term_s"]
     assert rf.HW["peak_flops_bf16"] == dryrun.PEAK_FLOPS_BF16 and rf.HW["hbm_bw"] == dryrun.HBM_BW
 
 
@@ -341,4 +363,4 @@ def test_hillclimb_cli_records_a_multi_card_variant(tmp_path):
     assert hillclimb.main(["--arch", "qwen2-72b", "--shape", "train_4k", "--variant", "sp",
                            "--out", out]) == 0
     rec = json.load(open(os.path.join(out, "qwen2-72b__train_4k__sp.json")))
-    assert rec["status"] == "needs_multi_card"
+    assert rec["status"] == "not_ported" and "sequence parallelism" in rec["why"]

@@ -1,0 +1,171 @@
+"""The dry run on a mesh: its fake-mesh counts against gloo ranks running the same step.
+
+:func:`repro_torch.launch.dryrun.measure_on_mesh` runs a cell's step as rank
+0 of a mesh on torch's ``fake`` process-group backend, on fake tensors, and
+counts the port's collectives by kind and mesh axis.  Here gloo processes,
+one per rank (``run_on_mesh(device="cpu")``), run the same steps on real
+tensors at reduced configs on (data 2, model 2); every rank's counts must
+equal the prediction exactly, kind for kind and axis for axis, in calls and
+bytes: qwen2's train step in both ``grad_reshard`` modes, and the decode
+steps of qwen3-moe, recurrentgemma and mamba2 under ``decode_32k`` and
+(the recurrent two) ``long_500k``.  Rank bodies: ``tests/torch_mesh_ranks.py``.
+
+Also: the wire-byte conventions, the links, the argument bytes against
+``state_bytes_per_device`` on both production meshes, the CLI's ``--mesh
+multi``, and the hillclimb variants that split work across cards.
+"""
+
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import torch_mesh_ranks as ranks
+from repro_torch.configs import SHAPES, reduced_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun, hillclimb
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models import model as tmodel
+from repro_torch.models import transformer
+
+AXES = {"data": 2, "model": 2}
+DECODE = ShapeSpec("decode_32k", 16, 4, "decode")  # decode_32k's rules at a test size
+TRAIN = ShapeSpec("train_4k", 16, 4, "train")
+
+#: name -> (arch, shape, grad_reshard)
+CASES = {
+    "qwen2_train_rs": ("qwen2-0.5b", TRAIN, True),
+    "qwen2_train_ar": ("qwen2-0.5b", TRAIN, False),
+    "moe_decode": ("qwen3-moe-235b-a22b", DECODE, False),
+    "rglru_decode": ("recurrentgemma-9b", DECODE, False),
+    "ssd_decode": ("mamba2-370m", DECODE, False),
+    "rglru_long": ("recurrentgemma-9b", SHAPES["long_500k"], False),
+    "ssd_long": ("mamba2-370m", SHAPES["long_500k"], False),
+}
+
+
+def _pos(shape) -> int:
+    return shape.seq_len - 1
+
+
+@pytest.fixture(scope="module")
+def gloo_counts():
+    cases = {}
+    for i, (name, (arch, shape, rs)) in enumerate(CASES.items()):
+        cfg = reduced_config(arch)
+        c = dict(cfg=cfg, shape=shape, dtype=torch.float32, grad_reshard=rs, pos=_pos(shape))
+        if shape.kind == "train":
+            c["state"] = tmodel.init_train_state(cfg, seed=i, device="cpu")
+            c["batch"] = {"tokens": np.random.default_rng(i).integers(
+                0, cfg.vocab_size, (shape.global_batch, shape.seq_len)).astype(np.int32)}
+        else:
+            c["params"] = transformer.init_params(cfg, seed=i, device="cpu")
+        cases[name] = c
+    return tmesh.run_on_mesh(ranks.step_counts_body, tuple(AXES.values()), tuple(AXES),
+                             device="cpu", args=(cases,), timeout_s=600)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fake_mesh_counts_equal_the_gloo_ranks(gloo_counts, name):
+    arch, shape, rs = CASES[name]
+    got = dryrun.measure_on_mesh(reduced_config(arch), shape, AXES, param_dtype=torch.float32,
+                                 kv_dtype=torch.float32, compute_dtype=torch.float32,
+                                 pos=_pos(shape), grad_reshard=rs)["collectives_by_kind"]
+    predicted = {k: {a: {"calls": v["calls"], "bytes": v["operand_bytes"], "group": v["group"]}
+                     for a, v in per["by_axis"].items()} for k, per in got.items()}
+    assert predicted, "the step makes collectives"
+    for rank in gloo_counts:
+        assert rank[name] == predicted
+    if shape.kind == "train":  # the FSDP reduction is the mode's collective
+        assert ("reduce_scatter" in predicted) == rs
+
+
+def test_wire_bytes_follow_the_reference_conventions():
+    assert dryrun.wire_bytes("all_gather", 100, 16) == 1600  # the result
+    assert dryrun.wire_bytes("all_reduce", 100, 16) == 200  # twice the operand
+    assert dryrun.wire_bytes("reduce_scatter", 1600, 16) == 1600  # the operand
+    with pytest.raises(ValueError):
+        dryrun.wire_bytes("all_to_all", 1, 2)
+    # a group inside one 8-card node rides NVLink; a 16-wide axis spans two nodes
+    assert dryrun.link_bw({"data": 2, "model": 2}, "data") == dryrun.NVLINK_BW
+    assert dryrun.link_bw({"data": 16, "model": 16}, "model") == dryrun.IB_BW
+    assert dryrun.link_bw({"data": 16, "model": 16}, "data") == dryrun.IB_BW
+    assert dryrun.link_bw({"data": 32, "model": 8}, "model") == dryrun.NVLINK_BW
+    assert dryrun.link_bw({"pod": 2, "data": 16, "model": 16}, "pod") == dryrun.IB_BW
+    coll = dryrun.collectives_by_kind({"data": 16, "model": 16}, {
+        "all_gather": {"data": {"calls": 2, "bytes": 10, "group": 16}},
+        "all_reduce": {"model": {"calls": 3, "bytes": 30, "group": 16},
+                       "data": {"calls": 1, "bytes": 5, "group": 16}}})
+    assert coll["all_gather"]["wire_bytes"] == 160 and coll["all_reduce"]["wire_bytes"] == 70
+    assert coll["all_reduce"]["calls"] == 4 and coll["all_reduce"]["operand_bytes"] == 35
+    assert math.isclose(sum(k["seconds"] for k in coll.values()), 230 / dryrun.IB_BW)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-0.5b", ShapeSpec("train_4k", 64, 64, "train")),
+    ("qwen3-moe-235b-a22b", ShapeSpec("decode_32k", 256, 64, "decode")),
+    ("recurrentgemma-9b", "long_500k"),
+    ("paligemma-3b", ShapeSpec("prefill_32k", 256, 32, "prefill"))], ids=str)
+def test_argument_bytes_equal_state_bytes_per_device(arch, shape):
+    """Rank 0 of each production mesh runs on its blocks of the very state the
+    rules lay out: its argument bytes are ``state_bytes_per_device`` (the
+    cells' rules at a test size)."""
+    rec = dryrun.lower_cell(arch, shape, cfg_overrides=dryrun.reduced_overrides(arch))
+    assert set(rec["on_mesh"]) == {"16x16", "2x16x16"}
+    for name, m in rec["on_mesh"].items():
+        assert m["argument_bytes"] == rec["state_bytes_per_device"][name]
+        assert m["chips"] == math.prod(m["axes"].values())
+        assert m["peak_bytes"] >= m["argument_bytes"]
+        assert math.isfinite(m["collective_term_s"]) and m["collective_term_s"] >= 0
+        assert m["bottleneck"] in ("compute", "memory", "collective")
+    assert rec["collective_term_s"] == rec["on_mesh"]["16x16"]["collective_term_s"]
+
+
+def test_cli_mesh_multi(tmp_path, capsys):
+    out = str(tmp_path / "dry")
+    assert dryrun.main(["--arch", "mamba2-370m", "--shape", "long_500k", "--mesh", "multi",
+                        "--out", out]) == 0
+    text = capsys.readouterr().out
+    assert "1 ok, 0 skipped, 0 error" in text and "mamba2-370m|long_500k|2x16x16" in text
+    rec = json.load(open(os.path.join(out, "mamba2-370m__long_500k__multi.json")))
+    assert rec["mesh"] == "2x16x16"
+    assert rec["collective_term_s"] == rec["on_mesh"]["2x16x16"]["collective_term_s"]
+    assert rec["on_mesh"]["2x16x16"]["chips"] == 512 and rec["on_mesh"]["16x16"]["chips"] == 256
+
+
+@pytest.mark.parametrize("variant", ["gradrs", "bf16_rs", "bf16_rs_accum4", "bf16_rs_accum1",
+                                     "token_dispatch"])
+def test_hillclimb_variants_run_on_the_meshes(variant):
+    arch = "qwen3-moe-235b-a22b"
+    kind = "decode" if variant == "token_dispatch" else "train"
+    shape = ShapeSpec(f"reduced_{kind}", 32, 128, kind)  # 32 rows a microbatch at accum 4
+    rec = hillclimb.run_variant(arch, shape, variant, cfg_overrides=dryrun.reduced_overrides(arch))
+    assert rec["status"] == "ok" and rec["variant"] == variant
+    for m in rec["on_mesh"].values():
+        kinds = m["collectives_by_kind"]
+        assert ("reduce_scatter" in kinds) == (kind == "train")
+    if kind == "train":
+        assert rec["grad_reshard"] is True
+
+
+def test_fake_production_meshes_one_after_the_other():
+    """Rank 0 of the 256- and 512-rank production meshes in this process, the
+    group destroyed between them."""
+    import torch.distributed as dist
+
+    for multi, names, shape in ((False, ("data", "model"), (16, 16)),
+                                (True, ("pod", "data", "model"), (2, 16, 16))):
+        mesh = tmesh.make_fake_production_mesh(multi_pod=multi)
+        try:
+            assert mesh.mesh_dim_names == names and tuple(mesh.shape) == shape
+            assert dist.get_world_size() == math.prod(shape) and dist.get_rank() == 0
+            assert mesh.device_type == "cpu" and dist.get_backend() == "fake"
+        finally:
+            dist.destroy_process_group()
+    with tmesh.fake_mesh({"data": 2, "model": 2}):
+        with pytest.raises(RuntimeError, match="already initialised"):
+            tmesh.make_fake_production_mesh()
+    assert not dist.is_initialized()

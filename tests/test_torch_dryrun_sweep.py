@@ -2,7 +2,8 @@
 
 A cell the reference's ``cfg.supports`` rejects is ``skipped`` with the same
 reason; a supported one runs its step on fake tensors and is ``ok`` with
-finite, positive counts.  The cells run at reduced width (the reduced
+finite, positive counts, and runs it again as rank 0 of both production
+meshes (``on_mesh``) with a finite collective term.  The cells run at reduced width (the reduced
 config's dims, the cell's batch and sequence) to keep the file short: the
 full-width sweep of all 40 cells is ``chip_smoke.py``'s ``dryrun`` phase and
 ``python -m repro_torch.launch.dryrun --all``.
@@ -42,6 +43,11 @@ def test_cell_verdict_equals_the_reference(arch, shape):
     for key in ("flops", "bytes", "model_flops", "state_bytes", "peak_bytes", "compute_term_s",
                 "memory_term_s"):
         assert math.isfinite(rec[key]) and rec[key] > 0, key
-    assert rec["peak_bytes"] >= rec["state_bytes"] and rec["collective_term_s"] is None
+    assert rec["peak_bytes"] >= rec["state_bytes"] and math.isfinite(rec["collective_term_s"])
+    assert rec["collective_term_s"] == rec["on_mesh"]["16x16"]["collective_term_s"]
+    assert set(rec["on_mesh"]) == {"16x16", "2x16x16"}
+    for name, m in rec["on_mesh"].items():  # rank 0 of the mesh, on its blocks of the state
+        assert m["argument_bytes"] == rec["state_bytes_per_device"][name]
+        assert math.isfinite(m["collective_term_s"]) and m["collective_term_s"] >= 0
     assert rec["bottleneck"] in ("compute", "memory") and rec["extrapolation"] in (
         "exact", "per-period")

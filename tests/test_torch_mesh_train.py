@@ -75,6 +75,9 @@ CASES = {
                        (True,)),
     "ssd_fallback": ("mamba2-370m", (2, 2), ("data", "model"), {"ssm_heads": 1}, 1, False,
                      (True,)),
+    # one row a microbatch on two data ranks: the divisibility fallback replicates
+    # it, every data rank computes it whole and no gradient is summed over data
+    "qwen2_same_rows": ("qwen2-0.5b", (2, 2), ("data", "model"), {}, 4, False, (True,)),
 }
 
 _JAX_SCRIPT = r"""
@@ -110,8 +113,10 @@ for name, c in inp.items():
         res[rs] = dict(new=jax.tree.map(lambda a: np.asarray(a, np.float32), new),
                        loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
     loss_fn = jmodel.make_loss_fn(cfg, ctx, compute_dtype=jnp.float32)
-    vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True), in_shardings=(st_sh["params"], b_sh))
     micro = tokens.reshape(c["grad_accum"], -1, tokens.shape[1])
+    mb_sh = {"tokens": NamedSharding(mesh, logical_to_spec(ctx, micro.shape[1:],
+                                                           ("batch", "seq")))}
+    vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True), in_shardings=(st_sh["params"], mb_sh))
     grads, loss = None, 0.0
     for mb in micro:  # the reference's accumulation: fp32 sums in microbatch order, then a mean
         (l, _), g = vg(state["params"], {"tokens": jnp.asarray(mb)})

@@ -17,7 +17,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 from repro_torch.runtime.elastic import reshard_state, state_shardings, state_specs
 from repro_torch.sharding import rules
-from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 MOE_AXES = {"router": ("embed", None), "w1": ("expert", "embed_e", "moe_ff"),
             "wg": ("expert", "embed_e", "moe_ff"), "w2": ("expert", "moe_ff", "embed_e")}
@@ -277,3 +277,130 @@ def recurrent_family(ctx, cfg, params, tokens, decode_steps, prompts=None, new_t
 def families_body(ctx, cases: dict) -> dict:
     """Every family case of this mesh, in one spawn."""
     return {name: recurrent_family(ctx, **case) for name, case in cases.items()}
+
+
+def _cache_from_numpy(ctx, cfg, whole: dict, int8: bool):
+    """A whole cache tree of numpy arrays (:func:`tt.init_cache`'s leaves and
+    dtypes) as ``DTensor`` leaves laid out by ``ctx``'s rules."""
+    like = tt.init_cache(cfg, 1, SHAPES["long_500k"].seq_len,
+                         torch.int8 if int8 else torch.float32, device="cpu")
+    specs = rules.spec_tree(ctx, like, tt.cache_axes(cfg, int8=int8))
+
+    def place(t, arr, spec):
+        x = torch.from_numpy(np.asarray(arr)).to(t.dtype)
+        return rules.as_dtensor(ctx, rules.local_block(ctx, x, spec).contiguous().clone(), spec,
+                                t.shape)
+
+    return tree_map(place, like, whole, specs)
+
+
+def _attn_blocks(cache) -> dict:
+    """Copies of this rank's blocks of every attention layer's cache leaves."""
+    return {f"{i}/{name}": t.to_local().clone() for i, c in enumerate(cache["layers"])
+            for name, t in c.items() if name in ("k", "v", "k_scale", "v_scale")}
+
+
+def long_families_body(ctx, cases: dict) -> dict:
+    """Every family's :func:`long_body`, in one spawn."""
+    return {name: long_body(ctx, **case) for name, case in cases.items()}
+
+
+def long_body(ctx, cfg, params, runs: dict) -> dict:
+    """A reduced family under the ``long_500k`` rules (B 1, the KV cache's
+    sequence over ``data``): each run decodes ``tokens`` from ``pos0`` on the
+    cache ``cache`` (a whole numpy tree, or zeros), in fp32 or int8.  Per run:
+    every step's logits, the cache after, gathered, its layout kept, and on
+    the first step the local rows each attention leaf's block changed."""
+    lctx = make_ctx(ctx, cfg, SHAPES["long_500k"])
+    dp = reshard_state(params, None, lctx, tt.param_axes(cfg))
+    serve = tmodel.make_serve_step(cfg, lctx, compute_dtype=torch.float32)
+    out = dict(coord={a: rules.axis_index(ctx, a) for a in ctx.mesh.mesh_dim_names}, runs={})
+    for key, run in runs.items():
+        int8 = run["int8"]
+        if run["cache"] is None:
+            cache = tt.init_cache(cfg, 1, SHAPES["long_500k"].seq_len,
+                                  torch.int8 if int8 else torch.float32, device="cpu", ctx=lctx)
+        else:
+            cache = _cache_from_numpy(lctx, cfg, run["cache"], int8)
+        layout = {path: (rules.spec_of(lctx, t), tuple(t.to_local().shape))
+                  for path, t in tree_paths(cache)}
+        tokens = run["tokens"]
+        steps, touched = [], None
+        for i in range(tokens.shape[1]):
+            before = _attn_blocks(cache) if i == 0 else None
+            lg, cache = serve(dp, cache, torch.from_numpy(tokens[:, i:i + 1]).long(),
+                              run["pos0"] + i)
+            if before is not None:
+                after = _attn_blocks(cache)
+                touched = {k: sorted({int(r) for r in torch.nonzero(
+                    (after[k] != before[k]).reshape(after[k].shape[0], after[k].shape[1], -1)
+                    .any(-1).any(0)).flatten()}) for k in before}
+            steps.append(_whole(lctx, lg)[:, 0])
+        out["runs"][key] = dict(
+            decode=np.stack(steps, 1), touched=touched,
+            cache_specs={path: spec for path, (spec, _) in layout.items()},
+            layout_kept=all((rules.spec_of(lctx, t), tuple(t.to_local().shape)) == layout[path]
+                            for path, t in tree_paths(cache)),
+            cache={path: rules.full_value(lctx, t).float().numpy()
+                   for path, t in tree_paths(cache)})
+    return out
+
+
+def step_counts_body(ctx, cases: dict) -> dict:
+    """Each case's step once on this rank, its collectives counted by kind and
+    axis: ``{"cfg", "shape", "dtype", "grad_reshard"}`` a train step
+    (``make_train_step``) of ``state`` on ``batch``, else a decode step
+    (``make_serve_step``) at ``pos`` on a zero cache of the shape's batch
+    and length.  The parameters, the cache and the compute are in
+    ``dtype``, as :func:`repro_torch.launch.dryrun.measure_on_mesh` is asked."""
+    out = {}
+    for name, c in cases.items():
+        cfg, shape, dt = c["cfg"], c["shape"], c["dtype"]
+        cctx = make_ctx(ctx, cfg, shape)
+        if shape.kind == "train":
+            state = reshard_state(c["state"], None, cctx, tt.param_axes(cfg))
+            step = tmodel.make_train_step(cfg, cctx, compute_dtype=dt,
+                                          grad_reshard=c["grad_reshard"])
+            rules.reset_collective_counts()
+            step(state, c["batch"])
+        else:
+            params = reshard_state(tmodel.cast_params(c["params"], dt), None, cctx,
+                                   tt.param_axes(cfg))
+            cache = tt.init_cache(cfg, shape.global_batch, shape.seq_len, dt, device="cpu",
+                                  ctx=cctx)
+            serve = tmodel.make_serve_step(cfg, cctx, compute_dtype=dt)
+            tokens = torch.zeros((shape.global_batch, 1), dtype=torch.long)
+            rules.reset_collective_counts()
+            serve(params, cache, tokens, c["pos"])
+        out[name] = {k: {a: {"calls": v["calls"], "bytes": v["bytes"], "group": v["group"]}
+                         for a, v in per.items()}
+                     for k, per in rules.collective_counts(by_axis=True).items()}
+    return out
+
+
+def archs_body(ctx, cases: dict) -> dict:
+    """Each reduced architecture on this mesh: the forward under the prefill
+    rules on its inputs, gathered, and for a decoder ``steps`` decode steps
+    under the decode rules (after ``reshard_state``) on a zero fp32 cache."""
+    out = {}
+    for name, c in cases.items():
+        cfg = c["cfg"]
+        axes = tt.param_axes(cfg)
+        pctx = make_ctx(ctx, cfg, SHAPES["prefill_32k"])
+        pp = reshard_state(c["params"], None, pctx, axes)
+        inputs = {k: torch.from_numpy(v) for k, v in c["inputs"].items()}
+        res = dict(prefill=_whole(pctx, tt.apply(pp, cfg, inputs, ctx=pctx)))
+        if c["tokens"] is not None:
+            dctx = make_ctx(ctx, cfg, SHAPES["decode_32k"])
+            dp = reshard_state(pp, pctx, dctx, axes)
+            tokens = c["tokens"]
+            cache = tt.init_cache(cfg, tokens.shape[0], tokens.shape[1], torch.float32,
+                                  device="cpu", ctx=dctx)
+            serve = tmodel.make_serve_step(cfg, dctx, compute_dtype=torch.float32)
+            steps = []
+            for pos in range(tokens.shape[1]):
+                lg, cache = serve(dp, cache, torch.from_numpy(tokens[:, pos:pos + 1]).long(), pos)
+                steps.append(_whole(dctx, lg)[:, 0])
+            res["decode"] = np.stack(steps, 1)
+        out[name] = res
+    return out
