@@ -145,7 +145,12 @@ Phases, one JSON line each:
                       none in ``error``, and the five cells whose collective
                       term is largest against their compute term (a
                       prediction for NVLink and InfiniBand, not measured
-                      here); then qwen2-0.5b's train step at
+                      here); in the same worker pool, qwen2-72b's
+                      ``train_4k`` under the hillclimb's ``accum4``, ``sp``
+                      and ``sp_accum4`` on 16 x 16, printed beside the
+                      sweep's baseline (peak, collective term, calls by
+                      kind and axis: sequence parallelism's reduce-scatters
+                      over ``model``); then qwen2-0.5b's train step at
                       ``lm_train``'s shape under ``remat="none"`` and
                       ``"full"`` and one decode step of its full
                       ``decode_32k`` cell (B 128, 32,768 cached positions,
@@ -190,8 +195,14 @@ Phases, one JSON line each:
                       from the routing); the prefill ``apply(attn_impl=
                       "flash", ctx=)`` (2 fp32 flash launches a rank, each
                       held against its plain version), each rank's logits
-                      block within 1e-4 * max|logits|; ``reshard_state`` to
-                      the decode rules; ``generate_on_mesh`` (4 requests,
+                      block within 1e-4 * max|logits|; the prefill again
+                      under sequence parallelism (the prefill rules and
+                      ``seq -> model``: the stream cut along its sequence
+                      between blocks; 2 more flash launches a rank, the
+                      same checks, its row sums over ``model`` turned into
+                      reduce-scatters), the two prefills' collectives by
+                      kind and axis and seconds side by side;
+                      ``reshard_state`` to the decode rules; ``generate_on_mesh`` (4 requests,
                       prompt 8, 32 greedy tokens, fp32) through
                       ``make_serve_step(cfg, ctx)``: tokens equal to one
                       process's unless a request parts at a router or logit
@@ -239,9 +250,12 @@ Phases, one JSON line each:
                       process's gradients within 1e-6 * max|x|, and its
                       own new state within the limits its gradients allow
                       (moments 1e-4 and 2e-4 of their max, parameters
-                      2 * lr).  (b) all 24 layers, bf16 compute, fp32
+                      2 * lr); then the same under sequence parallelism
+                      (``seq -> model``), both modes bit for bit, the same
+                      limits.  (b) all 24 layers, bf16 compute, fp32
                       parameters and AdamW, ``remat="full"``: 3 steps in
-                      each mode, the median ms of the last 2 beside
+                      each mode and 3 under sequence parallelism (with
+                      ``reduce_scatter``), the median ms of the last 2 beside
                       ``lm_train``'s one process, collectives a step by
                       kind, each rank's peak; step 0's loss within 1e-2 of
                       ``lm_train``'s, one step run twice bit-identical, the
@@ -252,7 +266,8 @@ Phases, one JSON line each:
                       phases counted — qwen3-moe's decode step,
                       recurrentgemma's and mamba2's at the served shape and
                       under ``long_500k``, qwen2-0.5b's 24-layer train step
-                      in both FSDP reductions — equals every rank's
+                      in both FSDP reductions and under sequence
+                      parallelism — equals every rank's
                       collectives exactly (calls and operand bytes by kind
                       and axis), and each predicted peak lies within 15 %
                       of the rank's measured one.
@@ -2979,6 +2994,12 @@ STEP_REL = 1e-4
 DRYRUN_PEAK_REL = 0.15
 
 
+#: the hillclimb cell and variants the ``dryrun`` phase prints on 16 x 16: sequence
+#: parallelism beside the same microbatches without it
+HILL_CELL = ("qwen2-72b", "train_4k")
+HILL_VARIANTS = ("baseline", "accum4", "sp", "sp_accum4")
+
+
 def _measured_peak(ctx, fn) -> tuple:
     """``fn()`` twice (a warm call, then a measured one): ``(the measured call's
     output, its ms, the card's peak bytes above what was allocated before the
@@ -3017,15 +3038,21 @@ def phase_dryrun(ctx, sizes) -> dict:
     from repro_torch.configs import ARCH_IDS, SHAPES, get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import TokenPipeline
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, hillclimb
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer
 
     d = sizes["dryrun"]
     t0 = time.perf_counter()
     cells = [(a, s, False) for a in ARCH_IDS for s in SHAPES]
-    recs = dryrun.run_cells(cells, workers=min(d["workers"], os.cpu_count() or 1),
+    # the hillclimb's sequence-parallel records of qwen2-72b's train_4k beside the
+    # variants without it (baseline is the sweep's own cell), in the sweep's pool
+    hill_over = dryrun.reduced_overrides(HILL_CELL[0]) if d["reduced"] else None
+    hill = [(*HILL_CELL, False, hillclimb.variant_kwargs(v, hill_over))
+            for v in HILL_VARIANTS[1:]]
+    recs = dryrun.run_cells(cells + hill, workers=min(d["workers"], os.cpu_count() or 1),
                             meshes=("16x16",))  # 2 x 16 x 16: the tests and the command line
+    recs, hill_recs = recs[:len(cells)], recs[len(cells):]
     sweep_s = time.perf_counter() - t0
     status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
     for r in recs:
@@ -3060,6 +3087,29 @@ def phase_dryrun(ctx, sizes) -> dict:
                   wire_bytes_by_kind={k: v["wire_bytes"]
                                       for k, v in on16(r)["collectives_by_kind"].items()})
                   for r in most]))
+
+    hill_base = next(r for r in recs if (r["arch"], r["shape"]) == HILL_CELL)
+    if d["reduced"]:  # the rehearsal's sweep is at full width, its variants are not
+        hill_base = dryrun.lower_cell(*HILL_CELL, cfg_overrides=hill_over, meshes=("16x16",))
+    hill_rows = {}
+    for name, r in zip(HILL_VARIANTS, [hill_base, *hill_recs]):
+        check(r["status"] == "ok" and math.isfinite(on16(r)["collective_term_s"]),
+              f"dryrun: {HILL_CELL} {name}: {r.get('error', r['status'])}")
+        by_kind = on16(r)["collectives_by_kind"]
+        check(("model" in by_kind.get("reduce_scatter", {}).get("by_axis", {}))
+              == name.startswith("sp"), f"dryrun: {HILL_CELL} {name}'s collectives {by_kind}")
+        hill_rows[name] = dict(
+            grad_accum=r["grad_accum"], rules_override=r.get("rules_override"),
+            peak_gb_per_device=on16(r)["peak_bytes_card"] / 1e9,
+            collective_term_s=on16(r)["collective_term_s"],
+            compute_term_s=on16(r)["compute_term_s"], memory_term_s=on16(r)["memory_term_s"],
+            activation_gb_per_device=on16(r)["activation_bytes"] / 1e9,
+            calls_by_kind_and_axis={k: {a: v["calls"] for a, v in c["by_axis"].items()}
+                                    for k, c in by_kind.items()},
+            wire_gb_by_kind={k: c["wire_bytes"] / 1e9 for k, c in by_kind.items()})
+    emit(dict(phase="dryrun_hillclimb", card=ctx.card, arch=HILL_CELL[0], shape=HILL_CELL[1],
+              mesh="16x16", reduced=d["reduced"], variants=hill_rows,
+              note="predictions for 256 H100s on fake tensors; no card measures them"))
 
     arch = d["arch"]
     over = dryrun.reduced_overrides(arch) if d["reduced"] else {}
@@ -3157,7 +3207,8 @@ def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
     ``mesh_train`` ran must equal what every rank counted running the step
     (calls and operand bytes by kind and axis): qwen3-moe's decode step,
     recurrentgemma's and mamba2's under ``decode_32k`` and ``long_500k``,
-    qwen2-0.5b's train step in both FSDP reductions.  Each predicted peak
+    qwen2-0.5b's train step in both FSDP reductions and under sequence
+    parallelism.  Each predicted peak
     lies within 15 % of the rank's measured one (the step's peak above what
     was allocated before it, plus its inputs)."""
     import multiprocessing
@@ -3189,12 +3240,13 @@ def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
                           dict(f32, pos=run["step_pos"])))
             measured[name] = (run["collectives_by_axis_per_rank"], run["step_peak_bytes_per_rank"])
     tm = mesh_train["timed"]
-    for mode in ("reduce_scatter", "all_reduce"):
+    for mode in ("reduce_scatter", "all_reduce", "sp"):  # sp: seq -> model, reduce_scatter
         name = f"qwen2_train_{mode}"
         tasks.append((name, mesh_train["arch"], tm["layers"], red,
                       ShapeSpec("train_4k", tm["seq"], tm["batch"], "train"),
                       dict(param_dtype=torch.float32, compute_dtype=torch.bfloat16,
-                           grad_reshard=mode == "reduce_scatter")))
+                           grad_reshard=mode != "all_reduce",
+                           rules_override={"seq": ("model",)} if mode == "sp" else None)))
         measured[name] = (tm["collectives_by_axis_per_rank"][mode],
                           tm["step_peak_bytes_per_rank"][mode])
     t0 = time.perf_counter()
@@ -3853,45 +3905,58 @@ def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf
         torch.cuda.empty_cache()
 
     # the prefill forward through the flash kernel, each launch held against
-    # its plain version, the logits against one process's on this rank's block
+    # its plain version, the logits against one process's on this rank's block;
+    # then again under sequence parallelism (the prefill rules and seq -> model:
+    # the stream cut along its sequence between blocks, each layer gathering it
+    # whole, so attention still runs over the whole sequence)
     tokens = torch.from_numpy(masks["tokens"]).to(dev)
     cfg_nd = dataclasses.replace(cfg, moe_capacity_factor=rank_cf)
-    flash_checks = []
     flash = ops.flash_attention
-
-    def holding_flash(q, k, v, **kw):
-        got = flash(q, k, v, **kw)
-        err, excess = flash_excess(got, q, k, v, **kw)
-        flash_checks.append(dict(shape=list(q.shape), max_abs_err=err, err_over_limit=excess))
-        return got
-
-    ops.flash_attention = holding_flash
-    try:
-        with torch.inference_mode():
-            fa.launches = 0  # the main path's count starts here
-            fa.launches_by_dtype.update(float32=0, bfloat16=0)
-            sync()
-            t0 = time.perf_counter()
-            logits = transformer.apply(params, cfg_nd, {"tokens": tokens}, attn_impl="flash",
-                                       ctx=pctx)
-            sync()
-            out["prefill_s"] = time.perf_counter() - t0
-            out["flash_launches"] = fa.launches  # ... and is read here
-    finally:
-        ops.flash_attention = flash
-    local = logits.to_local()
-    V_l = local.shape[-1]
     ref = load(f"logits_{d}_{m}.npy")
     keep = ~torch.from_numpy(masks["forward_near"][d:d + 1]).to(dev)
-    out["prefill"] = dict(local_shape=list(local.shape), spec=list(rules.spec_of(pctx, logits)),
-                          finite=bool(torch.isfinite(local).all()),
-                          max_abs_err=float((local - ref).abs().amax(-1)[keep].max()),
-                          excluded_positions=int((~keep).sum()), flash_checks=flash_checks,
-                          vocab_block=[m * V_l, (m + 1) * V_l])
-    del logits, local, ref
+
+    def prefill(c) -> dict:
+        checks = []
+
+        def holding_flash(q, k, v, **kw):
+            got = flash(q, k, v, **kw)
+            err, excess = flash_excess(got, q, k, v, **kw)
+            checks.append(dict(shape=list(q.shape), max_abs_err=err, err_over_limit=excess))
+            return got
+
+        ops.flash_attention = holding_flash
+        try:
+            with torch.inference_mode():
+                fa.launches = 0  # the main path's count starts here
+                fa.launches_by_dtype.update(float32=0, bfloat16=0)
+                rules.reset_collective_counts()
+                sync()
+                t0 = time.perf_counter()
+                logits = transformer.apply(params, cfg_nd, {"tokens": tokens},
+                                           attn_impl="flash", ctx=c)
+                sync()
+                secs = time.perf_counter() - t0
+                launches = fa.launches  # ... and is read here
+        finally:
+            ops.flash_attention = flash
+        local = logits.to_local()
+        res = dict(local_shape=list(local.shape), spec=list(rules.spec_of(c, logits)),
+                   finite=bool(torch.isfinite(local).all()),
+                   max_abs_err=float((local - ref).abs().amax(-1)[keep].max()),
+                   excluded_positions=int((~keep).sum()), flash_checks=checks,
+                   vocab_block=[m * local.shape[-1], (m + 1) * local.shape[-1]],
+                   seconds=secs, flash_launches=launches,
+                   collectives=rules.collective_counts(),
+                   collectives_by_axis=rules.collective_counts(by_axis=True))
+        del logits, local
+        if card:
+            torch.cuda.empty_cache()
+        return res
+
+    out["prefill"] = prefill(pctx)
+    out["prefill_sp"] = prefill(pctx.with_rules(seq=("model",)))
+    del ref
     out["prefill_peak_bytes"] = peak()
-    if card:
-        torch.cuda.empty_cache()
 
     # the decode layout, one part at a time (each rank holds one whole leaf at most)
     rules.reset_collective_counts()
@@ -3936,6 +4001,21 @@ def mesh_serve_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf
     out["decode_step"] = decode_step_alone(card, dctx, cfg, dparams, prompts, gen, dev)
     out["peak_bytes"] = peak()
     return out
+
+
+def mesh_prefill_summary(ranks: list, key: str, B: int, S: int, lmax: float) -> dict:
+    """One of ``mesh_serve``'s prefills over the ranks: launches, errors, seconds and
+    rank 0's collectives (by kind with host seconds, and by kind and axis)."""
+    return dict(batch=B, seq=S, attn_impl="flash",
+                flash_launches_per_rank=[r[key]["flash_launches"] for r in ranks],
+                logits_spec=ranks[0][key]["spec"], local_logits_shape=ranks[0][key]["local_shape"],
+                max_abs_logit=lmax, max_abs_err=max(r[key]["max_abs_err"] for r in ranks),
+                tol=MESH_REL * lmax,
+                excluded_positions=sum(r[key]["excluded_positions"] for r in ranks),
+                flash_checks=[c for r in ranks for c in r[key]["flash_checks"]],
+                seconds_per_rank=[r[key]["seconds"] for r in ranks],
+                collectives=ranks[0][key]["collectives"],
+                collectives_by_axis=ranks[0][key]["collectives_by_axis"])
 
 
 def phase_mesh_serve(ctx, sizes, lm_families: dict) -> dict:
@@ -4066,15 +4146,26 @@ def phase_mesh_serve(ctx, sizes, lm_families: dict) -> dict:
         check(r["ep"]["max_abs_err"] <= MESH_REL * layer_max,
               f"{tag}: the EP layer is off one process's by {r['ep']['max_abs_err']} "
               f"> {MESH_REL} * {layer_max}")
-        check(r["flash_launches"] == per_flash,
-              f"{tag}: the prefill launched the flash kernel {r['flash_launches']} times, "
-              f"expected {per_flash}")
-        check(len(r["prefill"]["flash_checks"]) == cfg.num_layers
-              and all(c["err_over_limit"] <= 1.0 for c in r["prefill"]["flash_checks"]),
-              f"{tag}: a flash launch is off its plain version: {r['prefill']['flash_checks']}")
-        check(r["prefill"]["finite"] and r["prefill"]["max_abs_err"] <= MESH_REL * lmax,
-              f"{tag}: prefill logits off one process's by {r['prefill']['max_abs_err']} "
-              f"> {MESH_REL} * {lmax}")
+        for key in ("prefill", "prefill_sp"):
+            pf = r[key]
+            check(pf["flash_launches"] == per_flash,
+                  f"{tag}: the {key} launched the flash kernel {pf['flash_launches']} times, "
+                  f"expected {per_flash}")
+            check(len(pf["flash_checks"]) == cfg.num_layers
+                  and all(c["err_over_limit"] <= 1.0 for c in pf["flash_checks"]),
+                  f"{tag}: a {key} flash launch is off its plain version: {pf['flash_checks']}")
+            check(pf["finite"] and pf["max_abs_err"] <= MESH_REL * lmax,
+                  f"{tag}: {key} logits off one process's by {pf['max_abs_err']} "
+                  f"> {MESH_REL} * {lmax}")
+            check(pf["spec"] == ["data", None, "model"], f"{tag}: {key} logits laid out "
+                                                         f"{pf['spec']}")
+        # sequence parallelism: the row sums over model became reduce-scatters
+        sp_axes = r["prefill_sp"]["collectives_by_axis"]
+        check("model" in sp_axes.get("reduce_scatter", {})
+              and "model" not in sp_axes.get("all_reduce", {})
+              and "model" not in r["prefill"]["collectives_by_axis"].get("reduce_scatter", {}),
+              f"{tag}: the prefills' collectives {r['prefill']['collectives_by_axis']} / "
+              f"{sp_axes}")
         check(r["serve"]["seqs"] == ranks[0]["serve"]["seqs"], f"{tag}: its tokens differ from rank 0's")
     mesh_seqs = np.asarray(ranks[0]["serve"]["seqs"])
     check(mesh_seqs.shape == (R, P + G) and np.array_equal(mesh_seqs[:, :P], prompts),
@@ -4125,16 +4216,9 @@ def phase_mesh_serve(ctx, sizes, lm_families: dict) -> dict:
                              kernel_checks=[c for r in ranks for c in r["ep"]["launch_checks"]],
                              ms_at_cf_1_25_per_rank=[r["ep"]["ep_ms_cf125"] for r in ranks],
                              collectives_at_cf_1_25=ranks[0]["ep"]["collectives"]),
-               prefill=dict(batch=B, seq=S, attn_impl="flash",
-                            flash_launches_per_rank=[r["flash_launches"] for r in ranks],
-                            logits_spec=ranks[0]["prefill"]["spec"],
-                            local_logits_shape=ranks[0]["prefill"]["local_shape"],
-                            max_abs_logit=lmax,
-                            max_abs_err=max(r["prefill"]["max_abs_err"] for r in ranks),
-                            tol=MESH_REL * lmax,
-                            excluded_positions=sum(r["prefill"]["excluded_positions"] for r in ranks),
-                            flash_checks=[c for r in ranks for c in r["prefill"]["flash_checks"]],
-                            seconds_per_rank=[r["prefill_s"] for r in ranks]),
+               prefill=mesh_prefill_summary(ranks, "prefill", B, S, lmax),
+               prefill_sp=dict(mesh_prefill_summary(ranks, "prefill_sp", B, S, lmax),
+                               rules="prefill_32k's and seq -> model"),
                reshard=dict(to="decode rules (embed_e=(), moe_ff=data)",
                             w1_spec=ranks[0]["reshard"]["w1_spec"],
                             seconds_per_rank=[r["reshard"]["seconds"] for r in ranks],
@@ -4620,34 +4704,44 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
     def counts():
         return {k: dict(v) for k, v in rules.collective_counts().items()}
 
-    # (a) fp32 parity: the gradients and one step in each mode against one process's
+    # (a) fp32 parity: the gradients and one step in each mode against one process's,
+    # under the train rules and under sequence parallelism (seq -> model)
     pcfg = dataclasses.replace(cfg, num_layers=parity_layers)
     state = placed(pcfg)
     kw = dict(compute_dtype=torch.float32)
-    grads, steps_a, par = {}, {}, {}
-    for rs in (True, False):
-        rules.reset_collective_counts()
-        loss, grads[rs] = model_mod.make_grad_fn(pcfg, tctx, grad_reshard=rs, **kw)(
-            state["params"], batch)
-        par[f"grad_collectives_{rs}"] = counts()
-        par[f"loss_{rs}"] = float(loss)
-        steps_a[rs] = model_mod.make_train_step(pcfg, tctx, warmup=0, lr_peak=lr,
-                                                grad_reshard=rs, **kw)(state, batch)
-    par["modes_bit_identical"] = (
-        _blocks_equal(grads[True], grads[False]) and _blocks_equal(*(s[0] for s in steps_a.values()))
-        and all(float(steps_a[True][1][k]) == float(steps_a[False][1][k])
-                for k in ("loss", "grad_norm")))
-    new, metrics = steps_a[True]
-    par["step_loss"], par["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
-    par["grad_excess"] = _block_excess(tctx, grads[True], tmp, "grads",
-                                       lambda mx: TRAIN_GRAD_REL * mx, scales)
-    moments = {"mu": TRAIN_GRAD_REL, "nu": 2 * TRAIN_GRAD_REL}
-    par["new_excess"] = {
-        "params": _block_excess(tctx, new["params"], tmp, "new_params",
-                                lambda mx: 2 * lr * (1 + 1e-3), scales),
-        **{k: _block_excess(tctx, new["opt"][k], tmp, f"new_{k}",
-                            lambda mx, rel=rel: rel * mx, scales) for k, rel in moments.items()}}
-    del grads, steps_a, new
+    sctx = tctx.with_rules(seq=("model",))
+
+    def parity(c) -> dict:
+        grads, steps_a, par = {}, {}, {}
+        for rs in (True, False):
+            rules.reset_collective_counts()
+            loss, grads[rs] = model_mod.make_grad_fn(pcfg, c, grad_reshard=rs, **kw)(
+                state["params"], batch)
+            par[f"grad_collectives_{rs}"] = counts()
+            par[f"grad_collectives_by_axis_{rs}"] = rules.collective_counts(by_axis=True)
+            par[f"loss_{rs}"] = float(loss)
+            steps_a[rs] = model_mod.make_train_step(pcfg, c, warmup=0, lr_peak=lr,
+                                                    grad_reshard=rs, **kw)(state, batch)
+        par["modes_bit_identical"] = (
+            _blocks_equal(grads[True], grads[False])
+            and _blocks_equal(*(s[0] for s in steps_a.values()))
+            and all(float(steps_a[True][1][k]) == float(steps_a[False][1][k])
+                    for k in ("loss", "grad_norm")))
+        new, metrics = steps_a[True]
+        par["step_loss"], par["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+        par["grad_excess"] = _block_excess(c, grads[True], tmp, "grads",
+                                           lambda mx: TRAIN_GRAD_REL * mx, scales)
+        moments = {"mu": TRAIN_GRAD_REL, "nu": 2 * TRAIN_GRAD_REL}
+        par["new_excess"] = {
+            "params": _block_excess(c, new["params"], tmp, "new_params",
+                                    lambda mx: 2 * lr * (1 + 1e-3), scales),
+            **{k: _block_excess(c, new["opt"][k], tmp, f"new_{k}",
+                                lambda mx, rel=rel: rel * mx, scales)
+               for k, rel in moments.items()}}
+        return par
+
+    par = parity(tctx)
+    par_sp = parity(sctx)
     # the mesh's update of the one process's own gradients: clip over sharded
     # blocks and AdamW on blocks, against the one process's update
     theirs = _saved_blocks(tctx, state["params"], tmp, "grads", dev)
@@ -4658,7 +4752,7 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
                             for k, tree in (("params", upd["params"]), ("mu", upd["opt"]["mu"]),
                                             ("nu", upd["opt"]["nu"]))}
     par["peak_bytes"] = peak()
-    out["parity"] = par
+    out["parity"], out["parity_sp"] = par, par_sp
     del state, theirs, upd
     if card:
         torch.cuda.empty_cache()
@@ -4677,8 +4771,10 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
                          seed=0)
     bsp.launches = fl.launches = fa.launches = 0  # the main path's count starts here
     timed, firsts = {}, {}
-    for rs in (True, False):
-        step = model_mod.make_train_step(cfg, tctx, compute_dtype=torch.bfloat16,
+    # the FSDP reductions, then sequence parallelism with the reduce-scatter one
+    modes = {"reduce_scatter": (tctx, True), "all_reduce": (tctx, False), "sp": (sctx, True)}
+    for mode, (c, rs) in modes.items():
+        step = model_mod.make_train_step(cfg, c, compute_dtype=torch.bfloat16,
                                          lr_peak=TRAIN_LR, warmup=1, total_steps=steps,
                                          grad_reshard=rs)
         s, ms, losses = state0, [], []
@@ -4693,21 +4789,21 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
             losses.append(float(m["loss"]))
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
-            if i == 0:
+            if i == 0 and mode != "sp":
                 firsts[rs] = (s, m)
-        timed[rs] = dict(step_ms=ms, ms_per_step=statistics.median(ms[1:]), losses=losses,
-                         collectives_per_step=counts(),
-                         collectives_by_axis=rules.collective_counts(by_axis=True),
-                         # the last step's peak with its inputs (the state it was given),
-                         # the dry run's peak_bytes_card of the same step
-                         step_peak_bytes=(torch.cuda.max_memory_allocated() - held
-                                          + _card_bytes(state0)) if card else None)
-        if card and rs:
+        timed[mode] = dict(step_ms=ms, ms_per_step=statistics.median(ms[1:]), losses=losses,
+                           collectives_per_step=counts(),
+                           collectives_by_axis=rules.collective_counts(by_axis=True),
+                           # the last step's peak with its inputs (the state it was given),
+                           # the dry run's peak_bytes_card of the same step
+                           step_peak_bytes=(torch.cuda.max_memory_allocated() - held
+                                            + _card_bytes(state0)) if card else None)
+        if card and mode == "reduce_scatter":
             out["step_peak_above_held_bytes"] = torch.cuda.max_memory_allocated() - held
         del s
-        if rs:  # the first step again, from the same state: the same bits
+        if mode == "reduce_scatter":  # the first step again, from the same state: the same bits
             again = step(state0, pipe.global_batch(0))
-            timed[rs]["repeat_bit_identical"] = (
+            timed[mode]["repeat_bit_identical"] = (
                 _blocks_equal(again[0], firsts[rs][0])
                 and float(again[1]["loss"]) == float(firsts[rs][1]["loss"]))
             del again
@@ -4716,7 +4812,7 @@ def mesh_train_rank(mctx, cfg, parity_layers: int, tmp: str, scales: dict, batch
     out["modes_bit_identical"] = (_blocks_equal(firsts[True][0], firsts[False][0])
                                   and all(float(firsts[True][1][k]) == float(firsts[False][1][k])
                                           for k in ("loss", "grad_norm")))
-    out["timed"] = {"reduce_scatter" if rs else "all_reduce": v for rs, v in timed.items()}
+    out["timed"] = timed
     out["peak_bytes"] = peak()  # the steps and the states kept for the checks beside them
     del firsts, state0
     return out
@@ -4777,21 +4873,27 @@ def phase_mesh_train(ctx, sizes, lm_train: dict) -> dict:
 
     ref_loss = lm_train["losses"][0]
     for r in ranks:
+        for name in ("parity", "parity_sp"):  # under the train rules, and with seq -> model
+            tag = f"mesh_train rank {r['rank']} {tuple(r['coord'])} {name}"
+            p = r[name]
+            for key in ("loss_True", "loss_False", "step_loss"):
+                rel = abs(p[key] - one["loss"]) / abs(one["loss"])
+                check(rel <= TRAIN_LOSS_REL, f"{tag}: {key} {p[key]} off one process's "
+                                             f"{one['loss']} by {rel} relative")
+            for key in ("grad_norm", "update_grad_norm"):
+                if key in p:
+                    rel = abs(p[key] - one["grad_norm"]) / abs(one["grad_norm"])
+                    check(rel <= TRAIN_LOSS_REL, f"{tag}: {key} {p[key]} off one process's "
+                                                 f"{one['grad_norm']} by {rel} relative")
+            check(p["grad_excess"][0] <= 1.0, f"{tag}: gradient {p['grad_excess']} x its limit")
+            for k, (x, where) in {**p["new_excess"], **{f"update_{k}": v for k, v in
+                                                      p.get("update_excess", {}).items()}}.items():
+                check(x <= 1.0, f"{tag}: new {k} at {where} is {x} x its limit")
+            check(p["modes_bit_identical"], f"{tag}: grad_reshard True and False differ")
         tag = f"mesh_train rank {r['rank']} {tuple(r['coord'])}"
-        p = r["parity"]
-        for key in ("loss_True", "loss_False", "step_loss"):
-            rel = abs(p[key] - one["loss"]) / abs(one["loss"])
-            check(rel <= TRAIN_LOSS_REL, f"{tag}: {key} {p[key]} off one process's "
-                                         f"{one['loss']} by {rel} relative")
-        for key in ("grad_norm", "update_grad_norm"):
-            rel = abs(p[key] - one["grad_norm"]) / abs(one["grad_norm"])
-            check(rel <= TRAIN_LOSS_REL, f"{tag}: {key} {p[key]} off one process's "
-                                         f"{one['grad_norm']} by {rel} relative")
-        check(p["grad_excess"][0] <= 1.0, f"{tag}: gradient {p['grad_excess']} x its limit")
-        for k, (x, where) in {**p["new_excess"], **{f"update_{k}": v for k, v in
-                                                  p["update_excess"].items()}}.items():
-            check(x <= 1.0, f"{tag}: new {k} at {where} is {x} x its limit")
-        check(p["modes_bit_identical"], f"{tag}: grad_reshard True and False differ (parity)")
+        sp_axes = r["parity_sp"]["grad_collectives_by_axis_True"]
+        check("model" in sp_axes.get("reduce_scatter", {}),
+              f"{tag}: the sequence-parallel step ran {sp_axes}")
         check(r["modes_bit_identical"], f"{tag}: grad_reshard True and False differ (bf16)")
         check(r["launches"] == dict(block_spmm=0, fused_block_spmm=0, flash_attention=0),
               f"{tag}: the mesh train step launched kernels {r['launches']}")
@@ -4835,6 +4937,20 @@ def phase_mesh_train(ctx, sizes, lm_train: dict) -> dict:
                            grad_collectives=dict(reduce_scatter=r0["parity"]["grad_collectives_True"],
                                                  all_reduce=r0["parity"]["grad_collectives_False"]),
                            peak_gb_per_rank=[gb(r["parity"]["peak_bytes"]) for r in ranks]),
+               parity_sp=dict(
+                   rules="train_4k's and seq -> model (sequence parallelism)",
+                   loss_rel_err=max(abs(r["parity_sp"][k] - one["loss"]) / abs(one["loss"])
+                                    for r in ranks for k in ("loss_True", "loss_False")),
+                   grad_norm_rel_err=max(abs(r["parity_sp"]["grad_norm"] - one["grad_norm"])
+                                         / abs(one["grad_norm"]) for r in ranks),
+                   grad_err_over_limit=max(r["parity_sp"]["grad_excess"][0] for r in ranks),
+                   new_state_err_over_limit={
+                       k: max(r["parity_sp"]["new_excess"][k][0] for r in ranks)
+                       for k in ("params", "mu", "nu")},
+                   modes_bit_identical=all(r["parity_sp"]["modes_bit_identical"] for r in ranks),
+                   grad_collectives_by_axis=dict(
+                       reduce_scatter=r0["parity_sp"]["grad_collectives_by_axis_True"],
+                       all_reduce=r0["parity_sp"]["grad_collectives_by_axis_False"])),
                timed=dict(layers=cfg.num_layers, batch=B, seq=S, compute="bfloat16",
                           params_dtype="float32", remat=cfg.remat, steps_per_mode=MESH_TRAIN_STEPS,
                           ms_per_step={mode: [r["timed"][mode]["ms_per_step"] for r in ranks]
@@ -4938,8 +5054,10 @@ def run_phases(torch, args, card) -> int:
     phase(phase_dist_pipeline_profile, ctx, sizes)
 
     timing, ftiming = kern["timing"], fused["timing"]
-    # the mesh's prefill runs fp32 flash on every rank
-    mesh_flash = dict(float32=sum(mesh["prefill"]["flash_launches_per_rank"]), bfloat16=0)
+    # the mesh's prefills (without and with sequence parallelism) run fp32 flash on every rank
+    mesh_per_rank = [a + b for a, b in zip(mesh["prefill"]["flash_launches_per_rank"],
+                                           mesh["prefill_sp"]["flash_launches_per_rank"])]
+    mesh_flash = dict(float32=sum(mesh_per_rank), bfloat16=0)
     flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
 
     def flash_row(dtype):
@@ -4950,8 +5068,7 @@ def run_phases(torch, args, card) -> int:
                     replaces="src/repro/kernels/flash_attention.py:31",
                     launches=(fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype]
                               + families["launches_by_dtype"].get(dtype, 0) + mesh_flash[dtype]),
-                    mesh_launches_per_rank=(mesh["prefill"]["flash_launches_per_rank"]
-                                            if dtype == "float32" else None),
+                    mesh_launches_per_rank=mesh_per_rank if dtype == "float32" else None,
                     max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],

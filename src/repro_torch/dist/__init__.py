@@ -30,9 +30,11 @@ living on one card (the worker axis leads every store, see
   :func:`dist_repartition`; the drivers and the multiplies take
   ``rebalance=``.
 
-The drivers' ``tracer=``, ``log=`` and ``health=`` need the observability
-layer of the JAX package (``repro.obs``), which is not ported: anything but
-``None`` raises ``NotImplementedError``.
+The drivers take the observability layer (:mod:`repro_torch.obs`) as the
+JAX package's do: ``tracer=`` (span tracing) and ``log=`` (the structured
+event log) ride on the plan cache, which carries them into every
+collective, dispatch and plan build, and ``health=`` runs the online
+health monitor beside the loop; all three leave the results bit-identical.
 """
 
 from .balance import (

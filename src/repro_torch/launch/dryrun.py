@@ -227,6 +227,12 @@ class _SavedMeter:
         return torch.autograd.graph.saved_tensors_hooks(self.pack, self.unpack)
 
 
+def _cell_ctx(mesh, cfg: ArchConfig, shape: ShapeSpec, rules_override=None) -> MeshCtx:
+    """:func:`make_ctx`'s rules for the cell, with ``rules_override`` laid over them."""
+    ctx = make_ctx(mesh, cfg, shape)
+    return ctx.with_rules(**rules_override) if rules_override else ctx
+
+
 def _serve_params(cfg: ArchConfig, mode, dtype=torch.bfloat16):
     """Serving stores bf16 weights: the parameters as fake tensors of ``dtype``."""
     with mode:
@@ -248,7 +254,7 @@ def _block_bytes(tree) -> int:
 
 def _measure(cfg: ArchConfig, shape: ShapeSpec, *, kv_dtype=None, param_dtype=None,
              pos=None, mesh=None, compute_dtype=torch.bfloat16,
-             grad_reshard: bool = False) -> dict:
+             grad_reshard: bool = False, rules_override=None) -> dict:
     """One run of the cell's step at ``cfg``'s depth on fake tensors: its counts.
 
     The train step is :func:`model.make_train_step`'s own; its ``on_update``
@@ -262,11 +268,13 @@ def _measure(cfg: ArchConfig, shape: ShapeSpec, *, kv_dtype=None, param_dtype=No
     out by :func:`make_ctx`'s rules (the whole batch, as every rank of the
     port takes it), and the counts are that device's, with its collectives
     (``rules.collective_counts(by_axis=True)``) and its ``argument_bytes``,
-    the bytes of its blocks of the state.
+    the bytes of its blocks of the state.  ``rules_override``: rules laid over
+    :func:`make_ctx`'s (the reference's ``ctx.with_rules``; ``{"seq":
+    ("model",)}`` is sequence parallelism).
     """
     mode = model_mod.fake_mode()
     meter = CostMeter()
-    ctx = None if mesh is None else make_ctx(MeshCtx.on(mesh), cfg, shape)
+    ctx = None if mesh is None else _cell_ctx(MeshCtx.on(mesh), cfg, shape, rules_override)
     p_axes = transformer.param_axes(cfg)
     if shape.kind == "train":
         state = model_mod.abstract_train_state(cfg, param_dtype=param_dtype or torch.float32,
@@ -468,7 +476,7 @@ def measure_on_mesh(cfg: ArchConfig, shape: ShapeSpec, axes: dict[str, int], **k
     ``cfg``'s depth: :func:`_measure`'s keys, with ``collectives_by_kind``
     in place of the raw collective counts.  ``kw``: :func:`_measure`'s
     (``kv_dtype``, ``param_dtype``, ``compute_dtype``, ``pos``,
-    ``grad_reshard``)."""
+    ``grad_reshard``, ``rules_override``)."""
     counts = _on_fake_mesh(axes, cfg, shape, **kw)
     counts["collectives_by_kind"] = collectives_by_kind(axes, counts.pop("collectives"))
     return counts
@@ -514,6 +522,7 @@ class _Cell:
     param_dtype: object
     grad_reshard: bool
     pos: object
+    rules_override: tuple = ()  # (logical name, mesh axes) pairs over make_ctx's rules
 
     def measure_kw(self) -> dict:
         return dict(kv_dtype=self.kv_dtype, pos=self.pos,
@@ -521,7 +530,8 @@ class _Cell:
 
 
 def _resolve(arch_id: str, shape_name, multi_pod: bool = False, *, grad_accum=None,
-             cfg_overrides=None, kv_dtype=None, train_opts=None, pos=None):
+             cfg_overrides=None, kv_dtype=None, train_opts=None, pos=None,
+             rules_override=None):
     """``lower_cell``'s arguments as a :class:`_Cell`, or the skipped record of a
     cell ``cfg.supports`` rejects."""
     cfg = get_config(arch_id)
@@ -540,7 +550,8 @@ def _resolve(arch_id: str, shape_name, multi_pod: bool = False, *, grad_accum=No
         cfg = dataclasses.replace(cfg, grad_accum=grad_accum)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
-    return _Cell(arch_id, cfg, shape, mesh, kv_dtype, param_dtype, grad_reshard, pos)
+    return _Cell(arch_id, cfg, shape, mesh, kv_dtype, param_dtype, grad_reshard, pos,
+                 tuple((rules_override or {}).items()))
 
 
 def _part(cell: _Cell, part: str) -> tuple:
@@ -551,7 +562,8 @@ def _part(cell: _Cell, part: str) -> tuple:
     kw = cell.measure_kw()
     if part != "one_card":
         kw["measure"] = functools.partial(_on_fake_mesh, production_mesh_axes(MESHES[part]),
-                                          grad_reshard=cell.grad_reshard)
+                                          grad_reshard=cell.grad_reshard,
+                                          rules_override=dict(cell.rules_override))
     counts, extrap = _extrapolated(cell.cfg, cell.shape, **kw)
     return counts, extrap, clock.elapsed()
 
@@ -564,8 +576,9 @@ def _record(cell: _Cell, parts: dict) -> dict:
     on_mesh = {name: _mesh_record(c, e, MESHES[name], model_flops)
                for name, (c, e, _) in parts.items() if name != "one_card"}
     state, axes = _state_tree(cfg, shape, kv_dtype=cell.kv_dtype, param_dtype=cell.param_dtype)
-    per_device = {name: _per_device_bytes(make_ctx(production_mesh_axes(multi), cfg, shape),
-                                          state, axes) for name, multi in MESHES.items()}
+    per_device = {name: _per_device_bytes(_cell_ctx(production_mesh_axes(multi), cfg, shape,
+                                                    dict(cell.rules_override)), state, axes)
+                  for name, multi in MESHES.items()}
     for name, m in on_mesh.items():  # the rank ran on its blocks of the very state counted
         if m["argument_bytes"] != per_device[name]:
             raise AssertionError(f"{name}: rank 0's arguments hold {m['argument_bytes']} bytes, "
@@ -607,6 +620,8 @@ def _record(cell: _Cell, parts: dict) -> dict:
     }
     if cell.grad_reshard:
         rec["grad_reshard"] = True
+    if cell.rules_override:
+        rec["rules_override"] = {k: list(v) for k, v in cell.rules_override}
     if cell.kv_dtype is not None:
         rec["kv_dtype"] = str(cell.kv_dtype).removeprefix("torch.")
     if cell.param_dtype != torch.float32:
@@ -616,7 +631,7 @@ def _record(cell: _Cell, parts: dict) -> dict:
 
 def lower_cell(arch_id: str, shape_name, multi_pod: bool = False, *, grad_accum=None,
                cfg_overrides=None, kv_dtype=None, train_opts=None, pos=None,
-               meshes=tuple(MESHES)) -> dict:
+               rules_override=None, meshes=tuple(MESHES)) -> dict:
     """One cell's record.  ``shape_name`` is a key of ``SHAPES`` or a ``ShapeSpec``.
 
     The top level is the cell run whole on one card.  ``on_mesh`` holds, for
@@ -634,7 +649,9 @@ def lower_cell(arch_id: str, shape_name, multi_pod: bool = False, *, grad_accum=
     ``cfg_overrides`` (``remat``, ``moe_capacity_factor``, ...), ``kv_dtype``
     (``torch.int8``) and ``train_opts`` (``param_dtype``; ``grad_reshard``,
     the FSDP gradients' reduction on the meshes: ``reduce_scatter`` for
-    ``True``, else ``all_reduce``).  The train step and the prefill forward
+    ``True``, else ``all_reduce``) and ``rules_override`` (rules laid over
+    :func:`make_ctx`'s on the meshes, as the reference's ``ctx.with_rules``:
+    ``{"seq": ("model",)}``, sequence parallelism).  The train step and the prefill forward
     use the chunked attention, the path autograd runs.  ``pos``: the decode
     position (default the cell's last).
     """
@@ -642,7 +659,7 @@ def lower_cell(arch_id: str, shape_name, multi_pod: bool = False, *, grad_accum=
         raise ValueError(f"unknown meshes {sorted(unknown)}")
     cell = _resolve(arch_id, shape_name, multi_pod, grad_accum=grad_accum,
                     cfg_overrides=cfg_overrides, kv_dtype=kv_dtype, train_opts=train_opts,
-                    pos=pos)
+                    pos=pos, rules_override=rules_override)
     if isinstance(cell, dict):
         return cell
     return _record(cell, {part: _part(cell, part) for part in ("one_card", *meshes)})
@@ -656,9 +673,9 @@ def _error_record(arch: str, shape: str, multi_pod: bool, e: BaseException) -> d
 
 def _one_part(task):
     """A worker's task: one part of one cell, or the exception it raised."""
-    (arch, shape, multi), part = task
+    (arch, shape, multi, *kw), part = task
     try:
-        cell = _resolve(arch, shape, multi)
+        cell = _resolve(arch, shape, multi, **(kw[0] if kw else {}))
         return cell if isinstance(cell, dict) else _part(cell, part)
     except Exception as e:  # a failing cell is a bug: report it, never fake it
         return _error_record(arch, shape, multi, e)
@@ -666,17 +683,20 @@ def _one_part(task):
 
 def _cost(task) -> float:
     """A task's weight, for the order of the pool's queue: layers run x microbatches."""
-    (arch, shape, _), _ = task
+    (arch, shape, _, *kw), _ = task
     cfg = get_config(arch)
-    return cfg.num_layers * (3 * cfg.grad_accum if SHAPES[shape].kind == "train" else 1)
+    accum = (kw[0] if kw else {}).get("grad_accum") or cfg.grad_accum
+    return cfg.num_layers * (3 * accum if SHAPES[shape].kind == "train" else 1)
 
 
 def run_cells(cells, workers: int = 1, meshes=tuple(MESHES)) -> list[dict]:
     """The records of ``(arch, shape, multi_pod)`` cells, in order, over ``workers``
     processes (a worker that dies raises ``BrokenProcessPool``, never hangs);
-    ``meshes``: the production meshes each record's ``on_mesh`` holds.  Each
-    cell's parts (the one-card run and one per mesh) run as tasks of their
-    own, the costliest first, so the workers end together."""
+    ``meshes``: the production meshes each record's ``on_mesh`` holds.  A
+    cell may carry a fourth entry, :func:`lower_cell`'s variant arguments
+    (``hillclimb.variant_kwargs``).  Each cell's parts (the one-card run and
+    one per mesh) run as tasks of their own, the costliest first, so the
+    workers end together."""
     cells = list(cells)
     parts = ("one_card", *meshes)
     tasks = [(c, p) for c in cells for p in parts]
@@ -694,14 +714,14 @@ def run_cells(cells, workers: int = 1, meshes=tuple(MESHES)) -> list[dict]:
         for i, r in zip(order, out):
             done[i] = r
     recs = []
-    for i, (arch, shape, multi) in enumerate(cells):
+    for i, (arch, shape, multi, *kw) in enumerate(cells):
         got = dict(zip(parts, done[i * len(parts):(i + 1) * len(parts)]))
         bad = next((r for r in got.values() if isinstance(r, dict)), None)
         if bad is not None:  # skipped, or a part in error
             recs.append(bad)
             continue
         try:
-            recs.append(_record(_resolve(arch, shape, multi), got))
+            recs.append(_record(_resolve(arch, shape, multi, **(kw[0] if kw else {})), got))
         except Exception as e:
             recs.append(_error_record(arch, shape, multi, e))
     return recs

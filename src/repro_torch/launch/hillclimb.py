@@ -8,10 +8,9 @@ per-device counts and collective term: ``accum*`` (microbatches),
 ``remat_*``, ``kv_int8``, ``moe_cf*``, ``bf16master``, gradients pinned to
 the parameter sharding (``gradrs``, ``bf16_rs*``: the FSDP reduction as a
 ``reduce_scatter``) and the decode MoE's token dispatch (``token_dispatch``,
-the port's decode path on a mesh).  Sequence parallelism (``sp*``: the
-residual stream sharded over the model axis between blocks) is not in the
-port's mesh path; those variants are recorded as ``not_ported`` with that
-reason.
+the port's decode path on a mesh) and sequence parallelism (``sp*``: the
+rule override ``seq -> model``, the residual stream cut along its sequence
+over the model axis between blocks, ``transformer.seq_axis``).
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --arch qwen2-72b \\
       --shape train_4k --variant accum4 --out results/hillclimb_torch
@@ -25,9 +24,9 @@ import os
 
 import torch
 
-from .dryrun import MESHES, lower_cell
+from .dryrun import MESHES, lower_cell, reduced_overrides
 
-__all__ = ["NOT_PORTED", "NOT_PORTED_WHY", "VARIANTS", "run_variant"]
+__all__ = ["VARIANTS", "run_variant", "variant_kwargs"]
 
 VARIANTS = {
     # H-accum: FSDP re-gathers weights once per microbatch; collective term
@@ -69,24 +68,13 @@ VARIANTS = {
                            cfg_overrides={"remat": "dots"}),
 }
 
-#: variants the port's mesh path cannot run: the residual stream sequence-sharded
-#: over the model axis between blocks
-NOT_PORTED = frozenset(k for k in VARIANTS if "rules_override" in VARIANTS[k])
-NOT_PORTED_WHY = "not ported: sequence parallelism of the residual stream"
 
-
-def run_variant(arch: str, shape, variant: str, multi_pod: bool = False, *,
-                cfg_overrides=None, meshes=MESHES) -> dict:
-    """The dry-run record of ``arch`` x ``shape`` under ``variant``;
-    ``cfg_overrides`` (a reduced config's, say) apply beneath the variant's.
-    ``multi_pod`` labels the record's mesh and ``meshes`` are the production
-    meshes its ``on_mesh`` holds, as in :func:`lower_cell`."""
+def variant_kwargs(variant: str, cfg_overrides=None) -> dict:
+    """:func:`lower_cell`'s keyword arguments for ``variant``, with
+    ``cfg_overrides`` (a reduced config's, say) beneath the variant's own
+    (a variant's ``grad_accum`` wins over theirs)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    if variant in NOT_PORTED:
-        return {"arch": arch, "shape": getattr(shape, "name", shape),
-                "mesh": "2x16x16" if multi_pod else "16x16", "variant": variant,
-                "status": "not_ported", "why": NOT_PORTED_WHY}
     kw = dict(VARIANTS[variant])
     if cfg_overrides:
         base = {k: v for k, v in cfg_overrides.items()
@@ -97,7 +85,17 @@ def run_variant(arch: str, shape, variant: str, multi_pod: bool = False, *,
         if topts.get("param_dtype") == "bf16":
             topts["param_dtype"] = torch.bfloat16
         kw["train_opts"] = topts
-    rec = lower_cell(arch, shape, multi_pod, meshes=tuple(meshes), **kw)
+    return kw
+
+
+def run_variant(arch: str, shape, variant: str, multi_pod: bool = False, *,
+                cfg_overrides=None, meshes=MESHES) -> dict:
+    """The dry-run record of ``arch`` x ``shape`` under ``variant``;
+    ``cfg_overrides`` (a reduced config's, say) apply beneath the variant's.
+    ``multi_pod`` labels the record's mesh and ``meshes`` are the production
+    meshes its ``on_mesh`` holds, as in :func:`lower_cell`."""
+    rec = lower_cell(arch, shape, multi_pod, meshes=tuple(meshes),
+                     **variant_kwargs(variant, cfg_overrides))
     rec["variant"] = variant
     return rec
 
@@ -107,9 +105,12 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variant", required=True, choices=sorted(VARIANTS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's reduced config (tiny widths) beneath the variant's changes")
     ap.add_argument("--out", default="results/hillclimb_torch")
     args = ap.parse_args(argv)
-    rec = run_variant(args.arch, args.shape, args.variant)
+    rec = run_variant(args.arch, args.shape, args.variant,
+                      cfg_overrides=reduced_overrides(args.arch) if args.reduced else None)
     os.makedirs(args.out, exist_ok=True)
     fn = f"{args.arch}__{args.shape}__{args.variant}.json"
     with open(os.path.join(args.out, fn), "w") as f:

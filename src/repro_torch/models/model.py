@@ -100,13 +100,16 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _ce_on_mesh(ctx, logits: torch.Tensor, labels: torch.Tensor, spec: tuple,
-                count: int) -> torch.Tensor:
+                count: int, keep=None) -> torch.Tensor:
     """:func:`_ce` over a global batch of ``count`` labels, from this rank's block
     ``[B_l, S, V_l]`` of the logits (laid out by ``spec``) and its rows of the
     labels.  The logsumexp takes the max and the sum of exponentials over the
     model axis, the label's logit comes from the rank whose vocab range holds
     it, and the rows' sum is summed over the data axes: the same value on
-    every rank, with no ``[B, S, V]`` gather."""
+    every rank, with no ``[B, S, V]`` gather.  Logits cut along the sequence
+    (sequence parallelism with a head the vocab's fallback keeps whole) come
+    with every position's label and ``keep``, the positions that count, and
+    their sum is summed over the sequence's axes too."""
     logits = logits.float()
     vocab = rules.mesh_axes(spec[-1])
     m = logits.detach().amax(-1)
@@ -120,8 +123,11 @@ def _ce_on_mesh(ctx, logits: torch.Tensor, labels: torch.Tensor, spec: tuple,
                          torch.where(inside, picked, 0.0)])
     if vocab:
         parts = rules.psum(ctx, parts, vocab)  # the two sums in one all_reduce
-    loss = (m + torch.log(parts[0]) - parts[1]).sum() / count
-    rows = rules.mesh_axes(spec[0])
+    per = m + torch.log(parts[0]) - parts[1]
+    if keep is not None:
+        per = torch.where(keep, per, 0.0)
+    loss = per.sum() / count
+    rows = rules.mesh_axes(spec[0]) + rules.mesh_axes(spec[1])
     return rules.psum(ctx, loss, rows) if rows else loss
 
 
@@ -134,6 +140,22 @@ def _targets(cfg: ArchConfig, logits, batch):
     if cfg.frontend == "vision_stub":
         return logits[:, cfg.num_patches:-1], batch["tokens"][:, 1:]
     return logits[:, :-1], batch["tokens"][:, 1:]
+
+
+def _position_targets(cfg: ArchConfig, batch, S: int):
+    """``(labels, keep)``, both ``[B, S]``: the label each position of the stream
+    predicts (as :func:`_targets` pairs them) and whether it counts, for
+    logits cut along the sequence."""
+    if cfg.kind == "encoder":
+        labels = batch["labels"].long()
+        return labels, torch.ones_like(labels, dtype=torch.bool)
+    tokens = batch["tokens"].long()
+    lo = cfg.num_patches if cfg.frontend == "vision_stub" else 0  # the first text position
+    labels = torch.zeros((tokens.shape[0], S), dtype=torch.long, device=tokens.device)
+    labels[:, lo:S - 1] = tokens[:, 1:]
+    keep = torch.zeros_like(labels, dtype=torch.bool)
+    keep[:, lo:S - 1] = True
+    return labels, keep
 
 
 def _on_mesh(ctx) -> bool:
@@ -159,9 +181,15 @@ def make_loss_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
             loss = _ce(*_targets(cfg, logits, batch))
             return loss, {"loss": loss}
         spec = rules.spec_of(ctx, logits)
-        local, labels = _targets(cfg, rules.block(logits), batch)
-        loss = _ce_on_mesh(ctx, local, rules.local_block(ctx, labels, (spec[0], None)), spec,
-                           labels.numel())
+        if spec[1] is None:
+            local, labels = _targets(cfg, rules.block(logits), batch)
+            loss = _ce_on_mesh(ctx, local, rules.local_block(ctx, labels, (spec[0], None)),
+                               spec, labels.numel())
+        else:
+            labels, keep = _position_targets(cfg, batch, logits.shape[1])
+            loss = _ce_on_mesh(ctx, rules.block(logits),
+                               rules.local_block(ctx, labels, spec[:2]), spec,
+                               int(keep.sum()), keep=rules.local_block(ctx, keep, spec[:2]))
         return loss, {"loss": loss}
 
     return loss_fn
@@ -218,15 +246,20 @@ def unreached(cfg: ArchConfig) -> frozenset:
     return frozenset()
 
 
-def _sum_replicated(ctx, params: list, grads: list) -> list:
+def _sum_replicated(ctx, params: list, grads: list, seq=None) -> list:
     """Each gradient block summed over the data axes that do not shard its
     parameter (its ranks saw other rows of the batch), one ``all_reduce`` per
     set of axes and type; a parameter a data axis shards was reduced by its
-    gather's backward."""
+    gather's backward.  Under sequence parallelism (``seq``, the model axis)
+    a parameter the model axis does not shard is summed over it as well:
+    its ranks computed other blocks of the sequence, or each the whole of a
+    product of which it kept its block (Megatron's sequence-parallel
+    parameters: the norms, and every weight the fallback keeps whole)."""
+    over = ctx.dp_axes + ((seq,) if seq is not None else ())
     groups: dict = {}
     for i, (p, g) in enumerate(zip(params, grads)):
         held = {a for e in rules.spec_of(ctx, p) for a in rules.mesh_axes(e)}
-        axes = tuple(a for a in ctx.dp_axes if a not in held and a not in ctx.same_rows)
+        axes = tuple(a for a in over if a not in held and a not in ctx.same_rows)
         if axes:
             groups.setdefault((axes, g.dtype), []).append(i)
     out = list(grads)
@@ -288,7 +321,8 @@ def make_grad_fn(cfg: ArchConfig, ctx=None, *, attn_impl: str = "chunked",
                                      f"on its path has no backward")
                 grads[i] = torch.zeros_like(leaves[i])
         if mesh:
-            grads = _sum_replicated(whole_ctx if whole else ctx, held, grads)
+            grads = _sum_replicated(whole_ctx if whole else ctx, held, grads,
+                                    transformer.seq_axis(ctx, cfg, mb))
         del leaves
         for i, p in enumerate(held):  # one leaf's two copies at a time
             grads[i] = grads[i].to(p.dtype)

@@ -153,7 +153,7 @@ def _moe_local(x, router, w1, wg, w2, *, e_base: int, num_experts: int, top_k: i
 
 def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: float = 1.25,
               gemm_impl: str = "einsum", dropless: bool = False, ctx=None,
-              token_dispatch: bool = False):
+              token_dispatch: bool = False, seq=None):
     """x ``[B, S, D]`` -> ``[B, S, D]``.
 
     ``dropless=True`` sets the capacity to the token count (every token's top
@@ -169,6 +169,12 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
     ``token_dispatch`` is asked and the data axes divide the batch and d_ff
     (the reference's conditions), else every expert on every rank over the
     whole batch.
+
+    ``seq`` (sequence parallelism, the model axis): ``x`` is whole along the
+    sequence (the stream's gather, whose backward sums the ranks' partial
+    cotangents: no ``pbroadcast`` of the tokens or the router), and the
+    result is this rank's block of the sequence: the expert-parallel sum
+    over the model axis is a reduce-scatter in place of the ``psum``.
     """
 
     def cap(tokens: int) -> int:
@@ -186,8 +192,10 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
     dpe = rules.spec_entry(dp)
     dp_size = math.prod(ctx.axis_sizes[a] for a in dp)
     B, S, _ = x.shape
-    out_spec = (dpe if B % dp_size == 0 else None, None, None)
+    out_spec = (dpe if B % dp_size == 0 else None, seq, None)
     wg = p.get("wg")
+    if seq is not None and token_dispatch:
+        raise ValueError("token dispatch is a decode step's: its sequence is not cut")
 
     if ctx.tp_axis is None or num_experts % ctx.tp_size() != 0:
         # no EP: every expert on every rank, over the whole batch (the reference's
@@ -205,7 +213,7 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
     tp = ctx.tp_axis
     E_l = num_experts // ctx.tp_size()
     e_base = rules.axis_index(ctx, tp) * E_l
-    x_l = local(ctx, x, out_spec)
+    x_l = local(ctx, x, (out_spec[0], None, None))
     router = local(ctx, p["router"], (None, None))
 
     if token_dispatch and dp and p["w1"].shape[-1] % dp_size == 0:
@@ -226,11 +234,14 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
 
     # expert parallelism: local tokens, local experts, a sum over the model axis.
     # The tokens and the router are the same on every model rank and reach
-    # only its experts: their cotangents are summed over the model axis
-    x_l, router = (rules.pbroadcast(ctx, t, tp) for t in (x_l, router))
+    # only its experts: their cotangents are summed over the model axis (under
+    # sequence parallelism by the stream gather's backward and the train
+    # step's sum of the router's gradient)
+    if seq is None:
+        x_l, router = (rules.pbroadcast(ctx, t, tp) for t in (x_l, router))
     w1 = local(ctx, p["w1"], (tp, None, None))
     wg_l = w1 if wg is None else local(ctx, wg, (tp, None, None))
     w2 = local(ctx, p["w2"], (tp, None, None))
     out = _moe_local(x_l, router, w1, wg_l, w2, e_base=e_base, num_experts=num_experts,
                      top_k=top_k, capacity=cap((B // dp_size) * S), act=act, gemm_impl=gemm_impl)
-    return rules.as_dtensor(ctx, rules.psum(ctx, out, tp), out_spec, x.shape)
+    return rules.as_dtensor(ctx, rules.row_sum(ctx, out, tp, seq), out_spec, x.shape)

@@ -20,7 +20,11 @@ the model axis.  The gates need whole heads: where the heads do not split
 but the channels do (the divisibility fallback), the conv's output is
 gathered over the model axis, the gates computed whole and the rank's
 channels kept.  The decode state's blocks (``h`` and ``conv`` on ``rnn``)
-are the rank's channels.  Without a mesh every helper does nothing.
+are the rank's channels.  Under sequence parallelism (``seq``: the block's
+input is the stream's gather, whole along the sequence, which the scan
+needs) no value is ``pbroadcast`` (``rules.tp_in``) and ``w_out``'s sum is
+a reduce-scatter to the rank's block of the sequence.  Without a mesh
+every helper does nothing.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ def rglru_block_init(gen, d: int, heads: int):
     return p
 
 
-def _gates(p, u: torch.Tensor, heads: int, ctx=None, specs=None):
+def _gates(p, u: torch.Tensor, heads: int, ctx=None, specs=None, seq=None):
     """``(r, i)`` on ``u``'s channels: the rank's, on a mesh.  ``heads``: the
     model's; the rank's share where the heads split."""
     rnn, split_heads = rules.spec_at(specs, "w_in_x", 1), rules.spec_at(specs, "w_r", 0)
@@ -65,7 +69,7 @@ def _gates(p, u: torch.Tensor, heads: int, ctx=None, specs=None):
         heads //= ctx.tp_size()
     if gather:
         u = rules.all_gather(ctx, u, rnn, dim=-1)
-        w_r, w_i = (rules.tp_in(ctx, w, rnn) for w in (w_r, w_i))
+        w_r, w_i = (rules.tp_in(ctx, w, rnn, seq) for w in (w_r, w_i))
     B, S, D = u.shape
     uh = u.reshape(B, S, heads, D // heads)
     r = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, w_r.to(u.dtype))).reshape(B, S, D)
@@ -91,26 +95,29 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rglru_scan(p, u: torch.Tensor, heads: int, ctx=None, specs=None):
+def _rglru_scan(p, u: torch.Tensor, heads: int, ctx=None, specs=None, seq=None):
     """u ``[B, S, D]`` -> ``(y in u's type, h_last fp32)``, from h = 0."""
-    r, i = _gates(p, u, heads, ctx, specs)
+    r, i = _gates(p, u, heads, ctx, specs, seq)
     a = torch.exp(-_C * F.softplus(p["lam"].float()) * r.float())
     gated = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-12)) * (i.float() * u.float())
     h = _scan(a, gated)
     return h.to(u.dtype), h[:, -1]
 
 
-def _branches(p, x: torch.Tensor, ctx, specs):
+def _branches(p, x: torch.Tensor, ctx, specs, seq=None):
     """The two linear-in branches ``(u, gelu(g))`` on the rank's channels."""
-    x = rules.tp_in(ctx, x, rules.spec_at(specs, "w_in_x", 1))  # w_in_x and w_in_g split alike
+    x = rules.tp_in(ctx, x, rules.spec_at(specs, "w_in_x", 1), seq)  # w_in_x, w_in_g split alike
     return x @ p["w_in_x"].to(x.dtype), F.gelu(x @ p["w_in_g"].to(x.dtype), approximate="tanh")
 
 
-def rglru_block_apply(p, x: torch.Tensor, *, heads: int, ctx=None, specs=None) -> torch.Tensor:
-    """The full block: ``[B, S, D] -> [B, S, D]``."""
-    u, g = _branches(p, x, ctx, specs)
-    y, _ = _rglru_scan(p, causal_conv(p["conv"], u), heads, ctx, specs)
-    return rules.row_sum(ctx, (y * g) @ p["w_out"].to(x.dtype), rules.spec_at(specs, "w_out", 0))
+def rglru_block_apply(p, x: torch.Tensor, *, heads: int, ctx=None, specs=None,
+                      seq=None) -> torch.Tensor:
+    """The full block: ``[B, S, D] -> [B, S, D]``; under sequence parallelism
+    (``seq``) the result is the rank's block of the sequence."""
+    u, g = _branches(p, x, ctx, specs, seq)
+    y, _ = _rglru_scan(p, causal_conv(p["conv"], u), heads, ctx, specs, seq)
+    return rules.row_sum(ctx, (y * g) @ p["w_out"].to(x.dtype), rules.spec_at(specs, "w_out", 0),
+                         seq)
 
 
 def rglru_init_state(batch: int, d: int, dtype=torch.float32, device="cuda"):

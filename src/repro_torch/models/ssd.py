@@ -29,8 +29,12 @@ heads are computed and the rank's ``d_inner`` block kept.  In decode the
 conv tail's cache block is a contiguous cut of the ``x | B | C`` channels,
 not the rank's heads: the tail is gathered whole in the projection's own
 ``all_gather``, and the rank's cut of the new tail, taken from the whole
-projection it holds, is written back.  Without a mesh every helper does
-nothing.
+projection it holds, is written back.  Under sequence parallelism
+(``seq``: the block's input is the stream's gather, whole along the
+sequence, which the scan needs) no value is ``pbroadcast``
+(``rules.tp_in``) but the norm's sum of squares, which sums channels, not
+positions; ``out_proj``'s sum is a reduce-scatter to the rank's block of
+the sequence.  Without a mesh every helper does nothing.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ def _gather_last(ctx, blocks):
     return out
 
 
-def _proj_and_tail(p, x: torch.Tensor, ctx, specs, tail=None, tail_split=None):
+def _proj_and_tail(p, x: torch.Tensor, ctx, specs, tail=None, tail_split=None, seq=None):
     """The whole input projection ``[B, S, 2 d_inner + 2 N + H]`` on every rank,
     and the whole conv tail (``tail`` as it is unless ``tail_split``, the mesh
     axes of its channels, cuts it).
@@ -90,11 +94,11 @@ def _proj_and_tail(p, x: torch.Tensor, ctx, specs, tail=None, tail_split=None):
         raise NotImplementedError("in_proj splits over the model axis but d_inner does not")
     proj, cut = None, {}
     if cols is None:
-        proj = rules.tp_in(ctx, x @ w.to(x.dtype), inner)
+        proj = rules.tp_in(ctx, x @ w.to(x.dtype), inner, seq)
     elif x.shape[0] * x.shape[1] <= w.shape[0]:
-        cut["proj"] = rules.tp_in(ctx, x, cols) @ w.to(x.dtype)
+        cut["proj"] = rules.tp_in(ctx, x, cols, seq) @ w.to(x.dtype)
     else:
-        proj = rules.tp_in(ctx, x, cols) @ rules.all_gather(ctx, w, cols, dim=1).to(x.dtype)
+        proj = rules.tp_in(ctx, x, cols, seq) @ rules.all_gather(ctx, w, cols, dim=1).to(x.dtype)
     if tail_split is not None:
         cut["tail"] = tail
     whole = dict(zip(cut, _gather_last(ctx, list(cut.values())))) if cut else {}
@@ -109,15 +113,17 @@ def _rank_heads(ctx, specs, heads: int) -> tuple[int, int]:
     return rules.axis_index(ctx, ctx.tp_axis) * n, n
 
 
-def _head_params(p, ctx, specs):
+def _head_params(p, ctx, specs, seq=None):
     """``a_log``, ``d_skip``, ``dt_bias`` as the rank's heads read them: a whole
     one enters the rank's ``d_inner`` block through ``tp_in`` (the fallback)."""
     inner = rules.spec_at(specs, "norm_scale", 0)
-    return tuple(rules.tp_in(ctx, p[k], inner if rules.spec_at(specs, k, 0) is None else None)
+    return tuple(rules.tp_in(ctx, p[k], inner if rules.spec_at(specs, k, 0) is None else None,
+                             seq)
                  for k in ("a_log", "d_skip", "dt_bias"))
 
 
-def _out(p, y: torch.Tensor, z: torch.Tensor, ctx, specs, d_inner: int) -> torch.Tensor:
+def _out(p, y: torch.Tensor, z: torch.Tensor, ctx, specs, d_inner: int,
+         seq=None) -> torch.Tensor:
     """The gated RMSNorm over the whole ``d_inner`` and ``out_proj``; ``y`` holds the
     rank's heads (or all of them), ``z`` is whole."""
     inner = rules.spec_at(specs, "norm_scale", 0)
@@ -131,7 +137,8 @@ def _out(p, y: torch.Tensor, z: torch.Tensor, ctx, specs, d_inner: int) -> torch
         vf = v.float()
         ss = rules.tp_in(ctx, rules.psum(ctx, vf.square().sum(-1, keepdim=True), inner), inner)
         v = (vf * torch.rsqrt(ss / d_inner + 1e-6) * p["norm_scale"]).to(v.dtype)
-    return rules.row_sum(ctx, v @ p["out_proj"].to(v.dtype), rules.spec_at(specs, "out_proj", 0))
+    return rules.row_sum(ctx, v @ p["out_proj"].to(v.dtype), rules.spec_at(specs, "out_proj", 0),
+                         seq)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -189,21 +196,23 @@ def ssd_chunked(xh, dt, a_log, Bm, Cm, *, chunk: int):
 
 
 def ssd_block_apply(p, x: torch.Tensor, *, d_inner: int, heads: int, d_state: int,
-                    chunk: int = 128, ctx=None, specs=None) -> torch.Tensor:
+                    chunk: int = 128, ctx=None, specs=None, seq=None) -> torch.Tensor:
+    """The full block: ``[B, S, D] -> [B, S, D]``; under sequence parallelism
+    (``seq``) the result is the rank's block of the sequence."""
     B, S, _ = x.shape
     P = d_inner // heads
-    proj, _ = _proj_and_tail(p, x, ctx, specs)
+    proj, _ = _proj_and_tail(p, x, ctx, specs, seq=seq)
     z, xs, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, d_state, d_state, heads], dim=-1)
-    conv = rules.tp_in(ctx, p["conv"], rules.spec_at(specs, "norm_scale", 0))
+    conv = rules.tp_in(ctx, p["conv"], rules.spec_at(specs, "norm_scale", 0), seq)
     conv_out = F.silu(causal_conv(conv, torch.cat([xs, Bm, Cm], dim=-1)))
     xs, Bm, Cm = torch.split(conv_out, [d_inner, d_state, d_state], dim=-1)
     lo, n = _rank_heads(ctx, specs, heads)
-    a_log, d_skip, dt_bias = _head_params(p, ctx, specs)
+    a_log, d_skip, dt_bias = _head_params(p, ctx, specs, seq)
     dt = F.softplus(dt[..., lo:lo + n].float() + dt_bias)  # [B, S, n]
     xh = xs[..., lo * P:(lo + n) * P].reshape(B, S, n, P)
     y, _ = ssd_chunked(xh.float(), dt, a_log, Bm.float(), Cm.float(), chunk=chunk)
     y = y + xh.float() * d_skip[None, None, :, None]
-    return _out(p, y.reshape(B, S, n * P).to(x.dtype), z, ctx, specs, d_inner)
+    return _out(p, y.reshape(B, S, n * P).to(x.dtype), z, ctx, specs, d_inner, seq)
 
 
 def ssd_init_state(batch: int, *, d_inner: int, heads: int, d_state: int, dtype=torch.float32,

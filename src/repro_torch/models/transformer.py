@@ -45,6 +45,19 @@ enters a product the model axis splits (q/k/v, ``wi``/``wg``, the head,
 kv heads sliced for the local query heads), so the ranks' partial
 cotangents are summed there (Megatron's ``f``; the row-parallel ``psum``
 is its ``g``).
+
+Sequence parallelism is the reference's rule override ``seq -> model``
+(:func:`seq_axis`: where the divisibility fallback keeps the sequence of
+the stream ``[B, S, d]`` on the model axis).  Between blocks each rank then
+holds its block of the sequence.  A layer applies its norm on the block and
+gathers it whole (``rules.sp_gather``) where it enters the mixer and the
+FFN, which read it without ``pbroadcast``; each row-parallel sum becomes a
+reduce-scatter back to the block (``rules.row_sum(..., seq)``), and a
+product the fallback computes whole keeps its block.  The vocab-parallel
+lookup's terms are reduce-scattered to the block; a vocab-parallel head
+reads the stream gathered, a whole head the block (its logits cut along
+the sequence).  The train step sums the gradients of the parameters the
+model axis does not shard over it (``model._sum_replicated``).
 """
 
 from __future__ import annotations
@@ -78,7 +91,7 @@ from .layers import (
 )
 
 __all__ = ["apply", "cache_axes", "decode_step", "init_cache", "init_params", "layer_kinds",
-           "param_axes"]
+           "param_axes", "seq_axis"]
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -269,10 +282,12 @@ def _kv_heads(ctx, cfg: ArchConfig, specs):
     return slice(r * H_l // group, ((r + 1) * H_l - 1) // group + 1)
 
 
-def _lookup(ctx, specs):
+def _lookup(ctx, specs, partial: bool = False):
     """The embedding lookup for a table block: vocab-parallel (each rank looks up
     the tokens in its vocab range, zeros elsewhere, a sum over the model axis:
-    one term is non-zero, so the sum is exact) when the vocab dim is sharded."""
+    one term is non-zero, so the sum is exact) when the vocab dim is sharded.
+    ``partial``: the rank's terms, not summed (sequence parallelism
+    reduce-scatters them, :func:`_embed_inputs`)."""
     if rules.spec_at(specs, "embed", "table", 0) is None:
         return F.embedding
 
@@ -280,8 +295,8 @@ def _lookup(ctx, specs):
         V_l = table.shape[0]
         t = tokens - rules.axis_index(ctx, ctx.tp_axis) * V_l
         inside = (t >= 0) & (t < V_l)
-        x = F.embedding(torch.where(inside, t, 0), table)
-        return rules.psum(ctx, torch.where(inside[..., None], x, 0), ctx.tp_axis)
+        x = torch.where(inside[..., None], F.embedding(torch.where(inside, t, 0), table), 0)
+        return x if partial else rules.psum(ctx, x, ctx.tp_axis)
 
     return lookup
 
@@ -291,6 +306,32 @@ def _batch_entry(ctx, B: int):
     return logical_to_spec(ctx, (B, 1, 1), ("batch", "seq", None))[0]
 
 
+def _stream_len(cfg: ArchConfig, inputs) -> int:
+    """The residual stream's sequence length: the frames, the tokens, or a
+    vision prefix's patches and the tokens after them."""
+    if cfg.frontend == "audio_stub":
+        return inputs["frames"].shape[1]
+    S = inputs["tokens"].shape[1]
+    return S + inputs["patches"].shape[1] if cfg.frontend == "vision_stub" else S
+
+
+def seq_axis(ctx, cfg: ArchConfig, inputs):
+    """The mesh axis that cuts the residual stream ``[B, S, d]`` along its
+    sequence between blocks (sequence parallelism: the reference's rule
+    override ``seq -> model``), or ``None``: where the rules map ``seq`` to
+    the model axis and the divisibility fallback keeps it there for this
+    ``S`` (a decode step's ``S`` 1 and an ``S`` the axis does not divide
+    keep the stream whole), on a mesh."""
+    if not _on_mesh(ctx):
+        return None
+    B = next(iter(inputs.values())).shape[0]
+    entry = logical_to_spec(ctx, (B, _stream_len(cfg, inputs), 1), ("batch", "seq", None))[1]
+    if entry is not None and entry != ctx.tp_axis:
+        raise NotImplementedError(f"the sequence over {entry!r}: sequence parallelism "
+                                  f"runs over the model axis {ctx.tp_axis!r}")
+    return entry
+
+
 def _rows(ctx, x, B: int):
     """This rank's batch rows of a whole input every rank holds."""
     if not _on_mesh(ctx):
@@ -298,21 +339,27 @@ def _rows(ctx, x, B: int):
     return rules.local_block(ctx, x, (_batch_entry(ctx, B),) + (None,) * (x.dim() - 1))
 
 
-def _logits(ctx, params, cfg: ArchConfig, x, B: int):
+def _logits(ctx, params, cfg: ArchConfig, x, B: int, seq=None):
     """The final norm and the head: logits ``[B, S, vocab]``, on a mesh a
-    ``DTensor`` sharded over the batch and vocab rules."""
+    ``DTensor`` sharded over the batch and vocab rules.  Under sequence
+    parallelism (``seq``) the norm runs on the rank's block, which is
+    gathered whole for a vocab-parallel head; a head the vocab's fallback
+    computes whole stays on the block, and the logits are cut along the
+    sequence instead (the reference's layout under the override)."""
     top, specs = _blocks(ctx, {k: params[k] for k in ("final_norm", "embed", "head")
                                if k in params})
     x = apply_norm(_final_norm_kind(cfg), top["final_norm"], x)
     tied = cfg.tie_embeddings and "head" not in top
     split = (rules.spec_at(specs, "embed", "table", 0) if tied
              else rules.spec_at(specs, "head", "w", 1))
-    local = _head(top, cfg, rules.tp_in(ctx, x, split))
+    cut = seq  # the logits' sequence axis
+    if split is not None:  # a vocab-parallel head reads the whole sequence
+        x, cut = rules.sp_gather(ctx, x, seq), None
+    local = _head(top, cfg, rules.tp_in(ctx, x, split, seq))
     if not _on_mesh(ctx):
         return local
-    shape = (B, x.shape[1], cfg.vocab_size)
-    return rules.as_dtensor(ctx, local, logical_to_spec(ctx, shape, ("batch", "seq", "vocab")),
-                            shape)
+    shape = (B, x.shape[1] * (1 if cut is None else ctx.tp_size()), cfg.vocab_size)
+    return rules.as_dtensor(ctx, local, (_batch_entry(ctx, B), cut, split), shape)
 
 
 # --------------------------------------------------------------------------
@@ -330,10 +377,13 @@ def _sinusoidal(S: int, D: int, dtype, device) -> torch.Tensor:
 
 
 def _ffn(p, blocks, specs, h2, cfg: ArchConfig, *, ctx=None, batch: int = 0,
-         decode: bool = False):
+         decode: bool = False, seq=None):
     """The MLP or the MoE; ``decode`` never drops a generation token and, on a
     mesh, dispatches tokens (the reference's ``token_dispatch=True``).
-    ``batch``: the whole batch that ``h2``'s rows belong to (on a mesh)."""
+    ``batch``: the whole batch that ``h2``'s rows belong to (on a mesh).
+    ``seq``: sequence parallelism, ``h2`` the stream's gather (the
+    expert-parallel body takes the whole sequence, as the reference's
+    ``shard_map`` does) and the output the rank's block."""
     if "moe" in p:
         kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, act=cfg.mlp_act,
                   capacity_factor=cfg.moe_capacity_factor, dropless=decode)
@@ -341,29 +391,33 @@ def _ffn(p, blocks, specs, h2, cfg: ArchConfig, *, ctx=None, batch: int = 0,
             return moe_mod.moe_apply(p["moe"], h2, **kw)
         x = rules.as_dtensor(ctx, h2, (_batch_entry(ctx, batch), None, None),
                              (batch, *h2.shape[1:]))
-        return moe_mod.moe_apply(p["moe"], x, ctx=ctx, token_dispatch=decode, **kw).to_local()
-    h2 = rules.tp_in(ctx, h2, rules.spec_at(specs, "mlp", "wi", 1))  # wi and wg split alike
+        return moe_mod.moe_apply(p["moe"], x, ctx=ctx, token_dispatch=decode, seq=seq,
+                                 **kw).to_local()
+    h2 = rules.tp_in(ctx, h2, rules.spec_at(specs, "mlp", "wi", 1), seq)  # wi and wg split alike
     return rules.row_sum(ctx, mlp_apply(blocks["mlp"], h2, cfg.mlp_act),
-                         rules.spec_at(specs, "mlp", "wo", 0))
+                         rules.spec_at(specs, "mlp", "wo", 0), seq)
 
 
 def _apply_block(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len=None,
-                 attn_impl="chunked", ctx=None, batch: int = 0):
+                 attn_impl="chunked", ctx=None, batch: int = 0, seq=None):
+    """One layer on the stream ``x``; with ``seq`` (sequence parallelism) ``x`` is
+    the rank's block of the sequence, each norm runs on it and the mixer and
+    the FFN read it gathered whole."""
     lp, sp = _blocks(ctx, p)
-    h = apply_norm(cfg.norm, lp["ln1"], x)
+    h = rules.sp_gather(ctx, apply_norm(cfg.norm, lp["ln1"], x), seq)
     if kind in ("attn", "local"):
         # one pbroadcast for the projections the model axis splits; one the
         # divisibility fallback computes whole reads h itself
         split = {n: rules.spec_at(sp, n, "w", 1) for n in ("q", "k", "v")}
-        h_tp = rules.tp_in(ctx, h, next((e for e in split.values() if e is not None), None))
+        h_tp = rules.tp_in(ctx, h, next((e for e in split.values() if e is not None), None), seq)
         q, k, v = (proj_in(lp[n], h if split[n] is None else h_tp) for n in ("q", "k", "v"))
         if cfg.positions == "rope":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         kv = _kv_heads(ctx, cfg, sp)
         if kv is not None:  # whole kv heads, of which each rank's queries read a slice
-            k = rules.tp_in(ctx, k, kv)[:, :, kv]
-            v = rules.tp_in(ctx, v, kv)[:, :, kv]
+            k = rules.tp_in(ctx, k, kv, seq)[:, :, kv]
+            v = rules.tp_in(ctx, v, kv, seq)[:, :, kv]
         out = attn_mod.attention(
             q, k, v,
             causal=cfg.kind != "encoder",
@@ -371,32 +425,47 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, *, positions, prefix_len=None
             prefix_len=prefix_len,
             impl=attn_impl,
         )
-        mixed = rules.row_sum(ctx, proj_out(lp["o"], out), rules.spec_at(sp, "o", "w", 0))
+        mixed = rules.row_sum(ctx, proj_out(lp["o"], out), rules.spec_at(sp, "o", "w", 0), seq)
     elif kind == "rec":
         mixed = rec_mod.rglru_block_apply(lp["mix"], h, heads=cfg.num_heads, ctx=ctx,
-                                          specs=rules.spec_at(sp, "mix"))
+                                          specs=rules.spec_at(sp, "mix"), seq=seq)
     else:  # ssm: a Mamba block has no MLP
         return x + ssm_mod.ssd_block_apply(lp["mix"], h, d_inner=cfg.d_inner, heads=cfg.ssm_heads,
                                            d_state=cfg.ssm_state, ctx=ctx,
-                                           specs=rules.spec_at(sp, "mix"))
+                                           specs=rules.spec_at(sp, "mix"), seq=seq)
     x = x + mixed
-    return x + _ffn(p, lp, sp, apply_norm(cfg.norm, lp["ln2"], x), cfg, ctx=ctx, batch=batch)
+    h2 = rules.sp_gather(ctx, apply_norm(cfg.norm, lp["ln2"], x), seq)
+    return x + _ffn(p, lp, sp, h2, cfg, ctx=ctx, batch=batch, seq=seq)
 
 
-def _embed_inputs(p, cfg: ArchConfig, inputs, lookup=F.embedding):
-    """``lookup(tokens, table)``: the table lookup (vocab-parallel on a mesh)."""
+def _embed_inputs(p, cfg: ArchConfig, inputs, lookup=F.embedding, *, ctx=None, seq=None,
+                  partial: bool = False):
+    """``lookup(tokens, table)``: the table lookup (vocab-parallel on a mesh).
+
+    ``seq`` (sequence parallelism): the rank's block of the stream.  A
+    ``partial`` lookup's terms (vocab-parallel, :func:`_lookup`) are
+    reduce-scattered to it, a vision prefix's patches entering on the axis's
+    rank 0 alone so that the sum holds them once; a stream computed whole is
+    cut.  The sinusoidal table is added for the block's positions."""
     table = p["embed"]["table"]
     if cfg.frontend == "audio_stub":
         x = dense(p["frontend"], inputs["frames"])
     elif cfg.frontend == "vision_stub":
         tok = lookup(inputs["tokens"], table)
-        x = torch.cat([inputs["patches"].to(tok.dtype), tok], dim=1)
+        patches = inputs["patches"].to(tok.dtype)
+        if partial and rules.axis_index(ctx, seq):
+            patches = torch.zeros_like(patches)
+        x = torch.cat([patches, tok], dim=1)
     else:
         # F.embedding: its CUDA backward sorts the indices, so a repeated token's
         # gradient rows are summed in one order from run to run (no atomics)
         x = lookup(inputs["tokens"], table)
+    lo = 0
+    if seq is not None:
+        x = rules.sp_scatter(ctx, x, seq) if partial else rules.seq_block(ctx, x, seq)
+        lo = rules.axis_index(ctx, seq) * x.shape[1]
     if cfg.positions == "sinusoidal":
-        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        x = x + _sinusoidal(lo + x.shape[1], cfg.d_model, x.dtype, x.device)[lo:][None]
     return x
 
 
@@ -447,15 +516,21 @@ def apply(params, cfg: ArchConfig, inputs, *, attn_impl: str = "chunked", ctx=No
 
     With ``ctx`` on a mesh, every rank passes the whole inputs, computes its
     batch rows on its blocks, and gets the logits as a ``DTensor`` sharded
-    over the batch and vocab rules (see the module's docstring).
+    over the batch and vocab rules (see the module's docstring); under
+    sequence parallelism (:func:`seq_axis`) the stream between blocks is the
+    rank's block of the sequence, and the positions are the whole
+    sequence's.
     """
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={cfg.remat!r}: 'none', 'full' or 'dots'")
     B = next(iter(inputs.values())).shape[0]
+    seq = seq_axis(ctx, cfg, inputs)
     emb, emb_spec = _blocks(ctx, {k: params[k] for k in ("embed", "frontend") if k in params})
+    partial = (seq is not None and cfg.frontend != "audio_stub"  # a lookup's terms, summed once
+               and rules.spec_at(emb_spec, "embed", "table", 0) is not None)
     x = _embed_inputs(emb, cfg, {k: _rows(ctx, v, B) for k, v in inputs.items()},
-                      lookup=_lookup(ctx, emb_spec))
-    B_l, S, _ = x.shape
+                      lookup=_lookup(ctx, emb_spec, partial), ctx=ctx, seq=seq, partial=partial)
+    B_l, S = x.shape[0], _stream_len(cfg, inputs)  # the whole sequence's positions
     positions = torch.arange(S, device=x.device).expand(B_l, S)
     prefix_len = cfg.num_patches if cfg.frontend == "vision_stub" else None
     layers, kinds = params["layers"], layer_kinds(cfg)
@@ -464,7 +539,7 @@ def apply(params, cfg: ArchConfig, inputs, *, attn_impl: str = "chunked", ctx=No
         def layers_lo_hi(x):
             for p, kind in zip(layers[lo:hi], kinds[lo:hi], strict=True):
                 x = _apply_block(p, x, cfg, kind, positions=positions, prefix_len=prefix_len,
-                                 attn_impl=attn_impl, ctx=ctx, batch=B)
+                                 attn_impl=attn_impl, ctx=ctx, batch=B, seq=seq)
             return x
         return layers_lo_hi
 
@@ -475,7 +550,7 @@ def apply(params, cfg: ArchConfig, inputs, *, attn_impl: str = "chunked", ctx=No
     for lo in range(0, wrapped, period):
         x = _checkpointed(cfg.remat, run(lo, lo + period), x)
     x = run(wrapped, cfg.num_layers)(x)
-    return _logits(ctx, params, cfg, x, B)
+    return _logits(ctx, params, cfg, x, B, seq)
 
 
 # --------------------------------------------------------------------------

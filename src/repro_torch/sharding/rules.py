@@ -49,7 +49,15 @@ collective         forward                      backward
                                                 ``all_reduce`` and this rank's
                                                 block (``MeshCtx.fsdp_grad``)
 ``pmax``           ``all_reduce`` (max)         none: its result is detached
+``sp_gather``      list ``all_gather``, tiled   ``reduce_scatter``
+``sp_scatter``     ``reduce_scatter``           list ``all_gather``, tiled
 =================  ===========================  ==============================
+
+:func:`sp_gather` and :func:`sp_scatter` are sequence parallelism's pair
+(the rule ``seq -> model``: the residual stream cut along its sequence over
+the model axis between blocks, Megatron's ``g`` and ``g-bar``): a block's
+input is gathered whole where it enters the column-parallel products, and
+each row-parallel sum becomes a reduce-scatter back to the rank's block.
 
 A gather's backward sums the ranks' cotangents, so it assumes what every
 gather of the port's train step meets: each rank uses the gathered value on
@@ -79,8 +87,8 @@ __all__ = ["DEFAULT_RULES", "MeshCtx", "all_gather", "as_dtensor", "axis_index",
            "block_index", "collective_counts", "constrain", "distribute", "full_value", "like",
            "local_block", "logical_to_spec", "mesh_axes", "pbroadcast", "placements", "pmax",
            "psum", "psum_scatter", "relayout", "reset_collective_counts", "row_sum",
-           "shard_bytes", "shard_shape", "spec_at", "spec_entry", "spec_of", "spec_tree",
-           "tp_in"]
+           "seq_block", "shard_bytes", "shard_shape", "sp_gather", "sp_scatter", "spec_at",
+           "spec_entry", "spec_of", "spec_tree", "tp_in"]
 
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "embed": ("data",),  # FSDP
@@ -445,17 +453,75 @@ def spec_at(specs, *path):
     return specs
 
 
-def tp_in(ctx, x, split):
+def tp_in(ctx, x, split, seq=None):
     """``x``, a value every model rank holds, as it enters a product whose weight
     the model axis splits (``split`` not ``None``): the same values, and in the
-    backward the sum of the ranks' partial cotangents (:func:`pbroadcast`)."""
-    return x if split is None else pbroadcast(ctx, x, ctx.tp_axis)
+    backward the sum of the ranks' partial cotangents (:func:`pbroadcast`).
+
+    Under sequence parallelism (``seq``, the mesh axis that cuts the residual
+    stream's sequence) it is ``x`` itself: an activation read from the
+    stream's gather has its partial cotangents summed by the gather's
+    backward (:func:`sp_gather`), and a parameter by the train step's sum of
+    sequence-parallel gradients (``model._sum_replicated``)."""
+    return x if split is None or seq is not None else pbroadcast(ctx, x, ctx.tp_axis)
 
 
-def row_sum(ctx, y, contracted):
+def row_sum(ctx, y, contracted, seq=None):
     """A row-parallel product's partial sums over the model axis (none when its
-    ``contracted`` dim is whole on every rank)."""
-    return y if contracted is None else psum(ctx, y, ctx.tp_axis)
+    ``contracted`` dim is whole on every rank).  Under sequence parallelism
+    (``seq``) this rank's block of the sum along the sequence (dim 1): a
+    reduce-scatter (:func:`sp_scatter`), or the block itself of a product
+    computed whole on every rank."""
+    if seq is None:
+        return y if contracted is None else psum(ctx, y, ctx.tp_axis)
+    return seq_block(ctx, y, seq) if contracted is None else sp_scatter(ctx, y, seq)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ctx, x, a):
+        fctx.mesh_ctx, fctx.a = ctx, a
+        return _gather(ctx, x, a, 1)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _scatter(fctx.mesh_ctx, g, fctx.a, 1), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ctx, x, a):
+        fctx.mesh_ctx, fctx.a = ctx, a
+        return _scatter(ctx, x, a, 1)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _gather(fctx.mesh_ctx, g, fctx.a, 1), None
+
+
+def sp_gather(ctx, x, seq):
+    """The whole sequence (dim 1) of ``x`` from the ranks' blocks over mesh axis
+    ``seq`` (``all_gather``), where a block enters the products of a layer;
+    ``x`` itself for ``seq`` ``None``.  The backward is a ``reduce_scatter``:
+    the ranks' partial cotangents, summed, this rank's block.  It is an
+    activation's gather, so ``MeshCtx.fsdp_grad`` and ``same_rows`` (the FSDP
+    parameter reduction's knobs) do not touch it."""
+    return x if seq is None else _SeqGather.apply(ctx, x, seq)
+
+
+def sp_scatter(ctx, x, seq):
+    """The sum of the ranks' partial ``x`` over mesh axis ``seq``, of which this
+    rank keeps its block of the sequence (dim 1; ``reduce_scatter``); ``x``
+    itself for ``seq`` ``None``.  The backward gathers the blocks' cotangents
+    (``all_gather``): every rank's partial term reaches every block."""
+    return x if seq is None else _SeqScatter.apply(ctx, x, seq)
+
+
+def seq_block(ctx, x, seq):
+    """This rank's block of the sequence (dim 1) of ``x``, which every rank of
+    mesh axis ``seq`` holds whole (no communication; the backward pads the
+    cotangent with zeros, a partial term of the whole one)."""
+    return x if seq is None else _own_block(ctx, x, seq, 1)
 
 
 def pmax(ctx, x, axes):

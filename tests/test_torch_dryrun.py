@@ -303,13 +303,18 @@ def test_hillclimb_variant_at_a_reduced_cell(variant):
     # the one-card counts alone (the meshes' are tests/test_torch_dryrun_mesh.py's)
     rec = hillclimb.run_variant(arch, shape, variant, cfg_overrides=over, meshes=())
     assert rec["variant"] == variant
-    if variant in hillclimb.NOT_PORTED:
-        assert rec["status"] == "not_ported" and rec["why"] == hillclimb.NOT_PORTED_WHY
-        assert variant.startswith("sp")
-        return
     assert rec["status"] == "ok"
     base = hillclimb.run_variant(arch, shape, "baseline", cfg_overrides=over, meshes=())
-    if variant.startswith("accum"):
+    if variant.startswith("sp"):
+        # sequence parallelism cuts the stream on the meshes alone: the one-card
+        # counts are those of the variant without the override
+        plain = hillclimb.variant_kwargs(variant, over)
+        del plain["rules_override"]
+        match = dryrun.lower_cell(arch, shape, meshes=(), **plain)
+        assert rec["rules_override"] == {"seq": ["model"]}
+        assert rec["flops"] == match["flops"] and rec["bytes"] == match["bytes"]
+        assert rec["grad_accum"] == match["grad_accum"] and rec["remat"] == match["remat"]
+    elif variant.startswith("accum"):
         assert rec["grad_accum"] == int(variant[5:])
         assert rec["flops"] == base["flops"]  # the same products over fewer rows at a time
     elif variant == "remat_dots":
@@ -321,7 +326,7 @@ def test_hillclimb_variant_at_a_reduced_cell(variant):
     elif variant.startswith("moe_cf"):
         cf = float(variant[6:])
         assert rec["flops"] != base["flops"] or cf == over["moe_capacity_factor"]
-    assert set(hillclimb.VARIANTS) >= hillclimb.NOT_PORTED
+    assert ("rules_override" in rec) == variant.startswith("sp")
 
 
 # --- the command lines and the roofline table ---------------------------------------
@@ -359,8 +364,15 @@ def test_dryrun_cli_and_the_roofline_table(tmp_path, capsys):
 
 
 def test_hillclimb_cli_records_a_multi_card_variant(tmp_path):
+    """The ``sp`` variant of qwen2-72b's train_4k cell (at its reduced widths:
+    the full cell takes minutes here) on both production meshes, with the
+    sequence-parallel reduce-scatters over ``model`` and a finite collective
+    term."""
     out = str(tmp_path / "hc")
     assert hillclimb.main(["--arch", "qwen2-72b", "--shape", "train_4k", "--variant", "sp",
-                           "--out", out]) == 0
+                           "--reduced", "--out", out]) == 0
     rec = json.load(open(os.path.join(out, "qwen2-72b__train_4k__sp.json")))
-    assert rec["status"] == "not_ported" and "sequence parallelism" in rec["why"]
+    assert rec["status"] == "ok" and rec["rules_override"] == {"seq": ["model"]}
+    for m in rec["on_mesh"].values():
+        assert "model" in m["collectives_by_kind"]["reduce_scatter"]["by_axis"]
+        assert math.isfinite(m["collective_term_s"]) and m["collective_term_s"] > 0

@@ -6,7 +6,8 @@ counts the port's collectives by kind and mesh axis.  Here gloo processes,
 one per rank (``run_on_mesh(device="cpu")``), run the same steps on real
 tensors at reduced configs on (data 2, model 2); every rank's counts must
 equal the prediction exactly, kind for kind and axis for axis, in calls and
-bytes: qwen2's train step in both ``grad_reshard`` modes, and the decode
+bytes: qwen2's train step in both ``grad_reshard`` modes and under
+sequence parallelism (the rule override ``seq -> model``), and the decode
 steps of qwen3-moe, recurrentgemma and mamba2 under ``decode_32k`` and
 (the recurrent two) ``long_500k``.  Rank bodies: ``tests/torch_mesh_ranks.py``.
 
@@ -44,7 +45,10 @@ CASES = {
     "ssd_decode": ("mamba2-370m", DECODE, False),
     "rglru_long": ("recurrentgemma-9b", SHAPES["long_500k"], False),
     "ssd_long": ("mamba2-370m", SHAPES["long_500k"], False),
+    "qwen2_train_sp": ("qwen2-0.5b", TRAIN, True),
 }
+#: name -> the rules laid over the cell's (``make_ctx(...).with_rules``)
+RULES = {"qwen2_train_sp": {"seq": ("model",)}}
 
 
 def _pos(shape) -> int:
@@ -56,7 +60,8 @@ def gloo_counts():
     cases = {}
     for i, (name, (arch, shape, rs)) in enumerate(CASES.items()):
         cfg = reduced_config(arch)
-        c = dict(cfg=cfg, shape=shape, dtype=torch.float32, grad_reshard=rs, pos=_pos(shape))
+        c = dict(cfg=cfg, shape=shape, dtype=torch.float32, grad_reshard=rs, pos=_pos(shape),
+                 rules=RULES.get(name))
         if shape.kind == "train":
             c["state"] = tmodel.init_train_state(cfg, seed=i, device="cpu")
             c["batch"] = {"tokens": np.random.default_rng(i).integers(
@@ -73,7 +78,8 @@ def test_fake_mesh_counts_equal_the_gloo_ranks(gloo_counts, name):
     arch, shape, rs = CASES[name]
     got = dryrun.measure_on_mesh(reduced_config(arch), shape, AXES, param_dtype=torch.float32,
                                  kv_dtype=torch.float32, compute_dtype=torch.float32,
-                                 pos=_pos(shape), grad_reshard=rs)["collectives_by_kind"]
+                                 pos=_pos(shape), grad_reshard=rs,
+                                 rules_override=RULES.get(name))["collectives_by_kind"]
     predicted = {k: {a: {"calls": v["calls"], "bytes": v["operand_bytes"], "group": v["group"]}
                      for a, v in per["by_axis"].items()} for k, per in got.items()}
     assert predicted, "the step makes collectives"
@@ -81,6 +87,8 @@ def test_fake_mesh_counts_equal_the_gloo_ranks(gloo_counts, name):
         assert rank[name] == predicted
     if shape.kind == "train":  # the FSDP reduction is the mode's collective
         assert ("reduce_scatter" in predicted) == rs
+        # sequence parallelism's reduce-scatters run over the model axis
+        assert ("model" in predicted.get("reduce_scatter", {})) == (name in RULES)
 
 
 def test_wire_bytes_follow_the_reference_conventions():
@@ -137,18 +145,45 @@ def test_cli_mesh_multi(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("variant", ["gradrs", "bf16_rs", "bf16_rs_accum4", "bf16_rs_accum1",
-                                     "token_dispatch"])
+                                     "token_dispatch", "sp", "sp_accum1", "sp_accum2",
+                                     "sp_accum4", "sp_accum4_dots"])
 def test_hillclimb_variants_run_on_the_meshes(variant):
     arch = "qwen3-moe-235b-a22b"
     kind = "decode" if variant == "token_dispatch" else "train"
     shape = ShapeSpec(f"reduced_{kind}", 32, 128, kind)  # 32 rows a microbatch at accum 4
     rec = hillclimb.run_variant(arch, shape, variant, cfg_overrides=dryrun.reduced_overrides(arch))
     assert rec["status"] == "ok" and rec["variant"] == variant
+    sp = variant.startswith("sp")
     for m in rec["on_mesh"].values():
         kinds = m["collectives_by_kind"]
         assert ("reduce_scatter" in kinds) == (kind == "train")
-    if kind == "train":
+        # the stream's reduce-scatters over model (the FSDP ones run over data)
+        assert ("model" in kinds.get("reduce_scatter", {}).get("by_axis", {})) == sp
+        assert math.isfinite(m["collective_term_s"]) and m["collective_term_s"] > 0
+    if sp:
+        assert rec["rules_override"] == {"seq": ["model"]} and "grad_reshard" not in rec
+    elif kind == "train":
         assert rec["grad_reshard"] is True
+
+
+def test_run_cells_takes_a_variant_beside_the_cells():
+    """A cell may carry a variant's ``lower_cell`` arguments (the smoke runs the
+    hillclimb's records in the sweep's pool): the record is ``lower_cell``'s,
+    and the pool's queue weighs the variant's microbatches."""
+    arch = "qwen2-0.5b"
+    over = dryrun.reduced_overrides(arch)
+    kw = hillclimb.variant_kwargs("sp_accum2", over)
+    shape = ShapeSpec("train_4k", 64, 64, "train")  # the cell's rules at a test size
+    (rec,) = dryrun.run_cells([(arch, shape, False, kw)], meshes=("16x16",))
+    want = dryrun.lower_cell(arch, shape, meshes=("16x16",), **kw)
+    assert rec["grad_accum"] == 2 and rec["rules_override"] == {"seq": ["model"]}
+    for key in ("flops", "bytes", "peak_bytes_card"):
+        assert rec[key] == want[key]
+    assert rec["on_mesh"]["16x16"]["collectives_by_kind"] == (
+        want["on_mesh"]["16x16"]["collectives_by_kind"])
+    cost = dryrun._cost(((arch, "train_4k", False, kw), "16x16"))
+    assert cost == dryrun._cost(((arch, "train_4k", False), "16x16")) * 2
+    assert cost == 24 * 3 * 2
 
 
 def test_fake_production_meshes_one_after_the_other():

@@ -351,12 +351,15 @@ def step_counts_body(ctx, cases: dict) -> dict:
     axis: ``{"cfg", "shape", "dtype", "grad_reshard"}`` a train step
     (``make_train_step``) of ``state`` on ``batch``, else a decode step
     (``make_serve_step``) at ``pos`` on a zero cache of the shape's batch
-    and length.  The parameters, the cache and the compute are in
-    ``dtype``, as :func:`repro_torch.launch.dryrun.measure_on_mesh` is asked."""
+    and length; ``rules``, if any, laid over the shape's.  The parameters,
+    the cache and the compute are in ``dtype``, as
+    :func:`repro_torch.launch.dryrun.measure_on_mesh` is asked."""
     out = {}
     for name, c in cases.items():
         cfg, shape, dt = c["cfg"], c["shape"], c["dtype"]
         cctx = make_ctx(ctx, cfg, shape)
+        if c.get("rules"):
+            cctx = cctx.with_rules(**c["rules"])
         if shape.kind == "train":
             state = reshard_state(c["state"], None, cctx, tt.param_axes(cfg))
             step = tmodel.make_train_step(cfg, cctx, compute_dtype=dt,
