@@ -99,11 +99,12 @@ Phases, one JSON line each:
                       resident multiply, |trace(D) - n_occ| <= 1e-3 on a
                       family with a spectral gap.
 11. ``flash_kernel`` — the flash-attention kernels (fp32 FFMA, bf16 tensor
-                      cores) against their plain version over eight shapes
+                      cores) against their plain version over nine shapes
                       (qwen2-0.5b's layer, non-causal D 80, D 128 and 256
                       with one kv head, a decode-style suffix, a window,
-                      ragged S, fully masked rows), timed on qwen2-0.5b's
-                      layer and the D 128 and D 256 cases in both types
+                      ragged S, fully masked rows, a kimi-k2 mesh rank's
+                      layer at D 112), timed on qwen2-0.5b's layer, the
+                      D 128, D 256 and D 112 cases in both types
                       beside the plain version, the bounds and SDPA (a
                       yardstick only); the ``build`` phase fails on a spill
                       in any fp32 instantiation it compiled.
@@ -235,6 +236,22 @@ Phases, one JSON line each:
                       process on the same cache, the tokens equal, no
                       kernel; collectives and ms a step beside one
                       process's.
+    ``mesh_kimi``   — kimi-k2-1t-a32b (1 of 61 layers) at full width in bf16
+                      on the same mesh: one process first (drawn leaf by
+                      leaf in bf16), then each rank draws its blocks from
+                      the same stream (``keep_blocks``); the EP layer
+                      (its 192 experts a rank gathered in chunks) through
+                      ``block_spmm``, every launch held against its plain
+                      version; the prefill with bf16 flash at head_dim 112;
+                      the decode rules' blocks drawn; ``generate_on_mesh``
+                      in bf16.  The EP layer within 5e-2 * max|x| of one
+                      process at every position; the prefill and decode
+                      logits the same where the rank routed each token to
+                      the experts one process did (the others counted);
+                      tokens equal unless a request parts at such a step or
+                      where one process's top two logits lie within twice
+                      the step's error; the rank's expert GEMMs timed
+                      beside ``torch.bmm``.
     ``mesh_train``  — the train step on the mesh: qwen2-0.5b at full width on
                       the same (data 2, model 2) mesh of four gloo ranks,
                       under the train rules (FSDP ``embed -> data``, the
@@ -267,7 +284,8 @@ Phases, one JSON line each:
                       recurrentgemma's and mamba2's at the served shape and
                       under ``long_500k``, qwen2-0.5b's 24-layer train step
                       in both FSDP reductions and under sequence
-                      parallelism — equals every rank's
+                      parallelism, kimi-k2's bf16 prefill and decode
+                      step — equals every rank's
                       collectives exactly (calls and operand bytes by kind
                       and axis), and each predicted peak lies within 15 %
                       of the rank's measured one.
@@ -281,8 +299,9 @@ Phases, one JSON line each:
                       the card's busy share and the fused kernel's time
                       (last, since a profiler session slows later launches).
 15. the ``{"kernels": [...]}`` line (the flash kernel once per type, with
-    its launches per type; the launches include ``mesh_serve``'s, listed
-    per rank in ``mesh_launches_per_rank``; ``block_spmm`` and
+    its launches per type; the launches include ``mesh_serve``'s and
+    ``mesh_kimi``'s, listed per rank in ``mesh_launches_per_rank`` and
+    ``mesh_kimi_launches_per_rank``; ``block_spmm`` and
     ``fused_block_spmm`` beside ``torch.bmm`` on pre-gathered operands,
     ``block_spmm`` with the tuned winners, its MoE expert GEMMs beside
     ``torch.bmm`` and its grouped GEMM beside its bound), then
@@ -339,7 +358,7 @@ TRAIN_LEARN_SHARE = 0.95
 SERVE = (4, 8, 32)  # lm_serve: requests, prompt length, new tokens (the JAX CLI's defaults)
 
 # flash-attention cases: (B, H, HK, Sq, Sk, D, causal, window); FLASH_TIMED are timed
-FLASH_TIMED = ("qwen2_0_5b_layer", "d128_hk1", "d256_hk1")
+FLASH_TIMED = ("qwen2_0_5b_layer", "d128_hk1", "d256_hk1", "kimi_k2_rank")
 FLASH_FULL = {
     "qwen2_0_5b_layer": (2, 14, 2, 4096, 4096, 64, True, None),
     "noncausal_d80": (2, 16, 16, 1024, 1024, 80, False, None),
@@ -349,6 +368,7 @@ FLASH_FULL = {
     "window512_suffix": (1, 14, 2, 1024, 4096, 64, True, 512),
     "ragged_1000": (2, 14, 2, 1000, 1000, 64, True, None),
     "masked_rows": (1, 14, 2, 1000, 600, 64, True, None),
+    "kimi_k2_rank": (1, 32, 4, 4096, 4096, 112, True, None),  # a mesh_kimi rank's layer
 }
 FLASH_REHEARSAL = {
     "qwen2_0_5b_layer": (2, 14, 2, 256, 256, 64, True, None),
@@ -359,6 +379,7 @@ FLASH_REHEARSAL = {
     "window512_suffix": (1, 14, 2, 64, 256, 64, True, 32),
     "ragged_1000": (1, 14, 2, 100, 100, 64, True, None),
     "masked_rows": (1, 14, 2, 100, 60, 64, True, None),
+    "kimi_k2_rank": (1, 4, 2, 128, 128, 112, True, None),
 }
 
 FULL = dict(mul_n=100_000, mul_hw=3000, mul_bs=128, time_n=8192,
@@ -2476,15 +2497,24 @@ def flash_excess(got, q, k, v, **kw) -> tuple[float, float]:
     exactly).  The limit is elementwise: 1e-4 * max|v| for the order of the
     fp32 sums and exps (the output is a convex combination of v's rows), and
     for a bf16 output also its one rounding, half a bf16 ulp <= 2^-8 * |want|.
-    A ratio above 1 fails."""
+    A ratio above 1 fails.  One kv head's query heads at a time: the plain
+    version's scores stay at ``[B, H / HK, Sq, Sk]`` (on a card four mesh
+    ranks share, a kimi-k2 rank's whole layer would hold 2.1 GB of them)."""
     from repro_torch.kernels import flash_attention as fa
 
-    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-    limit = 1e-4 * float(v.float().abs().max())
-    if got.dtype != want.dtype:
-        limit = 2.0**-8 * want.abs() + limit
-    diff = (got.float() - want).abs()
-    return float(diff.max()), float((diff / limit).max())
+    HK = k.shape[1]
+    rep = q.shape[1] // HK
+    floor = 1e-4 * float(v.float().abs().max())
+    err = excess = 0.0
+    for h in range(HK):
+        heads = slice(h * rep, (h + 1) * rep)
+        want = fa.flash_attention_ref(q[:, heads].float(), k[:, h:h + 1].float(),
+                                      v[:, h:h + 1].float(), **kw)
+        limit = floor if got.dtype == want.dtype else 2.0**-8 * want.abs() + floor
+        diff = (got[:, heads].float() - want).abs()
+        err = max(err, float(diff.max()))
+        excess = max(excess, float((diff / limit).max()))
+    return err, excess
 
 
 def phase_flash_kernel(ctx, sizes) -> dict:
@@ -2984,6 +3014,12 @@ FAMILIES = (("qwen3-moe-235b-a22b", 2, 2), ("recurrentgemma-9b", 5, 5), ("mamba2
 # share of the k-th is within fp32 rounding: decode and the forward may pick
 # either expert there
 NEAR_TIE_REL = 1e-6
+# the most positions (decode steps) a bf16 run on the mesh may route to other
+# experts than one process and leave out of the comparison of its logits
+REROUTED_MAX_SHARE = 0.5
+# bf16 forward and decode logits against one process, as a share of max|x|
+# (the lm_forward phase's bf16 limit)
+BF16_REL = 5e-2
 # decode-step logits against the forward, as a share of max|logits|, for
 # every family: the scan families' recurrences against their parallel forms
 # held it too (2.2e-6 and 4.2e-6 of max|logits| on an H100 80GB HBM3)
@@ -3193,14 +3229,16 @@ MESH_PREDICT_WORKERS = 6
 def _mesh_prediction(task):
     """One dry-run prediction on the (data 2, model 2) fake mesh, in a worker
     (``chip_smoke`` is re-imported there)."""
-    name, arch, layers, reduced, shape, kw = task
+    import dataclasses
+
+    name, arch, layers, reduced, shape, kw, cfg_over = task
     from repro_torch.launch import dryrun
 
-    return name, dryrun.measure_on_mesh(family_config(arch, layers, reduced), shape,
-                                        dict(zip(MESH_AXES, MESH_SHAPE)), **kw)
+    cfg = dataclasses.replace(family_config(arch, layers, reduced), **cfg_over)
+    return name, dryrun.measure_on_mesh(cfg, shape, dict(zip(MESH_AXES, MESH_SHAPE)), **kw)
 
 
-def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
+def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict, kimi: dict) -> dict:
     """The dry run's prediction held to the card: its collectives a step on the
     (data 2, model 2) mesh (``dryrun.measure_on_mesh``: the step as rank 0 of
     a fake mesh, on fake tensors) at the shapes ``mesh_serve`` and
@@ -3208,7 +3246,8 @@ def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
     (calls and operand bytes by kind and axis): qwen3-moe's decode step,
     recurrentgemma's and mamba2's under ``decode_32k`` and ``long_500k``,
     qwen2-0.5b's train step in both FSDP reductions and under sequence
-    parallelism.  Each predicted peak
+    parallelism, kimi-k2's bf16 prefill (at the ranks' capacity factor) and
+    decode step (``mesh_kimi``).  Each predicted peak
     lies within 15 % of the rank's measured one (the step's peak above what
     was allocated before it, plus its inputs)."""
     import multiprocessing
@@ -3225,19 +3264,19 @@ def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
     moe_arch = FAMILIES[0][0]
     tasks.append(("qwen3_moe_decode", moe_arch, mesh["layers"], red,
                   ShapeSpec("decode_32k", ds["cache_len"], ds["batch"], "decode"),
-                  dict(f32, pos=ds["pos"])))
+                  dict(f32, pos=ds["pos"]), {}))
     measured["qwen3_moe_decode"] = (ds["collectives_per_rank"], ds["peak_bytes_per_rank"])
     for row in mesh["families"]["rows"]:
         tag = row["arch"].split("-")[0]
         ds = row["decode_step"]
         tasks.append((f"{tag}_decode_32k", row["arch"], row["layers"], red,
                       ShapeSpec("decode_32k", ds["cache_len"], ds["batch"], "decode"),
-                      dict(f32, pos=ds["pos"])))
+                      dict(f32, pos=ds["pos"]), {}))
         measured[f"{tag}_decode_32k"] = (ds["collectives_per_rank"], ds["peak_bytes_per_rank"])
         for run in row["long_500k"]["runs"]:
             name = f"{tag}_long_500k_from_{run['start']}"
             tasks.append((name, row["arch"], row["layers"], red, SHAPES["long_500k"],
-                          dict(f32, pos=run["step_pos"])))
+                          dict(f32, pos=run["step_pos"]), {}))
             measured[name] = (run["collectives_by_axis_per_rank"], run["step_peak_bytes_per_rank"])
     tm = mesh_train["timed"]
     for mode in ("reduce_scatter", "all_reduce", "sp"):  # sp: seq -> model, reduce_scatter
@@ -3246,9 +3285,19 @@ def phase_dryrun_mesh(ctx, sizes, mesh: dict, mesh_train: dict) -> dict:
                       ShapeSpec("train_4k", tm["seq"], tm["batch"], "train"),
                       dict(param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                            grad_reshard=mode != "all_reduce",
-                           rules_override={"seq": ("model",)} if mode == "sp" else None)))
+                           rules_override={"seq": ("model",)} if mode == "sp" else None), {}))
         measured[name] = (tm["collectives_by_axis_per_rank"][mode],
                           tm["step_peak_bytes_per_rank"][mode])
+    bf16 = dict(param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    pf, ds = kimi["prefill"], kimi["decode_step"]
+    tasks.append(("kimi_prefill", KIMI[0], kimi["layers"], red,
+                  ShapeSpec("prefill_32k", pf["seq"], pf["batch"], "prefill"), bf16,
+                  dict(moe_capacity_factor=kimi["no_drop_capacity_factor"]["rank"])))
+    measured["kimi_prefill"] = (pf["collectives_per_rank"], pf["peak_bytes_per_rank"])
+    tasks.append(("kimi_decode", KIMI[0], kimi["layers"], red,
+                  ShapeSpec("decode_32k", ds["cache_len"], ds["batch"], "decode"),
+                  dict(bf16, pos=ds["pos"]), {}))
+    measured["kimi_decode"] = (ds["collectives_per_rank"], ds["peak_bytes_per_rank"])
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(MESH_PREDICT_WORKERS, len(tasks)),
                              mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -3657,6 +3706,45 @@ def _step_ties(calls, n_moe: int, top_k: int):
     return torch.stack(ties, dim=1)
 
 
+def recording_routes():
+    """``(calls, restore)``: from here on ``moe.route`` appends the experts it
+    picks for the tokens of each call (``[T, k]``, left on the device) to
+    ``calls``, until ``restore()``."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def recording(x, router, top_k):
+        gates, eidx = route(x, router, top_k)
+        calls.append(eidx)
+        return gates, eidx
+
+    moe.route = recording
+
+    def restore():
+        moe.route = route
+
+    return calls, restore
+
+
+def rerouted(mine, theirs, rows: int, n_moe: int, last_moe: bool):
+    """``[rows, n]`` bool: where two runs' sets of experts differ in some MoE
+    layer, and, for a layer before the model's last, every later position
+    (step) of the row, which reads it through attention and the cache.
+    ``mine`` and ``theirs`` are routes (numpy ``[rows * m, k]``), ``n_moe`` a
+    forward of ``n = m`` positions or ``n_moe`` a decode step (``m = 1``)."""
+    import numpy as np
+
+    early, last = [], []
+    for i in range(0, len(mine), n_moe):
+        diff = [(np.sort(a, -1) != np.sort(b, -1)).any(-1).reshape(rows, -1)
+                for a, b in zip(mine[i:i + n_moe], theirs[i:i + n_moe], strict=True)]
+        final = diff.pop() if last_moe else np.zeros_like(diff[0])
+        early.append(np.any(diff, axis=0) if diff else np.zeros_like(final))
+        last.append(final)
+    return np.maximum.accumulate(np.concatenate(early, 1), axis=1) | np.concatenate(last, 1)
+
+
 # the long_500k cell on the mesh: the cache (524,288 positions) filled from this
 # seed, two runs of LONG_STEPS greedy steps from each start: the first wraps
 # recurrentgemma's 2,048-slot ring from data rank 1's slots to rank 0's (slot
@@ -3762,19 +3850,21 @@ def long_decode(cfg, params, cache, first: int, start: int, steps: int, dev, ctx
     return tokens, torch.stack(logits), statistics.median(ms[1:]), last
 
 
-def decode_step_alone(card: bool, dctx, cfg, params, prompts, gen: int, dev) -> dict:
+def decode_step_alone(card: bool, dctx, cfg, params, prompts, gen: int, dev, dtype=None) -> dict:
     """One ``make_serve_step(cfg, dctx)`` step alone, at the shape ``generate_on_mesh``
-    served (``len(prompts)`` rows, a fresh fp32 cache of ``P + gen``
-    positions), after a warm step: its collectives by kind and axis, ms and
-    peak (:func:`counted_step`), the dry run's prediction of the same step."""
+    served (``len(prompts)`` rows, a fresh cache of ``P + gen`` positions,
+    cache and compute in ``dtype``, fp32 by default), after a warm step: its
+    collectives by kind and axis, ms and peak (:func:`counted_step`), the dry
+    run's prediction of the same step."""
     import torch
 
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer
 
+    dtype = dtype or torch.float32
     R, L = prompts.shape[0], prompts.shape[1] + gen
-    cache = transformer.init_cache(cfg, R, L, torch.float32, device=dev, ctx=dctx)
-    serve = model_mod.make_serve_step(cfg, dctx, compute_dtype=torch.float32)
+    cache = transformer.init_cache(cfg, R, L, dtype, device=dev, ctx=dctx)
+    serve = model_mod.make_serve_step(cfg, dctx, compute_dtype=dtype)
     tok = torch.from_numpy(prompts[:, :1]).to(dev)
     with torch.inference_mode():
         serve(params, cache, tok, 0)
@@ -4584,6 +4674,539 @@ def mesh_families(ctx, sizes, lm_families: dict) -> list:
 
 # mesh_train: the timed steps a grad_reshard mode (the median of the last two is
 # reported), and step 0's loss against lm_train's one process (bf16 compute)
+# kimi-k2-1t-a32b on the mesh: (arch, layers) at full width and in the rehearsal
+KIMI = ("kimi-k2-1t-a32b", 1)
+
+
+def kimi_gemm_timing(ctx, cfg, rank_tokens: int, num_local: int, chunk: int) -> dict:
+    """The expert GEMMs of a ``mesh_kimi`` rank at capacity factor 1.25, timed
+    on the card alone (the ranks have ended): each launch's shape (``chunk``
+    experts, the w1 / wg product and the w2 product) through ``block_spmm``
+    beside ``torch.bmm`` on the same random bf16 operands, and the rank's
+    layer (3 products x its chunks) against two bounds: the kernel's
+    design, fp32 FFMA at 67 TFLOP/s (the bytes below), and the card's, the
+    bf16 tensor cores at 989 TFLOP/s or the bytes at 3.35 TB/s (operands
+    read once, fp32 outputs written once)."""
+    import math
+
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import ops
+
+    D, F, E, K = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.top_k
+    ce = math.ceil(rank_tokens * K * 1.25 / E)
+    kernel = bsp.block_spmm_ref if ctx.rehearse else bsp.block_spmm_cuda
+    gen = torch.Generator(device=ctx.dev).manual_seed(29)
+    idx = np.arange(chunk)
+    tasks = ops.task_arrays(idx, idx, idx, chunk, ctx.dev)
+    n_chunks = math.ceil(num_local / chunk)
+    rows, layer = [], dict(ms=0.0, bmm_ms=0.0, flops=0.0, bytes=0.0)
+    for name, (kd, n), per_chunk in (("w1", (D, F), 2), ("w2", (F, D), 1)):  # wg: w1's shape
+        a = torch.randn((chunk, ce, kd), generator=gen, device=ctx.dev).to(torch.bfloat16)
+        b = (torch.randn((chunk, kd, n), generator=gen, device=ctx.dev) * kd**-0.5).to(
+            torch.bfloat16)
+        ms = ctx.time_ms(lambda a=a, b=b: kernel(a, b, *tasks, chunk), reps=5)
+        bmm_ms = ctx.time_ms(lambda a=a, b=b: torch.bmm(a, b), reps=5)
+        flops = 2.0 * chunk * ce * kd * n
+        nbytes = 2.0 * (a.numel() + b.numel()) + 4.0 * chunk * ce * n
+        rows.append(dict(gemm=name, shape=f"[{chunk}, {ce}, {kd}] x [{chunk}, {kd}, {n}]",
+                         dtype="bfloat16", engine=bsp.tile_engine(ce, kd, n, (a, b)), ms=ms,
+                         bmm_ms=bmm_ms, bmm="torch.bmm on the same operands",
+                         ffma_bound_ms=flops / FP32_FLOPS * 1e3,
+                         card_bound_ms=max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+                         launches_per_rank_layer=per_chunk * n_chunks))
+        times = per_chunk * n_chunks
+        layer["ms"] += times * ms
+        layer["bmm_ms"] += times * bmm_ms
+        layer["flops"] += times * flops
+        layer["bytes"] += times * nbytes
+        del a, b
+    t_ops, t_tc, t_bytes = (layer["flops"] / FP32_FLOPS, layer["flops"] / BF16_FLOPS,
+                            layer["bytes"] / HBM_BYTES_PER_S)
+    return dict(capacity=ce, chunk=chunk, chunks=n_chunks, launches=rows,
+                rank_layer=dict(layer, ffma_bound_ms=max(t_ops, t_bytes) * 1e3,
+                                ffma_bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                card_bound_ms=max(t_tc, t_bytes) * 1e3,
+                                card_bound_by="operations" if t_tc >= t_bytes else "bytes",
+                                ffma_bound_share=max(t_ops, t_bytes) * 1e3 / layer["ms"],
+                                card_bound_share=max(t_tc, t_bytes) * 1e3 / layer["ms"]))
+
+
+def mesh_kimi_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf: float):
+    """One rank of the ``mesh_kimi`` phase (spawned by ``run_on_mesh``): the
+    parameters drawn in bf16 straight into this rank's blocks, one rank at a
+    time, under the prefill rules; the EP layer through ``block_spmm``; the
+    prefill forward through the flash kernel; the parameters dropped and
+    drawn again under the decode rules; greedy serving in bf16."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import block_spmm as bsp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate_on_mesh
+    from repro_torch.launch.specs import make_ctx
+    from repro_torch.models import moe, transformer
+    from repro_torch.runtime.elastic import keep_blocks
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves
+
+    bf16 = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = mctx.mesh.device_type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    d, m = (rules.axis_index(mctx, a) for a in MESH_AXES)
+    load = lambda name: torch.from_numpy(np.load(os.path.join(tmp, name))).to(dev).view(bf16)  # noqa: E731
+    peak = lambda: torch.cuda.max_memory_allocated() if card else None  # noqa: E731
+    pctx = make_ctx(mctx, cfg, SHAPES["prefill_32k"])
+    dctx = make_ctx(mctx, cfg, SHAPES["decode_32k"])
+    axes = transformer.param_axes(cfg)
+    out = dict(rank=rank, coord=[d, m], backend=mctx.mesh.backend,
+               ranks_per_card=mctx.mesh.ranks_per_card)
+
+    def draw(c):
+        # one rank at a time: each leaf drawn whole in fp32 (seed 0, as the one
+        # process did), cut to this rank's block under c's rules, cast to bf16
+        params = None
+        for r in range(world):
+            if r == rank:
+                params = transformer.init_params(cfg, seed=0, device=dev, dtype=bf16,
+                                                 keep=keep_blocks(c, axes))
+                if card:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        return params
+
+    warm_placement(mctx, dev)
+    t0 = time.perf_counter()
+    params = draw(pctx)
+    out["build_s"] = time.perf_counter() - t0
+    out["shard_bytes"] = sum(t.to_local().numel() * t.to_local().element_size()
+                             for t in tree_leaves(params))
+    out["build_peak_bytes"] = peak()
+
+    # the expert-parallel layer through block_spmm, every launch held against the
+    # kernel's plain version on the same operands, 8 experts (tasks) at a time
+    B, S = masks["tokens"].shape
+    gen_x = torch.Generator(device=dev).manual_seed(MESH_EP_SEED)
+    x = torch.randn((B, S, cfg.d_model), generator=gen_x, device=dev).to(bf16)
+    xd = rules.distribute(pctx, x, "batch", None, None)
+    del x
+    lp = params["layers"][0]["moe"]
+    checks = []
+    block_spmm = ops.block_spmm
+
+    def holding(a, b, *args, **kw):
+        got = block_spmm(a, b, *args, **kw)
+        err = excess = 0.0
+        for lo in range(0, a.shape[0], 8):
+            n = min(8, a.shape[0] - lo)
+            tasks = ops.task_arrays(np.arange(n), np.arange(n), np.arange(n), n, dev)
+            a_c, b_c = a[lo:lo + n], b[lo:lo + n]
+            diff = (got[lo:lo + n] - bsp.block_spmm_ref(a_c, b_c, *tasks, n)).abs()
+            err = max(err, float(diff.max()))
+            excess = max(excess, float((diff.flatten(1).amax(1).double()
+                                        / block_tolerance(a_c, b_c, *tasks)).max()))
+            del diff
+        checks.append(dict(shape=[list(a.shape), list(b.shape)], dtype=str(a.dtype),
+                           max_abs_err=err, err_over_limit=excess))
+        return got
+
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, act=cfg.mlp_act,
+              gemm_impl="block_spmm")
+    ops.block_spmm = holding
+    try:
+        with torch.inference_mode():
+            bsp.launches = 0  # the main path's count starts here
+            layer, counted = counted_step(card, lambda: moe.moe_apply(
+                lp, xd, ctx=pctx, capacity_factor=rank_cf, **kw), ())
+            out["ep_launches"] = bsp.launches  # ... and is read here
+    finally:
+        ops.block_spmm = block_spmm
+    # every position: both sides route the same bf16 x through the same router
+    diff = (layer.to_local().float() - load(f"layer_{d}.npy").float()).abs()
+    # one call (each gathers the rank's experts over gloo): its seconds hold the
+    # plain versions' checks too
+    out["ep"] = dict(launch_checks=checks, max_abs_err=float(diff.max()), dtype=str(layer.dtype),
+                     seconds=counted["ms"] / 1e3, collectives=counted["collectives"])
+    del layer, diff, xd, lp
+    if card:
+        torch.cuda.empty_cache()
+
+    # the prefill forward in bf16 through the flash kernel (head_dim 112), each
+    # launch held against its plain version, counted as the dry run counts it
+    tokens = torch.from_numpy(masks["tokens"]).to(dev)
+    cfg_nd = dataclasses.replace(cfg, moe_capacity_factor=rank_cf)
+    flash = ops.flash_attention
+    fchecks = []
+
+    def holding_flash(q, k, v, **kw):
+        got = flash(q, k, v, **kw)
+        err, excess = flash_excess(got, q, k, v, **kw)
+        fchecks.append(dict(shape=list(q.shape), dtype=str(q.dtype), max_abs_err=err,
+                            err_over_limit=excess))
+        return got
+
+    ops.flash_attention = holding_flash
+    routes, restore = recording_routes()
+    try:
+        with torch.inference_mode():
+            fa.launches = 0  # the main path's count starts here
+            fa.launches_by_dtype.update(float32=0, bfloat16=0)
+            logits, counted = counted_step(card, lambda: transformer.apply(
+                params, cfg_nd, {"tokens": tokens}, attn_impl="flash", ctx=pctx),
+                (params, tokens))
+            launches = dict(fa.launches_by_dtype)  # ... and is read here
+    finally:
+        ops.flash_attention = flash
+        restore()
+    local = logits.to_local()
+    # left out: the positions this rank routed to another set of experts than
+    # the one process did (and, after a layer before the last, the row's later ones)
+    B_l = local.shape[0]
+    moved = torch.from_numpy(rerouted(
+        [r.cpu().numpy() for r in routes],
+        [r[d * B_l * S:(d + 1) * B_l * S] for r in masks["routes"]],
+        B_l, len(routes), masks["last_moe"])).to(dev)
+    del routes
+    err = (local.float() - load(f"logits_{d}_{m}.npy").float()).abs().amax(-1)
+    out["prefill"] = dict(local_shape=list(local.shape), spec=list(rules.spec_of(pctx, logits)),
+                          dtype=str(local.dtype), finite=bool(torch.isfinite(local).all()),
+                          max_abs_err=float(err[~moved].max()) if not moved.all() else None,
+                          positions=moved.numel(), rerouted_positions=int(moved.sum()),
+                          flash_checks=fchecks,
+                          rerouted_max_abs_err=float(err[moved].max()) if moved.any() else None,
+                          flash_launches=launches, seconds=counted["ms"] / 1e3,
+                          peak_bytes=counted["peak_bytes"],
+                          collectives_by_axis=counted["collectives"])
+    del logits, local, err, moved, params
+    if card:
+        torch.cuda.empty_cache()
+    out["prefill_peak_bytes"] = peak()
+
+    # the decode layout: the prefill blocks dropped, the decode rules' blocks drawn
+    t0 = time.perf_counter()
+    dparams = draw(dctx)
+    out["decode_build_s"] = time.perf_counter() - t0
+    out["decode_shard_bytes"] = sum(t.to_local().numel() * t.to_local().element_size()
+                                    for t in tree_leaves(dparams))
+    out["w1_decode_spec"] = list(rules.spec_of(dctx, dparams["layers"][0]["moe"]["w1"]))
+
+    # greedy serving in bf16 through make_serve_step(cfg, dctx)
+    generate_on_mesh(dctx, cfg, dparams, prompts[:, :2], 2, dtype=bf16, device=dev)  # warm-up
+    rules.reset_collective_counts()
+    routes, restore = recording_routes()
+    try:
+        sync()
+        t0 = time.perf_counter()
+        seqs, steps = generate_on_mesh(dctx, cfg, dparams, prompts, gen, dtype=bf16, device=dev,
+                                       return_logits=True)
+        sync()
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    n_steps = prompts.shape[1] + gen - 1
+    counts = rules.collective_counts()
+    ref = load(f"steps_{d}_{m}.npy").float()
+    out["serve"] = dict(seqs=seqs.tolist(), seconds=secs, ms_per_decode_step=secs * 1e3 / n_steps,
+                        collectives_per_step={k: {kk: vv / n_steps for kk, vv in v.items()}
+                                              for k, v in counts.items()},
+                        step_err=(steps - ref).abs().amax(-1).cpu().numpy().tolist(),
+                        routes=[r.cpu().numpy() for r in routes])
+    del steps, ref, routes
+    out["decode_step"] = decode_step_alone(card, dctx, cfg, dparams, prompts, gen, dev,
+                                           dtype=bf16)
+    out["peak_bytes"] = peak()
+    return out
+
+
+def phase_mesh_kimi(ctx, sizes) -> dict:
+    """kimi-k2-1t-a32b (1 of 61 layers) at full width, served in bf16 (the
+    reference's serve dtype) on a (data 2, model 2) mesh of four ranks sharing
+    the card over gloo, against one process: the one process first (its
+    parameters drawn in bf16 leaf by leaf, 38.8 GB), its results saved per
+    rank block under a ``tempfile`` directory and its model freed; then each
+    rank draws its own blocks (:func:`mesh_kimi_rank`).  The EP layer at B 2
+    x S 4096 (the rank's 192 experts gathered over ``data`` in chunks,
+    ``moe.ep_chunk``), the prefill, 4 requests of 8 + 32 greedy tokens under
+    the decode rules; then the rank's expert GEMMs timed on the card alone
+    (:func:`kimi_gemm_timing`)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    torch = ctx.torch
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe, transformer
+    from repro_torch.tree import tree_leaves
+
+    bf16 = torch.bfloat16
+    card = ctx.dev.type == "cuda"
+    arch, layers = KIMI
+    cfg = family_config(arch, layers, sizes["lm_reduced"])
+    B, S = LM_BATCH, sizes["lm_seq"]
+    R, P, G = SERVE
+    dp, mp = MESH_SHAPE
+    V_l = cfg.vocab_size // mp
+    E_l = cfg.num_experts // mp
+    cfg_nd = dataclasses.replace(cfg, moe_capacity_factor=MESH_NODROP_CF)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    prompts = rng.integers(0, cfg.vocab_size, (R, P))
+    one, calls = {}, []
+    moe_apply = moe.moe_apply
+    peak = lambda: torch.cuda.max_memory_allocated() if card else None  # noqa: E731
+
+    def recording(p, x, **kw):
+        calls.append((x, p["router"]))
+        return moe_apply(p, x, **kw)
+
+    def timed(fn):
+        ctx.sync()
+        t0 = time.perf_counter()
+        res = fn()
+        ctx.sync()
+        return res, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kimi_") as tmp:
+        def save(name, t):  # a bf16 block as its bits (numpy has no bf16)
+            np.save(os.path.join(tmp, name), t.to(bf16).contiguous().view(torch.int16).cpu().numpy())
+
+        # one process: the layer, the forward and greedy serving, each rank's block saved
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        params, one["draw_s"] = timed(lambda: transformer.init_params(cfg, seed=0, device=ctx.dev,
+                                                                      dtype=bf16))
+        one["draw_peak_bytes"] = peak()
+        one["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        gen_x = torch.Generator(device=ctx.dev).manual_seed(MESH_EP_SEED)
+        x = torch.randn((B, S, cfg.d_model), generator=gen_x, device=ctx.dev).to(bf16)
+        lp = params["layers"][0]["moe"]
+        kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, act=cfg.mlp_act)
+        with torch.inference_mode():
+            layer = moe.moe_apply(lp, x, capacity_factor=MESH_NODROP_CF, **kw)
+            loads = [_expert_loads(x, lp["router"], cfg.top_k, B // dp)]
+            _, one["ep_s"] = timed(lambda: moe.moe_apply(lp, x, capacity_factor=MESH_NODROP_CF,
+                                                         **kw))
+        one["max_abs_layer"] = float(layer.float().abs().max())
+        for i in range(dp):
+            save(f"layer_{i}.npy", layer[i * B // dp:(i + 1) * B // dp])
+        del layer, x
+        moe.moe_apply = recording
+        routes, restore = recording_routes()
+        try:
+            with torch.inference_mode():
+                logits, one["prefill_s"] = timed(lambda: transformer.apply(
+                    params, cfg_nd, {"tokens": torch.from_numpy(tokens).to(ctx.dev)},
+                    attn_impl="flash"))
+                prefill_routes = [r.cpu().numpy() for r in routes]
+                loads += [_expert_loads(xc, r, cfg.top_k, B // dp) for xc, r in calls]
+            calls.clear()
+            one["max_abs_logit"] = float(logits.float().abs().max())
+            one["logits_dtype"] = str(logits.dtype)
+            for i in range(dp):
+                for j in range(mp):
+                    save(f"logits_{i}_{j}.npy", logits[i * B // dp:(i + 1) * B // dp, :,
+                                                       j * V_l:(j + 1) * V_l])
+            del logits
+            generate(cfg, params, prompts[:, :2], 2, dtype=bf16, device=ctx.dev)  # warm-up
+            routes.clear()
+            (seqs, steps), secs = timed(lambda: generate(cfg, params, prompts, G, dtype=bf16,
+                                                         device=ctx.dev, return_logits=True))
+            one["ms_per_decode_step"] = secs * 1e3 / (P + G - 1)
+            decode_routes = [r.cpu().numpy() for r in routes]
+        finally:
+            moe.moe_apply = moe_apply
+            restore()
+        one["peak_bytes"] = peak()
+        smax = one["max_abs_step_logit"] = float(steps.abs().max())
+        top2 = steps.float().topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()  # [R, steps]
+        for i in range(dp):
+            for j in range(mp):
+                save(f"steps_{i}_{j}.npy", steps[i * R // dp:(i + 1) * R // dp, :,
+                                                 j * V_l:(j + 1) * V_l])
+        seqs = np.asarray(seqs)
+        del params, steps, top2, lp, routes
+        calls.clear()
+        if card:
+            torch.cuda.empty_cache()
+        max_load = dict(one_process=max(w for w, _ in loads), rank=max(b for _, b in loads))
+        rank_tokens = B // dp * S * cfg.top_k
+        rank_cf = math.ceil(4 * max_load["rank"] * cfg.num_experts / rank_tokens + 1) / 4
+        caps = dict(one_process=math.ceil(B * S * cfg.top_k * MESH_NODROP_CF / cfg.num_experts),
+                    rank=math.ceil(rank_tokens * rank_cf / cfg.num_experts))
+        check(max_load["one_process"] <= caps["one_process"] and max_load["rank"] <= caps["rank"],
+              f"mesh_kimi: an expert's load {max_load} exceeds the no-drop capacity {caps}")
+        n_moe = sum(k in ("attn", "local") for k in transformer.layer_kinds(cfg))
+        last_moe = transformer.layer_kinds(cfg)[-1] in ("attn", "local")
+        masks = dict(tokens=tokens, routes=prefill_routes, last_moe=last_moe)
+        parent_bytes = torch.cuda.memory_allocated() if card else None
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = run_on_mesh(mesh_kimi_rank, MESH_SHAPE, MESH_AXES, device=ctx.dev.type,
+                                args=(cfg, tmp, prompts, G, masks, rank_cf), timeout_s=900)
+        finally:
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        mesh_s = time.perf_counter() - t0
+
+    # the checks: every rank's launches, its kernels against their plain versions,
+    # its blocks against one process's
+    chunk = moe.ep_chunk(torch.empty((cfg.num_experts, cfg.d_model, cfg.d_ff), dtype=bf16,
+                                     device="meta"), E_l)
+    ep_gemms = 3 * math.ceil(E_l / chunk)  # w1, wg, w2 for each chunk
+    attn_layers = transformer.layer_kinds(cfg).count("attn")
+    lmax, layer_max = one["max_abs_logit"], one["max_abs_layer"]
+    for r in ranks:
+        tag = f"mesh_kimi rank {r['rank']} {tuple(r['coord'])}"
+        check(r["ep_launches"] == (0 if ctx.rehearse else ep_gemms),
+              f"{tag}: the EP layer launched block_spmm {r['ep_launches']} times, "
+              f"expected {ep_gemms}")
+        ep_checks = r["ep"]["launch_checks"]
+        check(len(ep_checks) == ep_gemms and all(c["err_over_limit"] <= 1.0
+                                                 and c["dtype"] == "torch.bfloat16"
+                                                 for c in ep_checks),
+              f"{tag}: a bf16 block_spmm launch is off its plain version: {ep_checks}")
+        check(r["ep"]["dtype"] == "torch.bfloat16"
+              and r["ep"]["max_abs_err"] <= BF16_REL * layer_max,
+              f"{tag}: the EP layer is off one process's by {r['ep']['max_abs_err']} "
+              f"> {BF16_REL} * {layer_max}")
+        pf = r["prefill"]
+        want_flash = dict(float32=0, bfloat16=0 if ctx.rehearse else attn_layers)
+        check(pf["flash_launches"] == want_flash,
+              f"{tag}: the prefill launched the flash kernel {pf['flash_launches']}, "
+              f"expected {want_flash}")
+        check(len(pf["flash_checks"]) == attn_layers
+              and all(c["err_over_limit"] <= 1.0 for c in pf["flash_checks"]),
+              f"{tag}: a prefill flash launch is off its plain version: {pf['flash_checks']}")
+        check(pf["finite"] and pf["dtype"] == "torch.bfloat16"
+              and pf["rerouted_positions"] <= REROUTED_MAX_SHARE * pf["positions"]
+              and pf["max_abs_err"] <= BF16_REL * lmax,
+              f"{tag}: prefill logits off one process's by {pf['max_abs_err']} "
+              f"> {BF16_REL} * {lmax}, or {pf['rerouted_positions']} of {pf['positions']} "
+              "positions routed elsewhere")
+        check(pf["spec"] == ["data", None, "model"], f"{tag}: prefill logits laid out {pf['spec']}")
+        check(r["w1_decode_spec"] == ["model", None, "data"],
+              f"{tag}: w1 under the decode rules laid out {r['w1_decode_spec']}")
+        check(r["serve"]["seqs"] == ranks[0]["serve"]["seqs"], f"{tag}: its tokens differ from rank 0's")
+    mesh_seqs = np.asarray(ranks[0]["serve"]["seqs"])
+    check(mesh_seqs.shape == (R, P + G) and np.array_equal(mesh_seqs[:, :P], prompts),
+          f"mesh_kimi: generate_on_mesh returned {mesh_seqs.shape}, or not the prompts")
+    # the steps some rank routed to other experts than one process did (after a
+    # layer before the last, the row's later steps too), and each step's error
+    # over the whole vocab (the model ranks' blocks)
+    n_steps = P + G - 1
+    moved = np.zeros((R, n_steps), bool)
+    errs = np.zeros((R, n_steps))
+    for r in ranks:
+        moved |= rerouted(r["serve"]["routes"], decode_routes, R, n_moe, last_moe)
+        rows = slice(r["coord"][0] * (R // dp), (r["coord"][0] + 1) * (R // dp))
+        errs[rows] = np.maximum(errs[rows], np.asarray(r["serve"]["step_err"]))
+    # a request may part from one process's tokens only after a step routed
+    # elsewhere, or where one process's top two logits lie within twice that
+    # step's error: only there can the mesh's greedy pick differ
+    smax = one["max_abs_step_logit"]
+    first_diff, parted = [], []
+    for q in range(R):
+        diff = np.nonzero(mesh_seqs[q] != seqs[q])[0]
+        t = int(diff[0]) if diff.size else P + G
+        first_diff.append(t)
+        if diff.size:
+            why = ("rerouted" if moved[q, t - 1] else "logit_margin"
+                   if margin[q, t - 1] <= 2 * errs[q, t - 1] + 1e-6 * smax else None)
+            parted.append(dict(request=q, at=t, why=why, margin=float(margin[q, t - 1]),
+                               step_err=float(errs[q, t - 1])))
+    check(all(p["why"] for p in parted),
+          f"mesh_kimi: a request parts from one process's tokens unexplained: {parted}")
+    # the step logits up to each request's parting (its step t - 1 read the same
+    # tokens), less the steps routed elsewhere
+    upto = np.arange(n_steps)[None, :] < np.asarray(first_diff)[:, None]
+    compared = int((upto & ~moved).sum())
+    step_err = float(errs[upto & ~moved].max()) if compared else None
+    check(compared >= (1 - REROUTED_MAX_SHARE) * upto.sum() and step_err <= BF16_REL * smax,
+          f"mesh_kimi: decode-step logits off one process's by {step_err} > {BF16_REL} * "
+          f"{smax}, or {compared} of {int(upto.sum())} steps compared")
+    timing = kimi_gemm_timing(ctx, cfg, B // dp * S, E_l, chunk)
+    gb = lambda b: None if b is None else round(b / 1e9, 3)  # noqa: E731
+    out = dict(phase="mesh_kimi", arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+               mesh=dict(zip(MESH_AXES, MESH_SHAPE)), card=ctx.card,
+               backend=ranks[0]["backend"], ranks_per_card=ranks[0]["ranks_per_card"],
+               spawn_and_run_s=mesh_s, one_process=one,
+               parent_allocated_gb_at_spawn=None if parent_bytes is None else parent_bytes / 1e9,
+               no_drop_capacity_factor=dict(one_process=MESH_NODROP_CF, rank=rank_cf),
+               capacity=caps, max_expert_load=max_load, rel=BF16_REL,
+               ep_layer=dict(batch=B, seq=S, gemm_impl="block_spmm", chunk=chunk,
+                             launches_per_rank=[r["ep_launches"] for r in ranks],
+                             max_abs_one_process=layer_max,
+                             max_abs_err=max(r["ep"]["max_abs_err"] for r in ranks),
+                             tol=BF16_REL * layer_max,
+                             kernel_checks=[c for r in ranks for c in r["ep"]["launch_checks"]],
+                             seconds_per_rank=[r["ep"]["seconds"] for r in ranks],
+                             one_process_seconds=one["ep_s"],
+                             collectives=ranks[0]["ep"]["collectives"]),
+               prefill=dict(batch=B, seq=S, attn_impl="flash",
+                            flash_launches_per_rank=[r["prefill"]["flash_launches"] for r in ranks],
+                            flash_checks=[c for r in ranks for c in r["prefill"]["flash_checks"]],
+                            logits_spec=ranks[0]["prefill"]["spec"],
+                            local_logits_shape=ranks[0]["prefill"]["local_shape"],
+                            max_abs_logit=lmax,
+                            max_abs_err=max(r["prefill"]["max_abs_err"] for r in ranks),
+                            tol=BF16_REL * lmax,
+                            positions_per_rank=ranks[0]["prefill"]["positions"],
+                            rerouted_positions_per_rank=[r["prefill"]["rerouted_positions"]
+                                                         for r in ranks],
+                            rerouted_max_abs_err=max((r["prefill"]["rerouted_max_abs_err"] or 0.0)
+                                                     for r in ranks),
+                            seconds_per_rank=[r["prefill"]["seconds"] for r in ranks],
+                            one_process_seconds=one["prefill_s"],
+                            peak_bytes_per_rank=[r["prefill"]["peak_bytes"] for r in ranks],
+                            collectives_per_rank=[r["prefill"]["collectives_by_axis"]
+                                                  for r in ranks]),
+               decode_step=dict(ranks[0]["decode_step"], ms_per_rank=[
+                   r["decode_step"]["ms"] for r in ranks], peak_bytes_per_rank=[
+                   r["decode_step"]["peak_bytes"] for r in ranks],
+                   collectives_per_rank=[r["decode_step"]["collectives"] for r in ranks]),
+               serve=dict(requests=R, prompt_len=P, new_tokens=G, dtype="bfloat16",
+                          decode_steps=n_steps,
+                          ms_per_decode_step_per_rank=[r["serve"]["ms_per_decode_step"]
+                                                       for r in ranks],
+                          one_process_ms_per_decode_step=one["ms_per_decode_step"],
+                          collectives_per_step=ranks[0]["serve"]["collectives_per_step"],
+                          tokens_equal_one_process=bool(np.array_equal(mesh_seqs, seqs)),
+                          parted=parted, rerouted_steps=int((upto & moved).sum()),
+                          max_abs_step_logit=smax, max_abs_step_err=step_err,
+                          tol=BF16_REL * smax, steps_compared=compared,
+                          rerouted_max_abs_step_err=(float(errs[upto & moved].max())
+                                                     if (upto & moved).any() else None),
+                          first_sequence=mesh_seqs[0].tolist()),
+               build_s_per_rank=dict(prefill=[r["build_s"] for r in ranks],
+                                     decode=[r["decode_build_s"] for r in ranks]),
+               shard_gb_per_rank=dict(prefill=[gb(r["shard_bytes"]) for r in ranks],
+                                      decode=[gb(r["decode_shard_bytes"]) for r in ranks]),
+               peak_gb_per_rank=dict(build=[gb(r["build_peak_bytes"]) for r in ranks],
+                                     prefill=[gb(r["prefill_peak_bytes"]) for r in ranks],
+                                     end=[gb(r["peak_bytes"]) for r in ranks]),
+               expert_gemms=timing)
+    emit(out)
+    return out
+
+
 MESH_TRAIN_STEPS = 3
 MESH_TRAIN_LOSS_REL = 1e-2
 # the parity step's rate (warmup 0: the peak at once) and, for the new state
@@ -5048,16 +5671,19 @@ def run_phases(torch, args, card) -> int:
     moe_layer = phase(phase_moe_layer, ctx, sizes)
     families = phase(phase_lm_families, ctx, sizes)
     mesh = phase(phase_mesh_serve, ctx, sizes, families)
+    kimi = phase(phase_mesh_kimi, ctx, sizes)
     mtrain = phase(phase_mesh_train, ctx, sizes, train)
-    phase(phase_dryrun_mesh, ctx, sizes, mesh, mtrain)
+    phase(phase_dryrun_mesh, ctx, sizes, mesh, mtrain, kimi)
     phase(phase_examples, ctx)
     phase(phase_dist_pipeline_profile, ctx, sizes)
 
     timing, ftiming = kern["timing"], fused["timing"]
-    # the mesh's prefills (without and with sequence parallelism) run fp32 flash on every rank
-    mesh_per_rank = [a + b for a, b in zip(mesh["prefill"]["flash_launches_per_rank"],
-                                           mesh["prefill_sp"]["flash_launches_per_rank"])]
-    mesh_flash = dict(float32=sum(mesh_per_rank), bfloat16=0)
+    # the mesh's qwen3-moe prefills (without and with sequence parallelism) run fp32
+    # flash on every rank, kimi-k2's prefill bf16 flash
+    mesh_per_rank = dict(float32=[a + b for a, b in zip(
+        mesh["prefill"]["flash_launches_per_rank"], mesh["prefill_sp"]["flash_launches_per_rank"])],
+        bfloat16=[r["bfloat16"] for r in kimi["prefill"]["flash_launches_per_rank"]])
+    mesh_flash = {k: sum(v) for k, v in mesh_per_rank.items()}
     flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
 
     def flash_row(dtype):
@@ -5068,7 +5694,7 @@ def run_phases(torch, args, card) -> int:
                     replaces="src/repro/kernels/flash_attention.py:31",
                     launches=(fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype]
                               + families["launches_by_dtype"].get(dtype, 0) + mesh_flash[dtype]),
-                    mesh_launches_per_rank=mesh_per_rank if dtype == "float32" else None,
+                    mesh_launches_per_rank=mesh_per_rank[dtype],
                     max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
@@ -5078,8 +5704,11 @@ def run_phases(torch, args, card) -> int:
         dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
              replaces="src/repro/kernels/block_spmm.py:38",
              launches=(mul["launches"] + sp2["kernel_launches"] + douter["launches"]
-                       + moe_layer["launches"] + sum(mesh["ep_layer"]["launches_per_rank"])),
+                       + moe_layer["launches"] + sum(mesh["ep_layer"]["launches_per_rank"])
+                       + sum(kimi["ep_layer"]["launches_per_rank"])),
              mesh_launches_per_rank=mesh["ep_layer"]["launches_per_rank"],
+             mesh_kimi_launches_per_rank=kimi["ep_layer"]["launches_per_rank"],
+             kimi_expert_gemms=kimi["expert_gemms"],
              max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
              bound_by=timing["bound_by"], library_ms=timing["bmm_yardstick_ms"],

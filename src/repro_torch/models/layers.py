@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "LeafStream",
     "apply_norm",
     "causal_conv",
     "dense",
@@ -33,8 +34,22 @@ __all__ = [
 ]
 
 
-def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * scale
+class LeafStream:
+    """A generator's stand-in for the ``*_init`` functions, through which
+    ``transformer.init_params`` streams its leaves: their ``device``, and
+    ``normal(shape, scale)`` in place of each draw."""
+
+    def __init__(self, device, normal):
+        self.device, self.normal = device, normal
+
+
+def _normal(gen, shape, scale: float) -> torch.Tensor:
+    """``N(0, scale^2)`` fp32 from the generator ``gen`` (a :class:`LeafStream`'s
+    ``normal``)."""
+    if isinstance(gen, LeafStream):
+        return gen.normal(shape, scale)
+    # scaled in place: one leaf's storage at a time (a full-width expert weight is 22.5 GB)
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32).mul_(scale)
 
 
 def linspace_f32(start: float, stop: float, num: int, device) -> torch.Tensor:

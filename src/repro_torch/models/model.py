@@ -74,12 +74,7 @@ def cast_params(params, dtype: torch.dtype):
     """Every floating-point tensor of a parameter tree cast to ``dtype`` (others as
     they are); a ``DTensor``'s local block is cast in place of the ``DTensor``
     (no collective), and the layout kept."""
-    def cast(t):
-        if not t.is_floating_point() or t.dtype == dtype:
-            return t
-        return rules.like(t, rules.block(t).to(dtype))
-
-    return tree_map(cast, params)
+    return tree_map(lambda t: transformer.cast_leaf(t, dtype), params)
 
 
 def _cast_inputs(batch, dtype):

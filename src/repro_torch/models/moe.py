@@ -14,9 +14,13 @@ each rank's local blocks, with the port's named-axis collectives:
   and replicated along ``model``; each model rank serves experts
   ``[e_base, e_base + E_l)`` of its local tokens (capacity from the local
   token count) and the partial outputs are summed over ``model``.  The
-  expert weights are first gathered whole on their d_model dim, as the
+  expert weights are gathered whole on their d_model dim, as the
   reference's ``in_specs`` ``P(tp, None, None)`` asks (prefill and training
-  keep them FSDP-sharded there, ``embed_e -> data``).  The body runs under
+  keep them FSDP-sharded there, ``embed_e -> data``): each weight just
+  before its product and dropped after it, and where one gathered weight
+  would pass :data:`EP_GATHER_BYTES`, for a chunk of the rank's experts at
+  a time (:func:`ep_chunk`; kimi-k2 at full width).  Each expert's
+  products are the same either way, so the bits are too.  The body runs under
   autograd on the einsum route: the gathers' backward reduce-scatters the
   expert weights' gradients over the data axes, and the tokens' and the
   router's cotangents are summed over ``model`` (``shard_map``'s transpose of
@@ -47,7 +51,12 @@ from ..kernels import ops as kops
 from ..sharding import rules
 from .layers import _normal
 
-__all__ = ["moe_apply", "moe_init"]
+__all__ = ["EP_GATHER_BYTES", "ep_chunk", "moe_apply", "moe_init"]
+
+#: the most bytes of one expert weight the expert-parallel body holds gathered
+#: at once: above it the rank's experts run in chunks (kimi-k2's 192 experts a
+#: rank on (data 2, model 2) in bf16: 5.6 GB a weight, 3 chunks of 64)
+EP_GATHER_BYTES = 2**31
 
 
 def moe_init(gen, d: int, d_ff: int, num_experts: int, act: str):
@@ -72,16 +81,37 @@ def _grouped_mm(x: torch.Tensor, w: torch.Tensor, *, gemm_impl: str) -> torch.Te
     return torch.bmm(x, w.to(x.dtype))
 
 
-def _expert_ffn(xe, w1, wg, w2, act: str, gemm_impl: str) -> torch.Tensor:
-    """xe ``[E, Ce, D]`` through every expert's FFN; GELU is the tanh form (``jax.nn.gelu``)."""
-    h = _grouped_mm(xe, w1, gemm_impl=gemm_impl)
-    if act == "silu":
-        h = F.silu(h) * _grouped_mm(xe, wg, gemm_impl=gemm_impl)
-    elif act == "geglu":
-        h = F.gelu(h, approximate="tanh") * _grouped_mm(xe, wg, gemm_impl=gemm_impl)
-    else:
-        h = F.gelu(h, approximate="tanh")
-    return _grouped_mm(h.to(xe.dtype), w2, gemm_impl=gemm_impl)
+def _expert_ffn(xe, w1, wg, w2, act: str, gemm_impl: str, chunk: int | None = None) -> torch.Tensor:
+    """xe ``[E, Ce, D]`` through every expert's FFN; GELU is the tanh form (``jax.nn.gelu``).
+
+    Each weight is ``fn(lo, hi)``, its experts ``[lo, hi)`` (:func:`_sliced`,
+    or the expert-parallel body's gather across ranks), called just before
+    its product and dropped after it.  ``chunk`` experts at a time (all by
+    default): each expert's products are those of the whole call."""
+    E = xe.shape[0]
+    chunk = chunk or E
+    outs = []
+    for lo in range(0, E, chunk):
+        hi = min(lo + chunk, E)
+        x = xe[lo:hi]
+
+        def mm(a, w):
+            return _grouped_mm(a, w(lo, hi), gemm_impl=gemm_impl)
+
+        h = mm(x, w1)
+        if act == "silu":
+            h = F.silu(h) * mm(x, wg)
+        elif act == "geglu":
+            h = F.gelu(h, approximate="tanh") * mm(x, wg)
+        else:
+            h = F.gelu(h, approximate="tanh")
+        outs.append(mm(h.to(xe.dtype), w2))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _sliced(*ws):
+    """Each weight ``[E, ...]`` as ``fn(lo, hi)``: its experts ``[lo, hi)``."""
+    return tuple((lambda lo, hi, w=w: w[lo:hi]) for w in ws)
 
 
 def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
@@ -99,15 +129,18 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx
 
 
-def _moe_local(x, router, w1, wg, w2, *, e_base: int, num_experts: int, top_k: int,
-               capacity: int, act: str, gemm_impl: str):
-    """The MoE over local tokens and local experts ``[e_base, e_base + E_l)``.
+def _moe_local(x, router, w1, wg, w2, *, num_local: int, e_base: int, num_experts: int,
+               top_k: int, capacity: int, act: str, gemm_impl: str, chunk: int | None = None):
+    """The MoE over local tokens and local experts ``[e_base, e_base + E_l)``,
+    ``E_l = num_local``.
 
-    x ``[B_l, S, D]``, router ``[D, E]`` (all experts), w1 ``[E_l, D, F_l]``.
-    Returns the partial output of the local experts (to be summed over the
-    ranks that hold the others)."""
+    x ``[B_l, S, D]``, router ``[D, E]`` (all experts), each weight
+    ``fn(lo, hi)`` of the local experts (w1's ``[hi - lo, D, F_l]``), run
+    ``chunk`` experts at a time (:func:`_expert_ffn`).  Returns the partial
+    output of the local experts (to be summed over the ranks that hold the
+    others)."""
     B, S, D = x.shape
-    E_l = w1.shape[0]
+    E_l = num_local
     T = B * S
     dev = x.device
     if router.shape[-1] != num_experts:
@@ -139,7 +172,7 @@ def _moe_local(x, router, w1, wg, w2, *, e_base: int, num_experts: int, top_k: i
     x_pad = torch.cat([xf, xf.new_zeros((1, D))])
     xe = x_pad[disp[:-1]].reshape(E_l, capacity, D)
 
-    ye = _expert_ffn(xe, w1, wg, w2, act, gemm_impl)  # [E_l, Ce, D]
+    ye = _expert_ffn(xe, w1, wg, w2, act, gemm_impl, chunk)  # [E_l, Ce, D]
     ye = ye.reshape(trash, D) * comb_gate[:-1, None].to(ye.dtype)
     ye = torch.cat([ye, ye.new_zeros((1, D))])  # row `trash`: the zero row of a dropped pair
 
@@ -183,9 +216,10 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
         return max(1, math.ceil(tokens * top_k * capacity_factor / num_experts))
 
     if ctx is None or ctx.mesh is None:
-        return _moe_local(x, p["router"], p["w1"], p.get("wg", p["w1"]), p["w2"], e_base=0,
-                          num_experts=num_experts, top_k=top_k,
-                          capacity=cap(x.shape[0] * x.shape[1]), act=act, gemm_impl=gemm_impl)
+        return _moe_local(x, p["router"], *_sliced(p["w1"], p.get("wg", p["w1"]), p["w2"]),
+                          num_local=p["w1"].shape[0], e_base=0, num_experts=num_experts,
+                          top_k=top_k, capacity=cap(x.shape[0] * x.shape[1]), act=act,
+                          gemm_impl=gemm_impl)
 
     local = rules.local_block
     dp = ctx.dp_axes
@@ -202,9 +236,9 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
         # single-device branch under SPMD), then this rank's rows
         xs = rules.full_value(ctx, x)
         w = {k: rules.full_value(ctx, p[k]) for k in p}
-        out = _moe_local(xs, w["router"], w["w1"], w.get("wg", w["w1"]), w["w2"], e_base=0,
-                         num_experts=num_experts, top_k=top_k, capacity=cap(B * S), act=act,
-                         gemm_impl=gemm_impl)
+        out = _moe_local(xs, w["router"], *_sliced(w["w1"], w.get("wg", w["w1"]), w["w2"]),
+                         num_local=w["w1"].shape[0], e_base=0, num_experts=num_experts,
+                         top_k=top_k, capacity=cap(B * S), act=act, gemm_impl=gemm_impl)
         return rules.as_dtensor(ctx, rules.relayout(ctx, out, (None,) * 3, out_spec), out_spec,
                                  x.shape)
     if B % dp_size:  # the reference's shard_map needs the batch to split
@@ -225,8 +259,9 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
         wg_l = w1 if wg is None else local(ctx, wg, (tp, None, dpe))
         w2 = local(ctx, p["w2"], (tp, dpe, None))
         xg = rules.all_gather(ctx, x_l, dp, dim=0)  # [B, S, D]
-        out = _moe_local(xg, router, w1, wg_l, w2, e_base=e_base, num_experts=num_experts,
-                         top_k=top_k, capacity=B * S,  # dropless at decode scale
+        out = _moe_local(xg, router, *_sliced(w1, wg_l, w2), num_local=E_l, e_base=e_base,
+                         num_experts=num_experts, top_k=top_k,
+                         capacity=B * S,  # dropless at decode scale
                          act=act, gemm_impl=gemm_impl)
         out = rules.psum(ctx, out, (tp, *dp))
         out = rules.relayout(ctx, out, (None, None, None), out_spec)  # this rank's rows
@@ -239,9 +274,27 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, act: str, capacity_factor: 
     # step's sum of the router's gradient)
     if seq is None:
         x_l, router = (rules.pbroadcast(ctx, t, tp) for t in (x_l, router))
-    w1 = local(ctx, p["w1"], (tp, None, None))
-    wg_l = w1 if wg is None else local(ctx, wg, (tp, None, None))
-    w2 = local(ctx, p["w2"], (tp, None, None))
-    out = _moe_local(x_l, router, w1, wg_l, w2, e_base=e_base, num_experts=num_experts,
-                     top_k=top_k, capacity=cap((B // dp_size) * S), act=act, gemm_impl=gemm_impl)
+
+    def gathered(w):
+        # this rank's experts; the slice [lo, hi) of them gathered whole on
+        # d_model (prefill's FSDP embed_e -> data) just before its product
+        spec = rules.spec_of(ctx, w)
+        blk = rules.relayout(ctx, rules.block(w), spec, (tp, *spec[1:]))
+        spec = (tp, *spec[1:])
+        return lambda lo, hi: rules.relayout(ctx, blk[lo:hi], spec, (tp, None, None))
+
+    w1, w2 = gathered(p["w1"]), gathered(p["w2"])
+    wg_l = w1 if wg is None else gathered(wg)
+    out = _moe_local(x_l, router, w1, wg_l, w2, num_local=E_l, e_base=e_base,
+                     num_experts=num_experts, top_k=top_k, capacity=cap((B // dp_size) * S),
+                     act=act, gemm_impl=gemm_impl, chunk=ep_chunk(p["w1"], E_l))
     return rules.as_dtensor(ctx, rules.row_sum(ctx, out, tp, seq), out_spec, x.shape)
+
+
+def ep_chunk(w1, num_local: int) -> int:
+    """Experts the expert-parallel body gathers and runs at a time: all
+    ``num_local`` unless one expert weight of them gathered whole on d_model
+    (``w1``'s ``[E_l, d_model, d_ff]``, d_ff the rank's) would pass
+    :data:`EP_GATHER_BYTES`, then as few even chunks as keep each below it."""
+    nbytes = num_local * w1.shape[1] * rules.block(w1).shape[2] * w1.element_size()
+    return math.ceil(num_local / math.ceil(nbytes / EP_GATHER_BYTES))

@@ -76,6 +76,8 @@ from . import moe as moe_mod
 from . import rglru as rec_mod
 from . import ssd as ssm_mod
 from .layers import (
+    LeafStream,
+    _normal,
     apply_norm,
     dense,
     dense_init,
@@ -135,19 +137,77 @@ def _block_init(gen, cfg: ArchConfig, kind: str):
 
 
 def init_params(cfg: ArchConfig, *, seed: int | None = None,
-                generator: torch.Generator | None = None, device="cuda"):
+                generator: torch.Generator | None = None, device="cuda", dtype=None, keep=None):
     """Random parameters with the JAX package's shapes, scales and zero/one inits.
 
     Draws from ``generator`` (which fixes the device) or from a new
     ``torch.Generator`` on ``device`` seeded with ``seed``.  The numbers
     differ from ``jax.random``'s; carry JAX parameters across with
     :func:`repro_torch.convert.lm_params_from_arrays`.
+
+    ``keep(path, leaf, dtype)`` is what the tree holds of each leaf, called
+    as the leaf is drawn with its key tuple (such as ``("layers", 0, "moe",
+    "w1")``), the fp32 leaf and ``dtype``: by default the leaf cast to
+    ``dtype`` (:func:`cast_leaf`; ``None`` keeps fp32), or a rank's block
+    cast, say, as :func:`repro_torch.runtime.elastic.keep_blocks` gives
+    (cut and cast commute bit for bit).  The generator draws every leaf
+    whole, one at a time and in the same order whatever is kept, so the
+    kept values are those of the default tree and at most one whole fp32
+    leaf is held at a time.
     """
     if generator is None:
         if seed is None:
             raise ValueError("init_params needs a seed or a generator")
         generator = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    gen = generator
+    keep = keep or (lambda path, leaf, dtype: cast_leaf(leaf, dtype))
+
+    # the tree's structure first, no number drawn: the path of every draw in order
+    drawn = []
+
+    def place(shape, scale):
+        drawn.append(torch.empty(shape, device="meta"))
+        return drawn[-1]
+
+    shapes = _draw(cfg, LeafStream(generator.device, place))
+    where = {id(leaf): path for path, leaf in _walk(shapes)}
+    order = iter([where[id(t)] for t in drawn])
+    done = set()
+
+    def draw(shape, scale):
+        t = keep(next(order), _normal(generator, shape, scale), dtype)
+        done.add(id(t))
+        return t
+
+    tree = _draw(cfg, LeafStream(generator.device, draw))
+    # the leaves no number was drawn for (zeros, ones, constants)
+    for path, leaf in list(_walk(tree)):
+        if id(leaf) not in done:
+            node = tree
+            for k in path[:-1]:
+                node = node[k]
+            node[path[-1]] = keep(path, leaf, dtype)
+    return tree
+
+
+def cast_leaf(t, dtype):
+    """``t`` cast to ``dtype`` if it is floating point (``dtype`` ``None``: as it
+    is); a ``DTensor``'s local block is cast and the layout kept."""
+    if dtype is None or not t.is_floating_point() or t.dtype == dtype:
+        return t
+    return rules.like(t, rules.block(t).to(dtype))
+
+
+def _walk(tree, prefix=()):
+    """``(key tuple, leaf)`` of every leaf of a dict/list tree, in insertion order."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _walk(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def _draw(cfg: ArchConfig, gen: LeafStream):
     p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model)}
     if cfg.frontend == "audio_stub":
         p["frontend"] = dense_init(gen, cfg.frontend_dim, cfg.d_model)

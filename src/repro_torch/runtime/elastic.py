@@ -21,9 +21,18 @@ Parameters reach a mesh the same way: :func:`repro_torch.convert.lm_params_from_
 
 from __future__ import annotations
 
-from ..sharding.rules import as_dtensor, full_value, local_block, placements, spec_tree
+import torch
 
-__all__ = ["reshard_state", "state_shardings", "state_specs"]
+from ..sharding.rules import (
+    as_dtensor,
+    full_value,
+    local_block,
+    logical_to_spec,
+    placements,
+    spec_tree,
+)
+
+__all__ = ["keep_blocks", "reshard_state", "state_shardings", "state_specs"]
 
 
 def state_specs(ctx, state, params_axes):
@@ -75,6 +84,26 @@ def reshard_state(state, old_ctx, new_ctx, params_axes):
         return as_dtensor(new_ctx, local.contiguous().clone(), spec, x.shape)
 
     return _tree_map_specs(move, state, specs)
+
+
+def keep_blocks(ctx, params_axes):
+    """``keep`` for :func:`repro_torch.models.transformer.init_params`: each
+    leaf as it is drawn cut to this rank's block under ``ctx``'s rules, a
+    ``DTensor`` of its own storage (the leaf :func:`reshard_state` gives from
+    the whole tree), so a rank draws its parameters without holding the
+    tree.  The block is copied once, cast on the way to ``init_params``'
+    ``dtype`` (a floating-point leaf)."""
+    def keep(path, leaf, dtype):
+        axes = params_axes
+        for k in path:
+            axes = axes[k]
+        spec = logical_to_spec(ctx, tuple(leaf.shape), axes)
+        cast = dtype if dtype is not None and leaf.is_floating_point() else leaf.dtype
+        block = local_block(ctx, leaf, spec).to(cast, memory_format=torch.contiguous_format,
+                                                copy=True)
+        return as_dtensor(ctx, block, spec, leaf.shape)
+
+    return keep
 
 
 def _tree_map_specs(fn, tree, specs):

@@ -204,3 +204,75 @@ def test_fake_production_meshes_one_after_the_other():
         with pytest.raises(RuntimeError, match="already initialised"):
             tmesh.make_fake_production_mesh()
     assert not dist.is_initialized()
+
+
+#: the expert-parallel body's gathers at full width on the fake (2, 2) mesh, B 2 x
+#: S 4096 prefill: (arch, layers, dtype) -> (all_gather calls and operand bytes over
+#: data, all_reduce calls and bytes over model).  qwen3-moe's are the counts of the
+#: body that gathered each weight whole up front (unchanged: its 64 experts a rank
+#: fit EP_GATHER_BYTES); kimi-k2's 192 experts a rank run in 3 chunks of 64
+EP_PREFILL = {("qwen3-moe-235b-a22b", 2, torch.float32): ((6, 4_831_838_208), (5, 335_544_320)),
+              ("qwen3-moe-235b-a22b", 2, torch.bfloat16): ((6, 2_415_919_104), (5, 167_772_160)),
+              ("kimi-k2-1t-a32b", 1, torch.bfloat16): ((9, 8_455_716_864), (3, 176_160_768))}
+#: kimi-k2's one-layer bf16 prefill a rank on (2, 2): four ranks and their CUDA
+#: contexts fit one 80 GB card (33.83e9 when the body held all three weights gathered)
+KIMI_PREFILL_PEAK = 18.5e9
+
+
+@pytest.mark.parametrize("arch,layers,dtype", list(EP_PREFILL), ids=str)
+def test_ep_prefill_gathers_at_full_width(arch, layers, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    got = dryrun.measure_on_mesh(cfg, ShapeSpec("prefill_32k", 4096, 2, "prefill"), AXES,
+                                 param_dtype=dtype, compute_dtype=dtype)
+    kinds = got["collectives_by_kind"]
+    (ag_calls, ag_bytes), (ar_calls, ar_bytes) = EP_PREFILL[(arch, layers, dtype)]
+    assert set(kinds) == {"all_gather", "all_reduce"}
+    assert set(kinds["all_gather"]["by_axis"]) == {"data"}
+    assert set(kinds["all_reduce"]["by_axis"]) == {"model"}
+    assert (kinds["all_gather"]["calls"], kinds["all_gather"]["operand_bytes"]) == (ag_calls,
+                                                                                    ag_bytes)
+    assert (kinds["all_reduce"]["calls"], kinds["all_reduce"]["operand_bytes"]) == (ar_calls,
+                                                                                    ar_bytes)
+    if arch.startswith("kimi"):
+        assert max(got["peak_bytes_card"].values()) <= KIMI_PREFILL_PEAK
+
+
+EP_CHUNKS = (4, 2, 1)  # experts a chunk, of a rank's 4
+
+
+@pytest.fixture(scope="module")
+def ep_chunk_runs():
+    rng = np.random.default_rng(5)
+    E, K, D, F = 8, 2, 64, 128
+    p = {"router": rng.standard_normal((D, E)).astype(np.float32) * D**-0.5,
+         "w1": rng.standard_normal((E, D, F)).astype(np.float32) * D**-0.5,
+         "wg": rng.standard_normal((E, D, F)).astype(np.float32) * D**-0.5,
+         "w2": rng.standard_normal((E, F, D)).astype(np.float32) * F**-0.5}
+    x = rng.standard_normal((4, 16, D)).astype(np.float32)
+    return tmesh.run_on_mesh(ranks.ep_chunks_body, tuple(AXES.values()), tuple(AXES),
+                             device="cpu", args=(p, x, dict(E=E, K=K), EP_CHUNKS),
+                             timeout_s=600)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "block_spmm"])
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+def test_ep_layer_in_chunks_keeps_the_bits(ep_chunk_runs, dtype, impl):
+    """The EP layer on gloo CPU ranks gives the bits of the body that gathered
+    each weight whole before routing, in one chunk or several; each chunk
+    gathers its slice of the three weights (after the router's gather), the
+    bytes the same."""
+    for rank in ep_chunk_runs:
+        whole = None
+        for chunk in EP_CHUNKS:
+            equal, counts = rank[(dtype, impl, chunk)]
+            assert equal, chunk
+            gathers = counts["all_gather"]["data"]
+            assert gathers["calls"] == 1 + 3 * (4 // chunk)  # the router, then each chunk's
+            whole = whole or gathers["bytes"]
+            assert gathers["bytes"] == whole
+            assert counts["all_reduce"] == {"model": {"calls": 1, "bytes": 2 * 16 * 64 * (
+                4 if dtype == "torch.float32" else 2), "group": 2}}

@@ -5,6 +5,8 @@ Each returns numpy arrays (whole values gathered on the rank) for the test
 process to hold against the JAX package's results.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -15,7 +17,7 @@ from repro_torch.launch.specs import make_ctx
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
-from repro_torch.runtime.elastic import reshard_state, state_shardings, state_specs
+from repro_torch.runtime.elastic import keep_blocks, reshard_state, state_shardings, state_specs
 from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
@@ -406,4 +408,130 @@ def archs_body(ctx, cases: dict) -> dict:
                 steps.append(_whole(dctx, lg)[:, 0])
             res["decode"] = np.stack(steps, 1)
         out[name] = res
+    return out
+
+
+def bf16_serve_body(ctx, cases: dict) -> dict:
+    """Each reduced MoE model served in bf16 on this mesh, its parameters
+    drawn in bf16 straight into this rank's blocks (``init_params(...,
+    dtype=, keep=keep_blocks(...))``, once under the prefill rules and once
+    under the decode rules): the forward under the prefill rules, gathered,
+    and ``len(tokens[0])`` steps of ``make_serve_step(cfg, dctx,
+    compute_dtype=bf16)`` on a bf16 cache; with the experts this rank routed
+    each token to in every MoE layer (``routes``: the forward's, then each
+    step's, a layer at a time)."""
+    bf16 = torch.bfloat16
+    out = {"coord": [rules.axis_index(ctx, a) for a in ("data", "model")]}
+    route, calls = tmoe.route, []
+
+    def recording(x, router, top_k):
+        gates, eidx = route(x, router, top_k)
+        calls.append(eidx.numpy())
+        return gates, eidx
+
+    tmoe.route = recording
+    try:
+        for name, c in cases.items():
+            cfg = c["cfg"]
+            axes = tt.param_axes(cfg)
+            pctx = make_ctx(ctx, cfg, SHAPES["prefill_32k"])
+            dctx = make_ctx(ctx, cfg, SHAPES["decode_32k"])
+            pp = tt.init_params(cfg, seed=c["seed"], device="cpu", dtype=bf16,
+                                keep=keep_blocks(pctx, axes))
+            calls.clear()
+            logits = tt.apply(pp, cfg, {"tokens": torch.from_numpy(c["inputs"])}, ctx=pctx)
+            res = dict(prefill=rules.full_value(pctx, logits).float().numpy(),
+                       prefill_dtype=str(logits.dtype),
+                       param_dtypes=sorted({str(rules.block(t).dtype) for t in tree_leaves(pp)}),
+                       routes={"prefill": list(calls)})
+            del pp
+            dp = tt.init_params(cfg, seed=c["seed"], device="cpu", dtype=bf16,
+                                keep=keep_blocks(dctx, axes))
+            tokens = c["tokens"]
+            cache = tt.init_cache(cfg, tokens.shape[0], tokens.shape[1], bf16, device="cpu",
+                                  ctx=dctx)
+            serve = tmodel.make_serve_step(cfg, dctx, compute_dtype=bf16)
+            steps = []
+            calls.clear()
+            for pos in range(tokens.shape[1]):
+                lg, cache = serve(dp, cache, torch.from_numpy(tokens[:, pos:pos + 1]).long(), pos)
+                steps.append(rules.full_value(dctx, lg).float().numpy()[:, 0])
+            res["decode"] = np.stack(steps, 1)
+            res["routes"]["decode"] = list(calls)
+            res["cache_dtype"] = str(rules.block(cache["layers"][0]["k"]).dtype)
+            out[name] = res
+    finally:
+        tmoe.route = route
+    return out
+
+
+def init_stream_body(ctx, cases: dict) -> dict:
+    """Each case's parameters drawn straight into this rank's blocks
+    (``init_params(..., keep=keep_blocks(cctx, axes))``, fp32 and bf16) under
+    the prefill, decode and train rules, against the blocks ``reshard_state``
+    cuts from the whole tree (cast for bf16): ``{(shape, dtype): equal}``,
+    equal meaning every leaf's spec, global shape and local bits."""
+    out = {}
+    for name, c in cases.items():
+        cfg = c["cfg"]
+        axes = tt.param_axes(cfg)
+        whole = tt.init_params(cfg, seed=c["seed"], device="cpu")
+        res = {}
+        for shape in ("prefill_32k", "decode_32k", "train_4k"):
+            cctx = make_ctx(ctx, cfg, SHAPES[shape])
+            for dt in (None, torch.bfloat16):
+                want = reshard_state(whole if dt is None else tmodel.cast_params(whole, dt), None,
+                                     cctx, axes)
+                got = tt.init_params(cfg, seed=c["seed"], device="cpu", dtype=dt,
+                                     keep=keep_blocks(cctx, axes))
+                pairs = list(zip(tree_paths(got), tree_paths(want), strict=True))
+                res[(shape, str(dt))] = all(
+                    pg == pw and rules.spec_of(cctx, g) == rules.spec_of(cctx, w)
+                    and g.shape == w.shape and torch.equal(g.to_local(), w.to_local())
+                    for (pg, g), (pw, w) in pairs)
+        out[name] = res
+    return out
+
+
+def ep_chunks_body(ctx, p, x_prefill, dims, chunks) -> dict:
+    """The expert-parallel layer under the prefill rules (expert weights
+    FSDP-sharded on d_model over ``data``), fp32 and bf16, both GEMM routes,
+    with the rank's experts gathered and run ``chunk`` at a time for each of
+    ``chunks`` (``moe.EP_GATHER_BYTES`` set so), against the body as it was
+    before the gathers were cut: every expert weight gathered whole first,
+    then ``_moe_local`` and the sum over ``model``.  ``{(dtype, impl, chunk):
+    (bits equal, collectives)}``."""
+    E, K = dims["E"], dims["K"]
+    tp = ctx.tp_axis
+    E_l = E // ctx.tp_size()
+    out = {}
+    budget = tmoe.EP_GATHER_BYTES
+    try:
+        for dt in (torch.float32, torch.bfloat16):
+            pd = {k: rules.distribute(ctx, torch.from_numpy(v).to(dt), *MOE_AXES[k])
+                  for k, v in p.items()}
+            x = rules.distribute(ctx, torch.from_numpy(x_prefill).to(dt), "batch", None, None)
+            for impl in ("einsum", "block_spmm"):
+                kw = dict(num_experts=E, top_k=K, act="silu", capacity_factor=1.25,
+                          gemm_impl=impl)
+                # before: the three weights gathered whole up front
+                x_l = rules.local_block(ctx, x, ("data", None, None))
+                w = {k: rules.local_block(ctx, pd[k], (tp, None, None)) for k in ("w1", "wg", "w2")}
+                router = rules.local_block(ctx, pd["router"], (None, None))
+                cap = math.ceil(x_l.shape[0] * x_l.shape[1] * K * 1.25 / E)
+                before = rules.psum(ctx, tmoe._moe_local(
+                    x_l, router, *tmoe._sliced(w["w1"], w["wg"], w["w2"]), num_local=E_l,
+                    e_base=rules.axis_index(ctx, tp) * E_l, num_experts=E, top_k=K,
+                    capacity=cap, act="silu", gemm_impl=impl), tp)
+                for chunk in chunks:
+                    per_weight = chunk * p["w1"].shape[1] * p["w1"].shape[2] * before.element_size()
+                    tmoe.EP_GATHER_BYTES = per_weight
+                    rules.reset_collective_counts()
+                    got = rules.block(tmoe.moe_apply(pd, x, ctx=ctx, **kw))
+                    counts = rules.collective_counts(by_axis=True)
+                    out[(str(dt), impl, chunk)] = (
+                        tmoe.ep_chunk(pd["w1"], E_l) == chunk and got.dtype == dt
+                        and torch.equal(got, before), counts)
+    finally:
+        tmoe.EP_GATHER_BYTES = budget
     return out
