@@ -22,7 +22,11 @@ Phases, one JSON line each:
                       its bound; then the band at bs 64 (N = 8192) and bs
                       32 (N = 4096) through TileRows and through Tile64:
                       the same bits, each timed beside Tile64, the plain
-                      version and ``torch.bmm`` on pre-gathered operands.
+                      version and ``torch.bmm`` on pre-gathered operands;
+                      the bf16 case (bs 128) on the tensor cores (TileTC,
+                      the rule for bf16 stores) timed beside Tile128
+                      forced, the plain version, ``torch.bmm`` and the
+                      card's bound.
    ``autotune``     — the tile autotuner (``kernels/autotune.py``), each
                       shape in a cache of its own: the reference's round trip
                       (pick, tune, drop the memo, pick the winner back up) at
@@ -47,7 +51,10 @@ Phases, one JSON line each:
                       fp32 fused is bit-identical to the staged path
                       (concatenated buffers + ``block_spmm``); the band at
                       bs 64 on 8 workers through TileRows == Tile64 ==
-                      the staged path, timed as the bs-64 band above.
+                      the staged path, timed as the bs-64 band above; the
+                      bf16 band on TileTC bit-identical to the staged path,
+                      timed beside Tile128 forced, the plain version,
+                      ``torch.bmm`` and the card's bound.
 4. ``multiply``     — the paper's Table 1 first row (banded A, N = 100,000,
                       half-bandwidth 3000, bs 128): ``multiply(A, A)``, with 64
                       sampled output blocks held against float64 host products.
@@ -138,7 +145,9 @@ Phases, one JSON line each:
                       first step's loss and gradients bit-identical.
     ``dryrun``      — the dry run (``repro_torch.launch.dryrun``: each
                       cell's step on fake tensors, host only): all 40 (arch x
-                      shape) cells at full width over worker processes, each
+                      shape) cells at full width over worker processes on
+                      half the cores, started after ``build`` and running
+                      beside the card phases before this one, each
                       also as rank 0 of the 16 x 16 mesh on a fake process
                       group (the 2 x 16 x 16 mesh is the tests' and the
                       command line's), 31 ``ok`` with a finite collective
@@ -250,8 +259,10 @@ Phases, one JSON line each:
                       the experts one process did (the others counted);
                       tokens equal unless a request parts at such a step or
                       where one process's top two logits lie within twice
-                      the step's error; the rank's expert GEMMs timed
-                      beside ``torch.bmm``.
+                      the step's error; all of the ranks' ``block_spmm``
+                      launches on TileTC (``launches_by_tiles``); the
+                      rank's expert GEMMs timed beside Tile64 forced (the
+                      earlier engine) and ``torch.bmm``.
     ``mesh_train``  — the train step on the mesh: qwen2-0.5b at full width on
                       the same (data 2, model 2) mesh of four gloo ranks,
                       under the train rules (FSDP ``embed -> data``, the
@@ -478,22 +489,23 @@ class Context:
         return start.elapsed_time(end) / reps
 
 
-def gemm_bound(T, bm, bk, bn, a_blocks, b_blocks, num_out, itemsize):
+def gemm_bound(T, bm, bk, bn, a_blocks, b_blocks, num_out, itemsize, flops=FP32_FLOPS):
     """Least time for the grouped GEMM on an H100: operations or bytes, whichever is larger.
 
-    Operations: 2*T*bm*bn*bk at the fp32 FFMA rate.  Bytes: every distinct
-    operand block read once, the task arrays (two int64 per task plus the
-    int64 run offsets), and every output block written once in fp32.
+    Operations: 2*T*bm*bn*bk at ``flops`` (the fp32 FFMA rate; bf16 stores
+    run on the tensor cores, ``BF16_FLOPS``).  Bytes: every distinct operand
+    block read once, the task arrays (two int64 per task plus the int64 run
+    offsets), and every output block written once in fp32.
     """
     ops = 2.0 * T * bm * bn * bk
     nbytes = ((a_blocks * bm * bk + b_blocks * bk * bn) * itemsize
               + 8 * (2 * T + num_out + 1) + 4 * num_out * bm * bn)
-    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / flops, nbytes / HBM_BYTES_PER_S
     return dict(
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        bound_arithmetic=(f"max(2*{T}*{bm}*{bn}*{bk} op / 67e12 op/s = {t_ops * 1e3:.4f} ms, "
-                          f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"),
+        bound_arithmetic=(f"max(2*{T}*{bm}*{bn}*{bk} op / {flops / 1e12:g}e12 op/s = "
+                          f"{t_ops * 1e3:.4f} ms, {nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"),
     )
 
 
@@ -669,6 +681,26 @@ def phase_kernel(ctx, sizes) -> dict:
 
     small = [small_band_case(ctx, bs, n, sizes["mul_hw"], gen) for bs, n in sizes["small_bands"]]
 
+    # bf16 stores on the tensor cores (TileTC, the rule's engine for them),
+    # timed beside the earlier FFMA engine (Tile128, forced), the plain
+    # version and torch.bmm on pre-gathered operands, against the card's bound
+    name, A, B, a, b, c, num_out = next(cs for cs in cases if cs[0] == f"runs_bs{mbs}_bf16")
+    args = (A, B, *ops.task_arrays(a, b, c, num_out, ctx.dev), num_out)
+    engine = bsp.tile_engine(mbs, mbs, mbs, (A, B))
+    if not ctx.rehearse:
+        check(engine == "tiletc", f"{name}: the rule takes {engine} for bf16 stores, not TileTC")
+    lhs, rhs = A[args[2]], B[args[3]]
+    bf16_row = dict(case=name, engine=engine, tasks=len(a),
+                    ms=ctx.device_ms(lambda: kernel(*args), reps=20),
+                    tile128_ms=ctx.device_ms(lambda: gemm_engine(ctx, bsp, "tile128")(*args), reps=20),
+                    plain_ms=ctx.time_ms(lambda: bsp.block_spmm_ref(*args), reps=3),
+                    bmm_yardstick_ms=ctx.device_ms(lambda: torch.bmm(lhs, rhs), reps=20),
+                    timing="device ms: CUDA events on launches queued behind a spin",
+                    **gemm_bound(len(a), mbs, mbs, mbs, np.unique(a).size, np.unique(b).size,
+                                 num_out, 2, flops=BF16_FLOPS))
+    bf16_row["bound_share"] = bf16_row["bound_ms"] / bf16_row["ms"]
+    del lhs, rhs
+
     name, A, B, a, b, c, num_out = timing
     args = (A, B, *ops.task_arrays(a, b, c, num_out, ctx.dev), num_out)
     # the 128 x 128 engine against the 64 x 64 one on the timing case: one
@@ -688,7 +720,8 @@ def phase_kernel(ctx, sizes) -> dict:
                       bmm_yardstick_ms=bmm_ms,
                       bmm_yardstick="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
                       **bound)
-    out = dict(phase="kernel", cases=results, timing=timing_row, small_blocks=small)
+    out = dict(phase="kernel", cases=results, timing=timing_row, small_blocks=small,
+               bf16_timing=bf16_row)
     emit(out)
     return out
 
@@ -859,6 +892,9 @@ def phase_autotune(ctx, sizes) -> dict:
                            winner=list(best), pick_after=list(after), roundtrip_ok=tuple(after) == tuple(best))
                 check(tuple(before) == tuple(rule), f"autotune {name}: the empty cache picked {before}, not the rule's {rule}")
                 check(row["roundtrip_ok"], f"autotune {name}: picked {after} after tuning, the winner is {best}")
+                if dtype == torch.bfloat16 and not ctx.rehearse:  # TileTC's own pair alone has its bits
+                    check(cands == [("tiletc", 1)] and tuple(best) == tuple(rule) == ("tiletc", 1),
+                          f"autotune {name}: bf16 candidates {cands}, tuned {best}, rule {rule}")
                 check(all(r["us"] is not None for r in rows), f"autotune {name}: a candidate failed: {rows}")
                 entries = autotune.load_tile_cache(path)
                 check(list(entries) == [key], f"autotune {name}: its cache holds {list(entries)}, not {key}")
@@ -1208,13 +1244,14 @@ def run_sums(run_ptr, per):
     return csum.gather(1, run_ptr[:, 1:]) - csum.gather(1, run_ptr[:, :-1])
 
 
-def fused_bound(args, on=None):
+def fused_bound(args, on=None, flops=FP32_FLOPS):
     """Least time for the fused kernel on an H100: operations or bytes.
 
-    Operations: 2*T*bm*bn*bk over the tasks that run, at the fp32 FFMA rate.
-    Bytes: every distinct operand block the tasks reference (own store or
-    receive buffer) read once, the four int64 task arrays and the runs, the
-    on flags when given, and every output block written once in fp32.
+    Operations: 2*T*bm*bn*bk over the tasks that run, at ``flops`` (the fp32
+    FFMA rate; ``BF16_FLOPS`` for bf16 stores on the tensor cores).  Bytes:
+    every distinct operand block the tasks reference (own store or receive
+    buffer) read once, the four int64 task arrays and the runs, the on flags
+    when given, and every output block written once in fp32.
     """
     import numpy as np
 
@@ -1237,10 +1274,10 @@ def fused_bound(args, on=None):
               + 8 * (4 * P * T + P * (num_out + 1)) + (P * T if on is not None else 0)
               + 4 * P * num_out * bm * bn)
     ops = 2.0 * n_tasks * bm * bn * bk
-    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / flops, nbytes / HBM_BYTES_PER_S
     return dict(tasks=n_tasks, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_arithmetic=(f"max({ops:.6g} op / 67e12 op/s = {t_ops * 1e3:.4f} ms, "
+                bound_arithmetic=(f"max({ops:.6g} op / {flops / 1e12:g}e12 op/s = {t_ops * 1e3:.4f} ms, "
                                   f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
 
 
@@ -1251,6 +1288,7 @@ def phase_fused_kernel(ctx, sizes) -> dict:
     from repro_torch.core.distributed import (FusedSpgemmExecutable, MaskedSpgemmExecutable,
                                               SpgemmExecutable, WorkerMesh, shard_stores)
     from repro_torch.core.schedule import make_spgemm_plan
+    from repro_torch.kernels import block_spmm as bsp
     from repro_torch.kernels import fused_leaf as fl
     from repro_torch.kernels.precision import BF16, FP32
 
@@ -1299,9 +1337,10 @@ def phase_fused_kernel(ctx, sizes) -> dict:
         return (r(3, cap, mbs, mbs), r(3, R, cu, mbs, mbs), r(3, cap, mbs, mbs), r(3, R, cu, mbs, mbs),
                 up(src[0]), up(off[0]), up(src[1]), up(off[1]), up(fused_task_runs(c, num_out)), num_out)
 
+    bf16 = plan_args(plan, data, BF16)
     cases = [
         (f"band_p{P}_bs{mbs}_f32", f32, {}),
-        (f"band_p{P}_bs{mbs}_bf16", plan_args(plan, data, BF16), {}),
+        (f"band_p{P}_bs{mbs}_bf16", bf16, {}),
         (f"band_p{P}_bs{mbs}_adaptive", f32, dict(low=low, adaptive=True)),
         (f"band_p{P}_bs{mbs}_masked30", f32, dict(on=on)),
         ("band_p4_bs24_f32", plan_args(plan24, data24), {}),
@@ -1368,9 +1407,14 @@ def phase_fused_kernel(ctx, sizes) -> dict:
     check(fused_eq_staged, "fp32 fused kernel is not bit-identical to the staged path")
     check(masked_eq_staged, "masked fused kernel is not bit-identical to the staged path without the off tasks")
     check(all_on_eq, "masked fused kernel with every task on differs from the unmasked kernel")
+    # bf16 stores: the fused kernel and the staged path both on TileTC, bit for bit
+    staged_bf16 = SpgemmExecutable(plan, mesh, impl=staged_impl)(bf16[0], bf16[2])
+    ctx.sync()
+    bf16_eq_staged = bool(torch.equal(outs[cases[1][0]], staged_bf16))
+    check(bf16_eq_staged, "bf16 fused kernel is not bit-identical to the staged path")
     small = fused_small_block_case(ctx, plan64, f64, outs[f"band_p{P}_bs64_f32"], mesh, staged_impl)
     small["plan_s"] = plan64_s
-    del staged, staged_masked, all_on, outs, f64
+    del staged, staged_masked, all_on, outs, f64, staged_bf16
 
     # timing: the fp32 case, the plain version, and torch.bmm on pre-gathered operands
     ms = ctx.time_ms(lambda: kernel(*f32), reps=10)
@@ -1385,12 +1429,30 @@ def phase_fused_kernel(ctx, sizes) -> dict:
     timing = dict(case=cases[0][0], ms=ms, plain_ms=plain_ms, bmm_yardstick_ms=bmm_ms,
                   bmm_yardstick="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
                   tflops=2.0 * bound["tasks"] * mbs**3 / (ms * 1e-3) / 1e12, **bound)
+    # the bf16 band on TileTC, beside the earlier FFMA engine (Tile128, forced)
+    bf16_engine = bsp.tile_engine(mbs, mbs, mbs, bf16[:4])
+    if not ctx.rehearse:
+        check(bf16_engine == "tiletc", f"fused bf16 band: the rule takes {bf16_engine}, not TileTC")
+    bf16_ms = ctx.time_ms(lambda: kernel(*bf16), reps=10)
+    tile128_ms = ctx.time_ms(lambda: gemm_engine(ctx, fl, "tile128")(*bf16), reps=5)
+    bf16_plain_ms = ctx.time_ms(lambda: fl.fused_block_spmm_ref(*bf16), reps=2)
+    lhs = fl._gather(bf16[0], bf16[1], p_idx, bf16[4][p_idx, t_idx], bf16[5][p_idx, t_idx])
+    rhs = fl._gather(bf16[2], bf16[3], p_idx, bf16[6][p_idx, t_idx], bf16[7][p_idx, t_idx])
+    bf16_bmm_ms = ctx.time_ms(lambda: torch.bmm(lhs, rhs), reps=10)
+    del lhs, rhs
+    bbound = fused_bound(bf16, flops=BF16_FLOPS)
+    bf16_timing = dict(case=cases[1][0], engine=bf16_engine, ms=bf16_ms, tile128_ms=tile128_ms,
+                       plain_ms=bf16_plain_ms, bmm_yardstick_ms=bf16_bmm_ms,
+                       fused_eq_staged=bf16_eq_staged,
+                       tflops=2.0 * bbound["tasks"] * mbs**3 / (bf16_ms * 1e-3) / 1e12,
+                       bound_share=bbound["bound_ms"] / bf16_ms, **bbound)
     out = dict(phase="fused_kernel", plan_s=plan_s, a_offsets=list(plan.a_offsets),
                b_offsets=list(plan.b_offsets), tasks_per_worker_min=int(tpw.min()),
                tasks_per_worker_max=int(tpw.max()), masked_share=float(1 - on_np.sum() / valid.sum()),
                low_share=float(low.cpu().numpy()[valid].mean()), cases=results,
                fused_eq_staged=fused_eq_staged, masked_eq_staged=masked_eq_staged,
-               masked_all_on_eq_unmasked=all_on_eq, timing=timing, small_block=small)
+               masked_all_on_eq_unmasked=all_on_eq, timing=timing, bf16_timing=bf16_timing,
+               small_block=small)
     emit(out)
     return out
 
@@ -3053,12 +3115,68 @@ def _measured_peak(ctx, fn) -> tuple:
     return out, ms, peak
 
 
-def phase_dryrun(ctx, sizes) -> dict:
+def _dryrun_sweep_process(cells, workers: int, path: str) -> None:
+    """The dry run's sweep in a process of its own (spawned by
+    :func:`start_dryrun_sweep`), at a lower scheduling priority, so that it
+    takes neither the interpreter lock nor the cores of the card phases it
+    runs beside; its records and seconds are pickled to ``path``."""
+    import pickle
+
+    from repro_torch.launch import dryrun
+
+    os.nice(10)  # this process and its workers yield the cores to the smoke's
+    t0 = time.perf_counter()
+    recs = dryrun.run_cells(cells, workers=workers,
+                            meshes=("16x16",))  # 2 x 16 x 16: the tests and the command line
+    with open(path, "wb") as fh:
+        pickle.dump((recs, time.perf_counter() - t0), fh)
+
+
+def start_dryrun_sweep(sizes) -> dict:
+    """Start the dry run's sweep (host only, fake tensors: every (arch x
+    shape) cell at full width, each also as rank 0 of the 16 x 16 mesh, and
+    the hillclimb's variants of ``HILL_CELL``) in a process of its own over
+    half the machine's cores, so that it runs beside the card phases before
+    ``dryrun``, which waits for its records (:func:`finish_dryrun_sweep`)."""
+    import multiprocessing
+
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun, hillclimb
+
+    d = sizes["dryrun"]
+    cells = [(a, s, False) for a in ARCH_IDS for s in SHAPES]
+    # the hillclimb's sequence-parallel records of qwen2-72b's train_4k beside the
+    # variants without it (baseline is the sweep's own cell), in the sweep's pool
+    hill_over = dryrun.reduced_overrides(HILL_CELL[0]) if d["reduced"] else None
+    hill = [(*HILL_CELL, False, hillclimb.variant_kwargs(v, hill_over))
+            for v in HILL_VARIANTS[1:]]
+    workers = max(1, min(d["workers"], os.cpu_count() or 1) // 2)
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_sweep_", suffix=".pkl")
+    os.close(fd)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_dryrun_sweep_process, args=(cells + hill, workers, path), name="dryrun_sweep")
+    proc.start()
+    return dict(proc=proc, path=path, cells=len(cells), workers=workers, t0=time.perf_counter())
+
+
+def finish_dryrun_sweep(sweep: dict):
+    """Wait for the sweep's process; ``(records, seconds)``, or raise if it
+    failed (``run_phases`` removes its file)."""
+    import pickle
+
+    sweep["proc"].join()
+    check(sweep["proc"].exitcode == 0, f"dryrun: the sweep's process exited {sweep['proc'].exitcode}")
+    with open(sweep["path"], "rb") as fh:
+        return pickle.load(fh)
+
+
+def phase_dryrun(ctx, sizes, sweep) -> dict:
     """The one-card dry run (``repro_torch.launch.dryrun``: every cell's step on
     fake tensors, no allocation; deep cells extrapolated per period, as the
     sweep and the command line give them) held against the card.  The sweep of all 40
-    (arch x shape) cells at full width over worker processes: 31 ``ok``, 9
-    ``skipped`` with the reference's reasons, none in ``error``.  Then two
+    (arch x shape) cells at full width over worker processes
+    (:func:`start_dryrun_sweep`, a process running since the start of the card phases):
+    31 ``ok``, 9 ``skipped`` with the reference's reasons, none in ``error``.  Then two
     predictions against real runs: qwen2-0.5b's train step at ``lm_train``'s
     shape (B 4 x S 1024, bf16 compute, fp32 params and AdamW) under
     ``remat="none"`` and ``"full"``, and one decode step of its full
@@ -3068,28 +3186,21 @@ def phase_dryrun(ctx, sizes) -> dict:
     built, beside the predicted FLOPs over the measured step time and the
     decode step's ms beside its memory term."""
     import dataclasses
-    import os
 
     torch = ctx.torch
-    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import TokenPipeline
-    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer
 
     d = sizes["dryrun"]
-    t0 = time.perf_counter()
-    cells = [(a, s, False) for a in ARCH_IDS for s in SHAPES]
-    # the hillclimb's sequence-parallel records of qwen2-72b's train_4k beside the
-    # variants without it (baseline is the sweep's own cell), in the sweep's pool
     hill_over = dryrun.reduced_overrides(HILL_CELL[0]) if d["reduced"] else None
-    hill = [(*HILL_CELL, False, hillclimb.variant_kwargs(v, hill_over))
-            for v in HILL_VARIANTS[1:]]
-    recs = dryrun.run_cells(cells + hill, workers=min(d["workers"], os.cpu_count() or 1),
-                            meshes=("16x16",))  # 2 x 16 x 16: the tests and the command line
-    recs, hill_recs = recs[:len(cells)], recs[len(cells):]
-    sweep_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    recs, sweep_s = finish_dryrun_sweep(sweep)
+    waited_s = time.perf_counter() - t1
+    recs, hill_recs = recs[:sweep["cells"]], recs[sweep["cells"]:]
     status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
     for r in recs:
         if r["status"] == "skipped":
@@ -3109,7 +3220,8 @@ def phase_dryrun(ctx, sizes) -> dict:
     most = sorted(ok, key=lambda r: -on16(r)["collective_term_s"]
                   / max(on16(r)["compute_term_s"], 1e-12))[:5]
     emit(dict(phase="dryrun_sweep", card=ctx.card, cells=len(recs), **status, sweep_s=sweep_s,
-              workers=d["workers"], fit_one_card=fits, meshes=["16x16"],
+              waited_s=waited_s, started_s_before=t1 - sweep["t0"], workers=sweep["workers"],
+              fit_one_card=fits, meshes=["16x16"],
               collective_terms="a prediction for NVLink 4 within an 8-card H100 node and one "
                                "400 Gb/s InfiniBand link a card between nodes; this one-card "
                                "machine does not measure it",
@@ -4682,11 +4794,12 @@ def kimi_gemm_timing(ctx, cfg, rank_tokens: int, num_local: int, chunk: int) -> 
     """The expert GEMMs of a ``mesh_kimi`` rank at capacity factor 1.25, timed
     on the card alone (the ranks have ended): each launch's shape (``chunk``
     experts, the w1 / wg product and the w2 product) through ``block_spmm``
-    beside ``torch.bmm`` on the same random bf16 operands, and the rank's
-    layer (3 products x its chunks) against two bounds: the kernel's
-    design, fp32 FFMA at 67 TFLOP/s (the bytes below), and the card's, the
-    bf16 tensor cores at 989 TFLOP/s or the bytes at 3.35 TB/s (operands
-    read once, fp32 outputs written once)."""
+    (the rule: TileTC, the tensor cores) beside the earlier engine forced
+    (Tile64, fp32 FFMA) and ``torch.bmm`` on the same random bf16 operands,
+    and the rank's layer (3 products x its chunks) against two bounds: fp32
+    FFMA at 67 TFLOP/s (the bytes below), the earlier engines' design, and
+    the card's, the bf16 tensor cores at 989 TFLOP/s or the bytes at 3.35
+    TB/s (operands read once, fp32 outputs written once)."""
     import math
 
     import numpy as np
@@ -4702,23 +4815,27 @@ def kimi_gemm_timing(ctx, cfg, rank_tokens: int, num_local: int, chunk: int) -> 
     idx = np.arange(chunk)
     tasks = ops.task_arrays(idx, idx, idx, chunk, ctx.dev)
     n_chunks = math.ceil(num_local / chunk)
-    rows, layer = [], dict(ms=0.0, bmm_ms=0.0, flops=0.0, bytes=0.0)
+    rows, layer = [], dict(ms=0.0, tile64_ms=0.0, bmm_ms=0.0, flops=0.0, bytes=0.0)
+    tile64 = gemm_engine(ctx, bsp, "tile64")
     for name, (kd, n), per_chunk in (("w1", (D, F), 2), ("w2", (F, D), 1)):  # wg: w1's shape
         a = torch.randn((chunk, ce, kd), generator=gen, device=ctx.dev).to(torch.bfloat16)
         b = (torch.randn((chunk, kd, n), generator=gen, device=ctx.dev) * kd**-0.5).to(
             torch.bfloat16)
+        # the rule (TileTC), then the earlier engine forced (Tile64), then torch.bmm
         ms = ctx.time_ms(lambda a=a, b=b: kernel(a, b, *tasks, chunk), reps=5)
+        tile64_ms = ctx.time_ms(lambda a=a, b=b: tile64(a, b, *tasks, chunk), reps=2)
         bmm_ms = ctx.time_ms(lambda a=a, b=b: torch.bmm(a, b), reps=5)
         flops = 2.0 * chunk * ce * kd * n
         nbytes = 2.0 * (a.numel() + b.numel()) + 4.0 * chunk * ce * n
         rows.append(dict(gemm=name, shape=f"[{chunk}, {ce}, {kd}] x [{chunk}, {kd}, {n}]",
                          dtype="bfloat16", engine=bsp.tile_engine(ce, kd, n, (a, b)), ms=ms,
-                         bmm_ms=bmm_ms, bmm="torch.bmm on the same operands",
+                         tile64_ms=tile64_ms, bmm_ms=bmm_ms, bmm="torch.bmm on the same operands",
                          ffma_bound_ms=flops / FP32_FLOPS * 1e3,
                          card_bound_ms=max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
                          launches_per_rank_layer=per_chunk * n_chunks))
         times = per_chunk * n_chunks
         layer["ms"] += times * ms
+        layer["tile64_ms"] += times * tile64_ms
         layer["bmm_ms"] += times * bmm_ms
         layer["flops"] += times * flops
         layer["bytes"] += times * nbytes
@@ -4827,9 +4944,11 @@ def mesh_kimi_rank(mctx, cfg, tmp: str, prompts, gen: int, masks: dict, rank_cf:
     try:
         with torch.inference_mode():
             bsp.launches = 0  # the main path's count starts here
+            bsp.launches_by_tiles.clear()
             layer, counted = counted_step(card, lambda: moe.moe_apply(
                 lp, xd, ctx=pctx, capacity_factor=rank_cf, **kw), ())
             out["ep_launches"] = bsp.launches  # ... and is read here
+            out["ep_launches_by_tiles"] = {f"{e}/{k}": n for (e, k), n in bsp.launches_by_tiles.items()}
     finally:
         ops.block_spmm = block_spmm
     # every position: both sides route the same bf16 x through the same router
@@ -5073,6 +5192,12 @@ def phase_mesh_kimi(ctx, sizes) -> dict:
     ep_gemms = 3 * math.ceil(E_l / chunk)  # w1, wg, w2 for each chunk
     attn_layers = transformer.layer_kinds(cfg).count("attn")
     lmax, layer_max = one["max_abs_logit"], one["max_abs_layer"]
+    by_tiles = {}  # the main path's bf16 launches by (engine, pack), over the ranks
+    for r in ranks:
+        for k, n in r["ep_launches_by_tiles"].items():
+            by_tiles[k] = by_tiles.get(k, 0) + n
+    want_tiles = {} if ctx.rehearse else {"tiletc/1": ep_gemms * len(ranks)}
+    check(by_tiles == want_tiles, f"mesh_kimi: the EP layers launched {by_tiles}, expected {want_tiles}")
     for r in ranks:
         tag = f"mesh_kimi rank {r['rank']} {tuple(r['coord'])}"
         check(r["ep_launches"] == (0 if ctx.rehearse else ep_gemms),
@@ -5153,6 +5278,7 @@ def phase_mesh_kimi(ctx, sizes) -> dict:
                capacity=caps, max_expert_load=max_load, rel=BF16_REL,
                ep_layer=dict(batch=B, seq=S, gemm_impl="block_spmm", chunk=chunk,
                              launches_per_rank=[r["ep_launches"] for r in ranks],
+                             launches_by_tiles=by_tiles,
                              max_abs_one_process=layer_max,
                              max_abs_err=max(r["ep"]["max_abs_err"] for r in ranks),
                              tol=BF16_REL * layer_max,
@@ -5640,126 +5766,153 @@ def run_phases(torch, args, card) -> int:
     sizes = REHEARSAL if args.rehearse else FULL
     t0 = time.perf_counter()
 
+    walls = {}
+
     def phase(fn, *args):
+        t1 = time.perf_counter()
         out = fn(*args)
         if ctx.dev.type == "cuda":
             torch.cuda.empty_cache()
+        walls[fn.__name__] = time.perf_counter() - t1
+        print(f"chip_smoke: {fn.__name__} {walls[fn.__name__]:.1f} s", file=sys.stderr, flush=True)
         return out
 
     phase(phase_build, ctx)
-    phase(phase_analysis, ctx)
-    kern = phase(phase_kernel, ctx, sizes)
-    tuned = phase(phase_autotune, ctx, sizes)
-    fused = phase(phase_fused_kernel, ctx, sizes)
-    mul = phase(phase_multiply, ctx, sizes)
-    sp2 = phase(phase_sp2, ctx, sizes)
-    dmul = phase(phase_dist_multiply, ctx, sizes)
-    wscale = phase(phase_weak_scaling, ctx, sizes)
-    dspamm = phase(phase_dist_spamm, ctx, sizes)
-    dpipe = phase(phase_dist_pipeline, ctx, sizes)
-    douter = phase(phase_dist_outer, ctx, sizes)
-    dobs = phase(phase_dist_observatory, ctx, sizes)
-    del ctx.pipeline_d
-    seqs = phase(phase_sequences, ctx, sizes)
-    flash = phase(phase_flash_kernel, ctx, sizes)
-    model = lm_model(ctx, sizes)
-    fwd = phase(phase_lm_forward, ctx, sizes, model)
-    serve = phase(phase_lm_serve, ctx, model)
-    del model
-    train = phase(phase_lm_train, ctx, sizes)
-    phase(phase_dryrun, ctx, sizes)
-    moe_layer = phase(phase_moe_layer, ctx, sizes)
-    families = phase(phase_lm_families, ctx, sizes)
-    mesh = phase(phase_mesh_serve, ctx, sizes, families)
-    kimi = phase(phase_mesh_kimi, ctx, sizes)
-    mtrain = phase(phase_mesh_train, ctx, sizes, train)
-    phase(phase_dryrun_mesh, ctx, sizes, mesh, mtrain, kimi)
-    phase(phase_examples, ctx)
-    phase(phase_dist_pipeline_profile, ctx, sizes)
+    sweep = start_dryrun_sweep(sizes)  # host only: beside the card phases up to dryrun
+    try:
+        phase(phase_analysis, ctx)
+        kern = phase(phase_kernel, ctx, sizes)
+        tuned = phase(phase_autotune, ctx, sizes)
+        fused = phase(phase_fused_kernel, ctx, sizes)
+        mul = phase(phase_multiply, ctx, sizes)
+        sp2 = phase(phase_sp2, ctx, sizes)
+        dmul = phase(phase_dist_multiply, ctx, sizes)
+        wscale = phase(phase_weak_scaling, ctx, sizes)
+        dspamm = phase(phase_dist_spamm, ctx, sizes)
+        dpipe = phase(phase_dist_pipeline, ctx, sizes)
+        douter = phase(phase_dist_outer, ctx, sizes)
+        dobs = phase(phase_dist_observatory, ctx, sizes)
+        del ctx.pipeline_d
+        seqs = phase(phase_sequences, ctx, sizes)
+        flash = phase(phase_flash_kernel, ctx, sizes)
+        model = lm_model(ctx, sizes)
+        fwd = phase(phase_lm_forward, ctx, sizes, model)
+        serve = phase(phase_lm_serve, ctx, model)
+        del model
+        train = phase(phase_lm_train, ctx, sizes)
+        phase(phase_dryrun, ctx, sizes, sweep)
+        moe_layer = phase(phase_moe_layer, ctx, sizes)
+        families = phase(phase_lm_families, ctx, sizes)
+        mesh = phase(phase_mesh_serve, ctx, sizes, families)
+        kimi = phase(phase_mesh_kimi, ctx, sizes)
+        mtrain = phase(phase_mesh_train, ctx, sizes, train)
+        phase(phase_dryrun_mesh, ctx, sizes, mesh, mtrain, kimi)
+        phase(phase_examples, ctx)
+        phase(phase_dist_pipeline_profile, ctx, sizes)
 
-    timing, ftiming = kern["timing"], fused["timing"]
-    # the mesh's qwen3-moe prefills (without and with sequence parallelism) run fp32
-    # flash on every rank, kimi-k2's prefill bf16 flash
-    mesh_per_rank = dict(float32=[a + b for a, b in zip(
-        mesh["prefill"]["flash_launches_per_rank"], mesh["prefill_sp"]["flash_launches_per_rank"])],
-        bfloat16=[r["bfloat16"] for r in kimi["prefill"]["flash_launches_per_rank"]])
-    mesh_flash = {k: sum(v) for k, v in mesh_per_rank.items()}
-    flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
+        timing, ftiming = kern["timing"], fused["timing"]
+        # the mesh's qwen3-moe prefills (without and with sequence parallelism) run fp32
+        # flash on every rank, kimi-k2's prefill bf16 flash
+        mesh_per_rank = dict(float32=[a + b for a, b in zip(
+            mesh["prefill"]["flash_launches_per_rank"], mesh["prefill_sp"]["flash_launches_per_rank"])],
+            bfloat16=[r["bfloat16"] for r in kimi["prefill"]["flash_launches_per_rank"]])
+        mesh_flash = {k: sum(v) for k, v in mesh_per_rank.items()}
+        flash_t = flash["timing"][FLASH_TIMED[0]]  # qwen2-0.5b's layer
 
-    def flash_row(dtype):
-        t = flash_t[dtype]
-        bf16 = dtype == "bfloat16"
-        return dict(name=f"flash_attention_{'bf16' if bf16 else 'f32'}", route="cuda",
-                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                    replaces="src/repro/kernels/flash_attention.py:31",
-                    launches=(fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype]
-                              + families["launches_by_dtype"].get(dtype, 0) + mesh_flash[dtype]),
-                    mesh_launches_per_rank=mesh_per_rank[dtype],
-                    max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
-                    ms=t["ms"], plain_ms=t["plain_ms"],
-                    bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
-                    bound_by=t["bf16_bound_by"] if bf16 else t["bound_by"], library_ms=t["sdpa_ms"])
+        def flash_row(dtype):
+            t = flash_t[dtype]
+            bf16 = dtype == "bfloat16"
+            return dict(name=f"flash_attention_{'bf16' if bf16 else 'f32'}", route="cuda",
+                        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                        replaces="src/repro/kernels/flash_attention.py:31",
+                        launches=(fwd["launches_by_dtype"][dtype] + serve["launches_by_dtype"][dtype]
+                                  + families["launches_by_dtype"].get(dtype, 0) + mesh_flash[dtype]),
+                        mesh_launches_per_rank=mesh_per_rank[dtype],
+                        max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
+                        ms=t["ms"], plain_ms=t["plain_ms"],
+                        bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
+                        bound_by=t["bf16_bound_by"] if bf16 else t["bound_by"], library_ms=t["sdpa_ms"])
 
-    emit({"kernels": [
-        dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
-             replaces="src/repro/kernels/block_spmm.py:38",
-             launches=(mul["launches"] + sp2["kernel_launches"] + douter["launches"]
-                       + moe_layer["launches"] + sum(mesh["ep_layer"]["launches_per_rank"])
-                       + sum(kimi["ep_layer"]["launches_per_rank"])),
-             mesh_launches_per_rank=mesh["ep_layer"]["launches_per_rank"],
-             mesh_kimi_launches_per_rank=kimi["ep_layer"]["launches_per_rank"],
-             kimi_expert_gemms=kimi["expert_gemms"],
-             max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
-             ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-             bound_by=timing["bound_by"], library_ms=timing["bmm_yardstick_ms"],
-             library="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
-             autotune=[{k: r.get(k) for k in ("case", "shape", "dtype", "winner", "rule", "rule_ms",
-                                              "tuned_ms", "fused_rule_ms", "fused_tuned_ms")}
-                       | dict(winner_us=min(c["us"] for c in r["candidates"]),
-                              rule_us=next(c["us"] for c in r["candidates"] if c["tiles"] == r["rule"]))
-                       for r in tuned["shapes"]],
-             moe_expert_gemms=[dict(gemm=g["gemm"], shape=g["shape"], ms=g["ms"],
-                                    library_ms=g["bmm_ms"], bound_ms=g["bound_ms"],
-                                    bound_by=g["bound_by"], max_abs_err=g["max_abs_err"])
-                               for g in moe_layer["gemms"]],
-             grouped_gemm_varsize={k: moe_layer["grouped"][k] for k in (
-                 "tasks", "launches", "engine", "kernel_ms", "tile64_kernel_ms", "call_ms",
-                 "per_group_matmul_ms", "bound_ms", "bound_by", "max_abs_err")},
-             small_blocks=[dict(case=r["case"], engine=r["engine"], ms=r["ms"],
-                                tile64_ms=r["tile64_ms"], plain_ms=r["plain_ms"],
-                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                                library_ms=r["bmm_yardstick_ms"], max_abs_err=r["max_abs_err"])
-                           for r in kern["small_blocks"]]
-             + [dict(case="grouped_gemm_varsize", engine=moe_layer["grouped"]["engine"],
-                     ms=moe_layer["grouped"]["kernel_ms"],
-                     tile64_ms=moe_layer["grouped"]["tile64_kernel_ms"], plain_ms=None,
-                     plain="not timed: block_spmm_ref would gather 209 GB of expert weights",
-                     bound_ms=moe_layer["grouped"]["bound_ms"],
-                     bound_by=moe_layer["grouped"]["bound_by"],
-                     library_ms=moe_layer["grouped"]["per_group_matmul_ms"],
-                     max_abs_err=moe_layer["grouped"]["max_abs_err"])]),
-        dict(name="fused_block_spmm", route="cuda",
-             source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
-             replaces="src/repro/kernels/fused_leaf.py:71",
-             launches=(dmul["launches"] + wscale["launches"] + dspamm["launches"]
-                       + dpipe["launches"] + dobs["launches"] + seqs["launches"]),
-             max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
-             ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
-             bound_by=ftiming["bound_by"], library_ms=ftiming["bmm_yardstick_ms"],
-             library="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
-             small_blocks=[{k: fused["small_block"][k] for k in (
-                 "case", "engine", "ms", "tile64_ms", "plain_ms", "bound_ms", "bound_by")}
-                 | dict(library_ms=fused["small_block"]["bmm_yardstick_ms"])]),
-        flash_row("float32"),
-        flash_row("bfloat16"),
-    ]})
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    if args.rehearse:
-        emit({"ok": True, "rehearsal": True, "device": {"platform": "cpu", "kind": "cpu", "count": 0}})
-    else:
-        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-    return 0
+        emit({"kernels": [
+            dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",
+                 replaces="src/repro/kernels/block_spmm.py:38",
+                 launches=(mul["launches"] + sp2["kernel_launches"] + douter["launches"]
+                           + moe_layer["launches"] + sum(mesh["ep_layer"]["launches_per_rank"])
+                           + sum(kimi["ep_layer"]["launches_per_rank"])),
+                 mesh_launches_per_rank=mesh["ep_layer"]["launches_per_rank"],
+                 mesh_kimi_launches_per_rank=kimi["ep_layer"]["launches_per_rank"],
+                 kimi_expert_gemms=kimi["expert_gemms"],
+                 mesh_kimi_launches_by_tiles=kimi["ep_layer"]["launches_by_tiles"],
+                 bf16=[{k: kern["bf16_timing"][k] for k in (
+                     "case", "engine", "ms", "tile128_ms", "plain_ms", "bound_ms", "bound_by")}
+                     | dict(library_ms=kern["bf16_timing"]["bmm_yardstick_ms"]),
+                     dict(case="kimi_k2_rank_layer", engine=kimi["expert_gemms"]["launches"][0]["engine"],
+                          ms=kimi["expert_gemms"]["rank_layer"]["ms"],
+                          tile64_ms=kimi["expert_gemms"]["rank_layer"]["tile64_ms"], plain_ms=None,
+                          plain="not timed: each rank holds every launch against it 8 experts at a time",
+                          bound_ms=kimi["expert_gemms"]["rank_layer"]["card_bound_ms"],
+                          bound_by=kimi["expert_gemms"]["rank_layer"]["card_bound_by"],
+                          library_ms=kimi["expert_gemms"]["rank_layer"]["bmm_ms"])],
+                 max_abs_err=max(c["max_abs_err"] for c in kern["cases"]),
+                 ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+                 bound_by=timing["bound_by"], library_ms=timing["bmm_yardstick_ms"],
+                 library="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
+                 autotune=[{k: r.get(k) for k in ("case", "shape", "dtype", "winner", "rule", "rule_ms",
+                                                  "tuned_ms", "fused_rule_ms", "fused_tuned_ms")}
+                           | dict(winner_us=min(c["us"] for c in r["candidates"]),
+                                  rule_us=next(c["us"] for c in r["candidates"] if c["tiles"] == r["rule"]))
+                           for r in tuned["shapes"]],
+                 moe_expert_gemms=[dict(gemm=g["gemm"], shape=g["shape"], ms=g["ms"],
+                                        library_ms=g["bmm_ms"], bound_ms=g["bound_ms"],
+                                        bound_by=g["bound_by"], max_abs_err=g["max_abs_err"])
+                                   for g in moe_layer["gemms"]],
+                 grouped_gemm_varsize={k: moe_layer["grouped"][k] for k in (
+                     "tasks", "launches", "engine", "kernel_ms", "tile64_kernel_ms", "call_ms",
+                     "per_group_matmul_ms", "bound_ms", "bound_by", "max_abs_err")},
+                 small_blocks=[dict(case=r["case"], engine=r["engine"], ms=r["ms"],
+                                    tile64_ms=r["tile64_ms"], plain_ms=r["plain_ms"],
+                                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                    library_ms=r["bmm_yardstick_ms"], max_abs_err=r["max_abs_err"])
+                               for r in kern["small_blocks"]]
+                 + [dict(case="grouped_gemm_varsize", engine=moe_layer["grouped"]["engine"],
+                         ms=moe_layer["grouped"]["kernel_ms"],
+                         tile64_ms=moe_layer["grouped"]["tile64_kernel_ms"], plain_ms=None,
+                         plain="not timed: block_spmm_ref would gather 209 GB of expert weights",
+                         bound_ms=moe_layer["grouped"]["bound_ms"],
+                         bound_by=moe_layer["grouped"]["bound_by"],
+                         library_ms=moe_layer["grouped"]["per_group_matmul_ms"],
+                         max_abs_err=moe_layer["grouped"]["max_abs_err"])]),
+            dict(name="fused_block_spmm", route="cuda",
+                 source="src/repro_torch/kernels/csrc/fused_block_spmm.cu",
+                 replaces="src/repro/kernels/fused_leaf.py:71",
+                 launches=(dmul["launches"] + wscale["launches"] + dspamm["launches"]
+                           + dpipe["launches"] + dobs["launches"] + seqs["launches"]),
+                 max_abs_err=max(c["max_abs_err"] for c in fused["cases"]),
+                 ms=ftiming["ms"], plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
+                 bound_by=ftiming["bound_by"], library_ms=ftiming["bmm_yardstick_ms"],
+                 library="torch.bmm on the pre-gathered operands: the products only, no gather, no sum",
+                 small_blocks=[{k: fused["small_block"][k] for k in (
+                     "case", "engine", "ms", "tile64_ms", "plain_ms", "bound_ms", "bound_by")}
+                     | dict(library_ms=fused["small_block"]["bmm_yardstick_ms"])],
+                 bf16=[{k: fused["bf16_timing"][k] for k in (
+                     "case", "engine", "ms", "tile128_ms", "plain_ms", "bound_ms", "bound_by",
+                     "fused_eq_staged")} | dict(library_ms=fused["bf16_timing"]["bmm_yardstick_ms"])]),
+            flash_row("float32"),
+            flash_row("bfloat16"),
+        ]})
+        print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s; by phase "
+              + json.dumps({k.removeprefix("phase_"): round(v, 1) for k, v in walls.items()}),
+              file=sys.stderr)
+        if args.rehearse:
+            emit({"ok": True, "rehearsal": True, "device": {"platform": "cpu", "kind": "cpu", "count": 0}})
+        else:
+            emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                         "count": torch.cuda.device_count()}})
+        return 0
+    finally:  # the sweep's process ends with the smoke, whatever failed
+        sweep["proc"].join()
+        if os.path.exists(sweep["path"]):
+            os.unlink(sweep["path"])
 
 
 if __name__ == "__main__":

@@ -2,13 +2,17 @@
 
 The JAX package tunes the ``(tm, tn, tk)`` output tile of its Pallas
 programs.  The port's GEMM kernels (``csrc/block_spmm.cu`` and
-``csrc/fused_block_spmm.cu``) run one of three tile engines
+``csrc/fused_block_spmm.cu``) run one of four tile engines
 (:data:`~repro_torch.kernels.block_spmm.ENGINES`), and TileRows packs up to
 :func:`~repro_torch.kernels.block_spmm.rows_pack` output blocks into one tile
 of rows: its rows are that pack times the block's rows rounded up to 8.  So
 the port's tiling is the pair ``(engine, pack)``, the pack 1 for the engines
-other than TileRows.  Every pair gives the same bits (one ``fmaf`` chain per
-output element, in task order), so the choice moves time only.
+other than TileRows.  The three FFMA engines give the same bits at every
+pack (one ``fmaf`` chain per output element, in task order); TileTC, which
+the rule takes for bf16 stores wherever it can, sums in the tensor cores'
+order.  So where TileTC takes a shape its own pair is the only candidate
+and an FFMA pair in the cache is stale, and elsewhere TileTC is none: the
+choice moves time only, never the bits.
 
 Winners measured per ``(platform, bm, bk, bn, dtype)`` are kept in a small
 JSON cache and looked up by :func:`pick_tiles` before every launch of
@@ -117,16 +121,19 @@ def heuristic_tiles(bm: int, bk: int, bn: int, tensors=()) -> tuple[str, int]:
 
 
 def tiles_take(tiles, bm: int, bk: int, bn: int, tensors=()) -> bool:
-    """Whether the kernels take ``(engine, pack)`` at this block shape (the
-    alignment of ``tensors`` included): the wrappers' own checks,
-    :func:`~repro_torch.kernels.block_spmm.engine_id` and ``pack_id``."""
+    """Whether ``(engine, pack)`` may stand for the rule at this block shape
+    (the stores' type and alignment, from ``tensors``, included): the
+    wrappers' own checks, :func:`~repro_torch.kernels.block_spmm.engine_id`
+    and ``pack_id``, and the rule's bits: where TileTC takes the shape it
+    alone gives them, so an FFMA pair there is refused (a forced ``engine=``
+    may still run one)."""
     engine, pack = tiles
     try:
         engine_id(engine, bm, bk, bn, tensors)
         pack_id(engine, pack, bm, bn)
     except ValueError:
         return False
-    return True
+    return (engine == "tiletc") == engine_takes("tiletc", bm, bk, bn, tensors)
 
 
 def dtype_name(dtype) -> str:
@@ -245,8 +252,10 @@ def pick_tiles(
 
     A cached entry that the kernels do not take at this shape (a stale file,
     a hand edit: an engine that does not take the shape or the alignment of
-    ``tensors``, a pack below 1 or above the engine's full pack) is ignored,
-    not trusted, so it never reaches the kernel as a refused launch.
+    ``tensors``, a pack below 1 or above the engine's full pack), or an FFMA
+    pair where TileTC takes the bf16 stores (:func:`tiles_take`), is ignored,
+    not trusted, so it never reaches the kernel as a refused launch or moves
+    the bits.
     """
     platform = platform or default_platform()
     entry = load_tile_cache(path).get(tile_key(platform, bm, bk, bn, dtype))
@@ -256,9 +265,12 @@ def pick_tiles(
 
 
 def candidate_tiles(bm: int, bk: int, bn: int, tensors=()) -> list[tuple[str, int]]:
-    """Every ``(engine, pack)`` the kernels take at this shape: TileRows at
-    each power of two below its full pack and at the full pack (the rule's),
-    the other engines at pack 1."""
+    """Every ``(engine, pack)`` with the rule's bits at this shape: TileTC's
+    own pair where it takes the shape and the stores (``tensors``); else
+    every FFMA engine that takes it, TileRows at each power of two below its
+    full pack and at the full pack (the rule's), the others at pack 1."""
+    if engine_takes("tiletc", bm, bk, bn, tensors):
+        return [("tiletc", 1)]
     out = []
     for engine in ENGINES:
         if not engine_takes(engine, bm, bk, bn, tensors):

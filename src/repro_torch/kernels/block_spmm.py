@@ -52,18 +52,23 @@ _C_FUNCTIONS = {torch.float32: "block_spmm_f32", torch.bfloat16: "block_spmm_bf1
 
 
 #: the GEMM kernels' tile engines (``csrc/tile_gemm.cuh``), by their ids there
-ENGINES = {"tile64": 1, "tilerows": 2, "tile128": 3}
+ENGINES = {"tile64": 1, "tilerows": 2, "tile128": 3, "tiletc": 4}
 #: TileRows takes blocks of at most this many rows (``tile_gemm::TILEROWS_MAX_BM``)
 TILEROWS_MAX_BM = 64
 #: the row step a TileRows block's rows round up to
 TILEROWS_RSTEP = 8
+#: TileTC takes blocks of at least this many rows (``tile_gemm::TILETC_MIN_BM``)
+TILETC_MIN_BM = 64
 
 
 def engine_takes(engine: str, bm: int, bk: int, bn: int, tensors=()) -> bool:
     """Whether ``engine`` takes the block shape: the host mirror of
     ``tile_gemm::engine_takes``.  Tile64 takes any shape, TileRows ``bm <=
     64``, Tile128 ``bm`` and ``bn`` multiples of 128, ``bk`` a multiple of 8
-    and every operand stack (``tensors``) 16-byte aligned."""
+    and every operand stack (``tensors``) 16-byte aligned; TileTC (the
+    tensor cores) bf16 stacks only, ``bm >= 64``, ``bk`` and ``bn``
+    multiples of 8 and every stack 16-byte aligned.  The store type comes in
+    through ``tensors``, as the alignment does: no stacks, no TileTC."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} not in {tuple(ENGINES)}")
     if bm <= 0 or bn <= 0 or bk <= 0:
@@ -72,22 +77,27 @@ def engine_takes(engine: str, bm: int, bk: int, bn: int, tensors=()) -> bool:
         return True
     if engine == "tilerows":
         return bm <= TILEROWS_MAX_BM
-    return not (bm % 128 or bn % 128 or bk % 8) and not any(t.data_ptr() % 16 for t in tensors)
+    aligned = not any(t.data_ptr() % 16 for t in tensors)
+    if engine == "tiletc":
+        return (bool(tensors) and all(t.dtype == torch.bfloat16 for t in tensors)
+                and bm >= TILETC_MIN_BM and bk % 8 == 0 and bn % 8 == 0 and aligned)
+    return not (bm % 128 or bn % 128 or bk % 8) and aligned
 
 
 def tile_engine(bm: int, bk: int, bn: int, tensors=()) -> str:
     """The tile engine the GEMM kernels launch for a block shape:
-    ``"tile128"``, ``"tilerows"`` or ``"tile64"``.
+    ``"tiletc"``, ``"tile128"``, ``"tilerows"`` or ``"tile64"``.
 
     The host mirror of ``tile_gemm::pick_engine`` (``csrc/tile_gemm.cuh``),
-    which ``block_spmm.cu`` and ``fused_block_spmm.cu`` both apply: Tile128
-    where it takes the shape (:func:`engine_takes`; ``tensors`` are the
-    kernel's operand stacks), else TileRows for blocks of at most 64 rows,
-    else Tile64.
+    which ``block_spmm.cu`` and ``fused_block_spmm.cu`` both apply: TileTC
+    where it takes the shape and the stores (:func:`engine_takes`;
+    ``tensors`` are the kernel's operand stacks, bf16 for TileTC), else
+    Tile128, else TileRows for blocks of at most 64 rows, else Tile64.
     """
-    if engine_takes("tile128", bm, bk, bn, tensors):
-        return "tile128"
-    return "tilerows" if engine_takes("tilerows", bm, bk, bn) else "tile64"
+    for engine in ("tiletc", "tile128", "tilerows"):
+        if engine_takes(engine, bm, bk, bn, tensors):
+            return engine
+    return "tile64"
 
 
 def engine_id(engine: str | None, bm: int, bk: int, bn: int, tensors=()) -> int:
@@ -97,7 +107,8 @@ def engine_id(engine: str | None, bm: int, bk: int, bn: int, tensors=()) -> int:
         return 0
     if not engine_takes(engine, bm, bk, bn, tensors):
         raise ValueError(f"engine {engine!r} does not take blocks {bm} x {bk} @ {bk} x {bn}"
-                         + (" at these alignments" if engine == "tile128" else ""))
+                         + (" at these alignments" if engine == "tile128" else
+                            " of these stores (bf16, 16-byte aligned)" if engine == "tiletc" else ""))
     return ENGINES[engine]
 
 
@@ -273,8 +284,9 @@ def block_spmm_cuda(
     cache holds a tuned winner).  ``engine`` (tests, benchmarks and the tuner
     hold the engines against each other with it) forces a tile engine of
     :data:`ENGINES` and ``pack`` the output blocks a TileRows tile packs;
-    either raises ``ValueError`` where the kernel does not take it.  Every
-    pair gives the same bits.
+    either raises ``ValueError`` where the kernel does not take it.  The
+    FFMA engines (Tile64, TileRows, Tile128) give the same bits at every
+    pack; TileTC (bf16 stores on the tensor cores) gives its own.
     """
     global launches
     dev = a_data.device

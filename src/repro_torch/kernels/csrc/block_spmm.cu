@@ -29,9 +29,15 @@
 //   and bn above 64) that walk their runs in steps sharing one staged B panel
 //   (PackedRuns below), 4 x 8 or 8 x 8 registers a thread, the same ring;
 // - Tile64 (everything else): grid (num_out, ceil(bm / 64), ceil(bn / 64)),
-//   the masked synchronous 64 x 64 engine, so any block size works.
+//   the masked synchronous 64 x 64 engine, so any block size works;
+// - TileTC (bf16 stores, bm >= 64, bk and bn multiples of 8, aligned): a 1-D
+//   grid of num_out * ceil(bm / rows) * ceil(bn / 128) tiles, rows the whole
+//   block up to 256, wgmma fed by TMA from one tensor map over each stack
+//   (TcRunCursor below names the task's blocks).
 //
-// All three give the same bits.  Offsets into the block stacks are 64-bit.
+// The three FFMA engines give the same bits; TileTC gives its own (one fp32
+// sum in tensor-core order, tile_gemm.cuh).  Offsets into the block stacks
+// are 64-bit.
 //
 // Bound on an H100 SXM.  fp32 has no tensor-core path that keeps full fp32
 // precision (TF32 would round the inputs), so the products run as plain FFMA:
@@ -41,9 +47,10 @@
 // it.  The dropless grouped GEMM (bm 8, one [4096, 1536] expert weight per
 // group) is operation-bound only because TileRows stages each expert's B
 // panel once for 16 tiles: one tile per task would read 209 GB of weights
-// through L2 for 3.2 GB of distinct ones.  What still holds each engine
-// back is set out in tile_gemm.cuh; bf16 stores convert to fp32 in shared
-// memory and run as FFMA too (no tensor-core path yet).
+// through L2 for 3.2 GB of distinct ones.  bf16 stores run on the tensor
+// cores at 989 TFLOP/s, where the bytes bound the tall-skinny expert GEMMs
+// (kimi-k2's [107, 7168] x [7168, 2048]: the weights).  What still holds
+// each engine back is set out in tile_gemm.cuh.
 
 #include "tile_gemm.cuh"
 
@@ -90,6 +97,23 @@ struct PackedRuns {
   __device__ __forceinline__ float* out(int r) const { return C + (out0 + r) * c_stride; }
 };
 
+// The tasks of one output block's run for TileTC, in ascending t: the
+// blocks of the one A and one B stack (map 0).
+struct TcRunCursor {
+  const int64_t* a_idx;
+  const int64_t* b_idx;
+  int64_t t, t_end;
+
+  __device__ __forceinline__ bool next(int& am, int& ab, int& bmap, int& bb) {
+    if (t >= t_end) return false;
+    am = bmap = 0;
+    ab = static_cast<int>(a_idx[t]);
+    bb = static_cast<int>(b_idx[t]);
+    ++t;
+    return true;
+  }
+};
+
 template <typename T, typename Engine>
 __global__ void __launch_bounds__(Engine::THREADS, Engine::MIN_BLOCKS)
 block_spmm_kernel(const T* __restrict__ A, const T* __restrict__ B,
@@ -123,6 +147,58 @@ block_spmm_rows_kernel(const T* __restrict__ A, const T* __restrict__ B,
                            static_cast<int64_t>(bm) * bk, static_cast<int64_t>(bk) * bn,
                            static_cast<int64_t>(bm) * bn};
   Engine::template run<T, VEC>(runs, nblk, bm, bk, bn, ntile * Engine::TN, smem);
+}
+
+// TileTC: block b of the 1-D grid is (output block, row tile, column tile),
+// the column tile fastest
+template <int WG>
+__global__ void __launch_bounds__(TileTC<WG>::THREADS, TileTC<WG>::MIN_BLOCKS)
+block_spmm_tc_kernel(const __grid_constant__ TcMaps maps, const int64_t* __restrict__ a_idx,
+                     const int64_t* __restrict__ b_idx, const int64_t* __restrict__ run_ptr,
+                     float* __restrict__ C, int bm, int bk, int bn) {
+  using Engine = TileTC<WG>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tn = Engine::tiles_n(bn), tm = Engine::tiles_m(bm);
+  const int64_t b = blockIdx.x;
+  const int nt = static_cast<int>(b % tn), mt = static_cast<int>(b / tn % tm);
+  const int64_t out = b / tn / tm;
+  Engine::run(TcRunCursor{a_idx, b_idx, run_ptr[out], run_ptr[out + 1]}, maps,
+              C + out * static_cast<int64_t>(bm) * bn, mt * Engine::TM, nt * Engine::TN, bm, bk,
+              bn, smem);
+}
+
+template <int WG>
+int launch_tc_wg(const TcMaps& maps, const void* a_idx, const void* b_idx, const void* run_ptr,
+                 void* C, long long num_out, int bm, int bk, int bn, cudaStream_t stream) {
+  using Engine = TileTC<WG>;
+  const auto kernel = block_spmm_tc_kernel<WG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Engine::smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = num_out * Engine::tiles_m(bm) * Engine::tiles_n(bn);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(tiles), Engine::THREADS, Engine::smem_bytes, stream>>>(
+      maps, static_cast<const int64_t*>(a_idx), static_cast<const int64_t*>(b_idx),
+      static_cast<const int64_t*>(run_ptr), static_cast<float*>(C), bm, bk, bn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// TileTC on bf16 stacks: one tensor map over each (their block counts are
+// not passed, so the maps bound the block index at 2^31 - 1, past any task's)
+int launch_tc(const void* A, const void* B, const void* a_idx, const void* b_idx,
+              const void* run_ptr, void* C, long long num_out, int bm, int bk, int bn,
+              cudaStream_t stream) {
+  const void* a[2] = {A, nullptr};
+  const void* b[2] = {B, nullptr};
+  const long long na[2] = {0x7fffffffLL, 0}, nb[2] = {0x7fffffffLL, 0};
+  TcMaps maps;
+  if (!tc_maps(maps, a, na, b, nb, bm, bk, bn, C)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tiletc_warpgroups(bm)) {
+    case 1: return launch_tc_wg<1>(maps, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+    case 2: return launch_tc_wg<2>(maps, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+    case 3: return launch_tc_wg<3>(maps, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+    default: return launch_tc_wg<4>(maps, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+  }
 }
 
 template <typename T, typename Engine>
@@ -191,12 +267,16 @@ int launch(const void* A, const void* B, const void* a_idx, const void* b_idx,
            const void* run_ptr, void* C, long long num_out, int bm, int bk,
            int bn, void* stream_ptr, int engine, int pack) {
   const void* ptrs[2] = {A, B};
-  const int picked = pick_engine(engine, bm, bk, bn, ptrs, 2);
+  const int picked = pick_engine(engine, bm, bk, bn, ptrs, 2, sizeof(T) == 2);
   if (picked < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int R = pick_pack(picked, pack, bm, bn);
   if (R < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_out <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if constexpr (sizeof(T) == 2) {
+    if (picked == ENGINE_TILETC)
+      return launch_tc(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn, stream);
+  }
   if (picked == ENGINE_TILE128)
     return launch_engine<T, Tile128>(A, B, a_idx, b_idx, run_ptr, C, num_out, bm, bk, bn,
                                      Tile128::smem_bytes<T>(), stream);

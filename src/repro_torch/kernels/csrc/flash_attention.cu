@@ -104,6 +104,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int BQ = 64;         // query rows per block of the bf16 kernel
@@ -125,45 +127,16 @@ namespace tc {
 constexpr int NT = 128;               // one warpgroup per block: BQ = 64 query rows
 constexpr int TILE_BYTES = 64 * 128;  // one 64-row x 64-column bf16 atom (128-byte rows)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// the descriptor, fence / commit / wait, the register fence and the swizzled
+// TileCopy (wgmma.cuh), shared with the GEMM engines' TileTC
+using namespace wgmma;
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 in bits 62-63
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // 2^x by the special function unit (relative error ~2^-22; results below
 // 2^-126 flush to 0, far below the fp32 sums they join)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// keeps the compiler from moving accesses of an accumulator across a wgmma
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A @ B, m64n64k16, both operands in shared memory (K-major), fp32 accumulate
@@ -201,49 +174,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
-
-// One thread's share of copying a [64, DMAX] bf16 tile (rows [0, rows),
-// columns [0, D); zeros past the edges) into shared memory as DMAX / 64
-// atoms of 64 rows x 128 bytes, with 16-byte chunk c of row r at chunk
-// c ^ (r % 8): the 128-byte swizzle wgmma reads.  Thread t copies chunk
-// cc = t % CH of rows r_t + RSTEP j, so eight consecutive threads copy one
-// row's 128 contiguous bytes, and its addresses are worked out once per
-// block: a tile costs each thread JN copies and a few adds.
-template <int DMAX>
-struct TileCopy {
-  static constexpr int CH = DMAX / 8;     // 16-byte chunks per row
-  static constexpr int RSTEP = NT / CH;   // rows between one thread's chunks
-  static constexpr int JN = 64 / RSTEP;   // chunks per thread and tile
-  static_assert(RSTEP % 4 == 0, "the swizzle of row r_t + RSTEP j takes two values at most");
-  int r_t;
-  bool col_ok;
-  uint32_t soff[2];  // byte offset in the tile of chunk j = 0 and j = 1
-
-  __device__ __forceinline__ TileCopy(int D) {
-    const int cc = threadIdx.x % CH;
-    r_t = threadIdx.x / CH;
-    col_ok = cc * 8 < D;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = r_t + RSTEP * j;
-      soff[j] = (cc / 8) * TILE_BYTES + r * 128 + (((cc % 8) ^ (r % 8)) << 4);
-    }
-  }
-
-  // src: row 0, column 0 of the tile in global memory
-  __device__ __forceinline__ void copy(const __nv_bfloat16* src, long long row_stride, int rows,
-                                       uint32_t dst) const {
-    const __nv_bfloat16* g = src + r_t * row_stride + (threadIdx.x % CH) * 8;
-    const long long step = RSTEP * row_stride;
-#pragma unroll
-    for (int j = 0; j < JN; ++j) {
-      const bool ok = col_ok && r_t + RSTEP * j < rows;
-      // chunk j sits RSTEP j rows below chunk j % 2 (a multiple of 8 rows when j is even)
-      cp_async16(dst + soff[j % 2] + (j - j % 2) * RSTEP * 128, ok ? g : src, ok);
-      g += step;
-    }
-  }
-};
 
 template <int DMAX>
 constexpr size_t smem_bytes() {

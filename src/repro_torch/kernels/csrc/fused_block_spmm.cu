@@ -36,13 +36,19 @@
 //   together where their head tasks name the same B operand (the same
 //   (src, off) and the same `low` flag; FusedPackedRuns below);
 // - Tile64 (everything else): grid (num_out, m-tiles * n-tiles, P), the
-//   masked synchronous 64 x 64 engine.
+//   masked synchronous 64 x 64 engine;
+// - TileTC (bf16 stores, bm >= 64, bk and bn multiples of 8, aligned): grid
+//   (num_out * m-tiles * n-tiles, 1, P), wgmma fed by TMA from four tensor
+//   maps (the A and B stores and receive stacks, FusedCursor::next picks the
+//   map and block of each task from its (src, off)).
 //
-// bf16 stores and the adaptive `low` rounding convert to fp32 in the engine,
-// as they are read.  Each output element is one fp32 fmaf chain from 0 over
-// the run's tasks in ascending order, exactly as block_spmm.cu sums it
-// whichever engine runs, so the fused and staged paths, the masked path with
-// every task on and the single-device multiply agree bit for bit.  No
+// On the FFMA engines the adaptive `low` rounding converts to fp32 as the
+// operands are read, and each output element is one fp32 fmaf chain from 0
+// over the run's tasks in ascending order, exactly as block_spmm.cu sums it
+// whichever FFMA engine runs.  bf16 stores run on TileTC, whose sums are the
+// same in both kernels (a bf16 store is its own bf16 rounding, so `low` has
+// nothing to round there).  So the fused and staged paths, the masked path
+// with every task on and the single-device multiply agree bit for bit.  No
 // atomics; an empty run writes zeros; the padded tasks past a worker's count
 // are never visited.  Any block size and 64-bit offsets everywhere.
 //
@@ -51,8 +57,9 @@
 // that are on; for the N = 8192 band at bs 128 (104,664 tasks) that is
 // 6.55 ms.  The bytes (each referenced operand block read once, the task
 // arrays, each output block written once in fp32) at 3.35 TB/s bound it only
-// below bs ~ 32.  What still holds it back is what holds the engines back
-// (tile_gemm.cuh), and bf16 stores run as FFMA (no tensor-core path yet).
+// below bs ~ 32.  bf16 stores: the same operations at 989 TFLOP/s, or the
+// bytes.  What still holds it back is what holds the engines back
+// (tile_gemm.cuh).
 
 #include "tile_gemm.cuh"
 
@@ -102,6 +109,23 @@ struct FusedCursor {
       Bb = operand(b_store, b_recv, b_src[i], b_off[i], p, d.b_cap, d.b_rounds, d.b_capu,
                    static_cast<int64_t>(d.bk) * d.bn);
       is_low = low != nullptr && low[i] != 0;
+      ++t;
+      return true;
+    }
+    return false;
+  }
+
+  // TileTC's view of the next on task: the stack of each operand (0 the
+  // store, 1 the receive stack; TcMaps) and its block there
+  __device__ __forceinline__ bool next(int& am, int& ab, int& bmap, int& bb) {
+    for (; t < t_end; ++t) {
+      const int64_t i = task0 + t;
+      if (on != nullptr && on[i] == 0) continue;  // uniform across the block
+      const int64_t as = a_src[i], bs = b_src[i];
+      am = as != 0;
+      bmap = bs != 0;
+      ab = static_cast<int>(as == 0 ? p * d.a_cap + a_off[i] : (p * d.a_rounds + as - 1) * d.a_capu + a_off[i]);
+      bb = static_cast<int>(bs == 0 ? p * d.b_cap + b_off[i] : (p * d.b_rounds + bs - 1) * d.b_capu + b_off[i]);
       ++t;
       return true;
     }
@@ -195,6 +219,72 @@ fused_block_spmm_rows_kernel(const T* __restrict__ a_store, const T* __restrict_
   Engine::template run<T, VEC>(runs, nblk, d.bm, d.bk, d.bn, ntile * Engine::TN, smem);
 }
 
+// TileTC: block x of the grid is (output block, row tile, column tile), the
+// column tile fastest; z the worker
+template <int WG>
+__global__ void __launch_bounds__(TileTC<WG>::THREADS, TileTC<WG>::MIN_BLOCKS)
+fused_block_spmm_tc_kernel(const __grid_constant__ TcMaps maps,
+                           const int64_t* __restrict__ a_src, const int64_t* __restrict__ a_off,
+                           const int64_t* __restrict__ b_src, const int64_t* __restrict__ b_off,
+                           const int64_t* __restrict__ run_ptr, const uint8_t* __restrict__ on,
+                           float* __restrict__ C, Dims d) {
+  using Engine = TileTC<WG>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tn = Engine::tiles_n(d.bn), tm = Engine::tiles_m(d.bm);
+  const int64_t b = blockIdx.x;
+  const int nt = static_cast<int>(b % tn), mt = static_cast<int>(b / tn % tm);
+  const int64_t out = b / tn / tm;
+  const int64_t p = blockIdx.z;
+  const int64_t* runs = run_ptr + p * (d.num_out + 1);
+  using Cursor = FusedCursor<__nv_bfloat16>;
+  const Cursor cur{nullptr, nullptr, nullptr, nullptr, a_src, a_off, b_src, b_off, on, nullptr,
+                   d, p, p * d.t_cap, runs[out], runs[out + 1]};
+  Engine::run(cur, maps, C + (p * d.num_out + out) * static_cast<int64_t>(d.bm) * d.bn,
+              mt * Engine::TM, nt * Engine::TN, d.bm, d.bk, d.bn, smem);
+}
+
+template <int WG>
+int launch_tc_wg(const TcMaps& maps, const void* a_src, const void* a_off, const void* b_src,
+                 const void* b_off, const void* run_ptr, const void* on, void* C,
+                 long long nparts, Dims d, cudaStream_t stream) {
+  using Engine = TileTC<WG>;
+  const long long tiles = d.num_out * Engine::tiles_m(d.bm) * Engine::tiles_n(d.bn);
+  if (nparts > 65535 || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto kernel = fused_block_spmm_tc_kernel<WG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Engine::smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(tiles), 1, static_cast<unsigned>(nparts));
+  kernel<<<grid, Engine::THREADS, Engine::smem_bytes, stream>>>(
+      maps, static_cast<const int64_t*>(a_src), static_cast<const int64_t*>(a_off),
+      static_cast<const int64_t*>(b_src), static_cast<const int64_t*>(b_off),
+      static_cast<const int64_t*>(run_ptr), static_cast<const uint8_t*>(on),
+      static_cast<float*>(C), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// TileTC on bf16 stores: a tensor map over each store and receive stack (the
+// maps take block coordinates below 2^31)
+int launch_tc(const void* a_store, const void* a_recv, const void* b_store, const void* b_recv,
+              const void* a_src, const void* a_off, const void* b_src, const void* b_off,
+              const void* run_ptr, const void* on, void* C, long long nparts, Dims d,
+              cudaStream_t stream) {
+  const void* a[2] = {a_store, a_recv};
+  const void* b[2] = {b_store, b_recv};
+  const long long na[2] = {nparts * d.a_cap, nparts * d.a_rounds * d.a_capu};
+  const long long nb[2] = {nparts * d.b_cap, nparts * d.b_rounds * d.b_capu};
+  for (int i = 0; i < 2; ++i)
+    if (na[i] > 0x7fffffffLL || nb[i] > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  TcMaps maps;
+  if (!tc_maps(maps, a, na, b, nb, d.bm, d.bk, d.bn, C)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tiletc_warpgroups(d.bm)) {
+    case 1: return launch_tc_wg<1>(maps, a_src, a_off, b_src, b_off, run_ptr, on, C, nparts, d, stream);
+    case 2: return launch_tc_wg<2>(maps, a_src, a_off, b_src, b_off, run_ptr, on, C, nparts, d, stream);
+    case 3: return launch_tc_wg<3>(maps, a_src, a_off, b_src, b_off, run_ptr, on, C, nparts, d, stream);
+    default: return launch_tc_wg<4>(maps, a_src, a_off, b_src, b_off, run_ptr, on, C, nparts, d, stream);
+  }
+}
+
 template <typename T, typename Engine>
 int launch_engine(const void* a_store, const void* a_recv, const void* b_store,
                   const void* b_recv, const void* a_src, const void* a_off,
@@ -277,7 +367,7 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
            long long b_rounds, long long b_capu, int bm, int bk, int bn,
            void* stream_ptr, int engine, int pack) {
   const void* ptrs[4] = {a_store, a_recv, b_store, b_recv};
-  const int picked = pick_engine(engine, bm, bk, bn, ptrs, 4);
+  const int picked = pick_engine(engine, bm, bk, bn, ptrs, 4, sizeof(T) == 2);
   if (picked < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int R = pick_pack(picked, pack, bm, bn);
   if (R < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -285,6 +375,11 @@ int launch(const void* a_store, const void* a_recv, const void* b_store,
   const Dims d{num_out, t_cap, a_cap, a_rounds, a_capu, b_cap, b_rounds, b_capu,
                bm, bk, bn, 0};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if constexpr (sizeof(T) == 2) {
+    if (picked == ENGINE_TILETC)
+      return launch_tc(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src, b_off, run_ptr, on,
+                       C, nparts, d, stream);
+  }
   if (picked == ENGINE_TILE128)
     return launch_engine<T, Tile128>(a_store, a_recv, b_store, b_recv, a_src, a_off, b_src,
                                      b_off, run_ptr, on, low, C, nparts, d,

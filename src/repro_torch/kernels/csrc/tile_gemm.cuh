@@ -2,21 +2,35 @@
 //
 // A thread block owns a tile of fp32 output blocks.  It walks the tasks of
 // each output block in ascending order, streams each task's operands
-// through shared memory TK = 16 columns of A (rows of B) at a time, and
-// every thread accumulates a register tile with one fmaf per product.  The
-// sum of each output element is therefore one fp32 fmaf chain from 0, over
-// its output block's tasks in ascending order and within a task over k in
-// ascending order (a ragged k edge pads to a multiple of 16 with zeros).
-// The chain depends neither on the tile shape nor on the engine, so every
-// kernel that runs its tasks through these engines gives bit-identical
-// results for the same tasks in the same order (block_spmm.cu,
-// fused_block_spmm.cu), whichever engine runs.  With `low` (the adaptive
-// precision mode) each operand element is rounded to bf16 before its
-// products.
+// through shared memory, accumulates in registers and stores its tile once.
+// Two kinds of engine do the products:
 //
-// Three engines, picked by one rule (pick_engine) in both kernels; the
-// kernels' C entry points take an engine id that forces one, and refuse one
-// that cannot take the shape (engine_takes):
+// - The FFMA engines (Tile128, TileRows, Tile64) stream TK = 16 columns of A
+//   (rows of B) at a time, and every thread accumulates a register tile with
+//   one fmaf per product.  The sum of each output element is therefore one
+//   fp32 fmaf chain from 0, over its output block's tasks in ascending order
+//   and within a task over k in ascending order (a ragged k edge pads to a
+//   multiple of 16 with zeros).  The chain depends neither on the tile shape
+//   nor on which FFMA engine runs, so every kernel that runs its tasks
+//   through them gives bit-identical results for the same tasks in the same
+//   order (block_spmm.cu, fused_block_spmm.cu).  fp32 stores and the
+//   adaptive mode always run here; with `low` each operand element is
+//   rounded to bf16 before its products.
+// - TileTC runs bf16 stores on the tensor cores (wgmma, bf16 products, fp32
+//   sums), the card's counterpart of the TPU kernel's bf16 dot with fp32
+//   accumulation.  Each output element is one fp32 sum from 0 over the run's
+//   tasks in ascending order and within a task over k in ascending 16-wide
+//   steps, each step summed inside the tensor core in its own order.  So
+//   TileTC is bit-identical to itself (repeat, block_spmm == the fused
+//   kernel, every tile it runs), not to the fmaf chain: the two differ in
+//   the order of the fp32 sums, within the limit both are held to against
+//   the plain version.
+//
+// Four engines, picked by one rule (pick_engine) in both kernels: TileTC
+// for bf16 stores wherever it takes the shape, else Tile128, else TileRows,
+// else Tile64.  The kernels' C entry points take an engine id that forces
+// one (an FFMA engine on bf16 stores too, for tests and for the earlier
+// time), and refuse one that cannot take the shape (engine_takes):
 //
 // - Tile128, for blocks whose bm and bn are multiples of 128 (the main
 //   path's bs 128 leaf is one tile): 256 threads each hold an 8 x 8 register
@@ -82,12 +96,36 @@
 //   boundary): 64 x 64 tiles, 256 threads with a 4 x 4 register tile,
 //   staged synchronously through shared memory with masked scalar loads
 //   that convert and round as they stage.  Any block size works.
+// - TileTC, for bf16 stores with bm >= 64, bk and bn multiples of 8 (rows of
+//   whole 16-byte chunks) and 16-byte aligned stacks.  Its row tile is the
+//   whole output block up to 256 rows (1 to 4 consumer warpgroups of 64
+//   rows; taller blocks take several row tiles), by 128 columns, so each B
+//   panel is read once per output block.  One producer warp walks the task
+//   cursor and keeps TMA loads in flight in a ring of four 64-deep stages
+//   (A [rows, 64 k] K-major and B [64 k, 128 n] N-major, both in the 128-byte
+//   swizzle wgmma reads), through a full and an empty mbarrier a stage; the
+//   ring runs across task boundaries.  The operands are 3-D tensor maps over
+//   the stacks [blocks, rows, cols] with the block taken from the task, so
+//   TMA zero-fills the rows past bm and the columns past bk and bn.  Each
+//   consumer warpgroup issues wgmma m64n128k16 from shared memory and keeps
+//   its 64 x 128 fp32 accumulator in registers across the whole run; the
+//   tile is stored once with masked edges.  The column tiles of one output
+//   block are neighbours in the 1-D grid, so its A rows come from device
+//   memory once and from L2 after.  Bound on an H100 SXM: the larger of 2 *
+//   bm * bn * bk operations per task at 989 TFLOP/s and the bytes of each
+//   distinct operand block at 3.35 TB/s; on kimi-k2's expert GEMMs (bm 107
+//   and 150 rows against [7168, 2048] weights) the weights' bytes.  What
+//   holds it back is set out in PERF.md (the producer waits on a stage until
+//   every warpgroup's products on it are done; one block an SM).
 //
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+
+#include "wgmma.cuh"
 
 namespace tile_gemm {
 
@@ -115,24 +153,40 @@ inline bool use_tile128(int bm, int bk, int bn, const void* const* ptrs, int npt
   return aligned16(ptrs, nptrs);
 }
 
+// TileTC needs bf16 stores, at least one warpgroup's 64 rows, rows of whole
+// 16-byte chunks (the tensor maps' strides) and 16-byte aligned stacks.
+constexpr int TILETC_MIN_BM = 64;
+inline bool use_tiletc(int bm, int bk, int bn, const void* const* ptrs, int nptrs, bool bf16) {
+  if (!bf16 || bm < TILETC_MIN_BM || bn <= 0 || bk <= 0 || bk % 8 || bn % 8) return false;
+  return aligned16(ptrs, nptrs);
+}
+
 // Engine ids of the kernels' C entry points: 0 asks for the rule.
-enum Engine : int { ENGINE_RULE = 0, ENGINE_TILE64 = 1, ENGINE_TILEROWS = 2, ENGINE_TILE128 = 3 };
+enum Engine : int {
+  ENGINE_RULE = 0, ENGINE_TILE64 = 1, ENGINE_TILEROWS = 2, ENGINE_TILE128 = 3, ENGINE_TILETC = 4
+};
 constexpr int TILEROWS_MAX_BM = 64;
 
-inline bool engine_takes(int engine, int bm, int bk, int bn, const void* const* ptrs, int nptrs) {
+inline bool engine_takes(int engine, int bm, int bk, int bn, const void* const* ptrs, int nptrs,
+                         bool bf16) {
   if (bm <= 0 || bn <= 0 || bk <= 0) return false;
   switch (engine) {
     case ENGINE_TILE64: return true;
     case ENGINE_TILEROWS: return bm <= TILEROWS_MAX_BM;
     case ENGINE_TILE128: return use_tile128(bm, bk, bn, ptrs, nptrs);
+    case ENGINE_TILETC: return use_tiletc(bm, bk, bn, ptrs, nptrs, bf16);
     default: return false;
   }
 }
 
-// The engine for a block shape: the same rule in every kernel, so the
-// kernels agree on it; a forced engine must take the shape (else -1).
-inline int pick_engine(int engine, int bm, int bk, int bn, const void* const* ptrs, int nptrs) {
-  if (engine != ENGINE_RULE) return engine_takes(engine, bm, bk, bn, ptrs, nptrs) ? engine : -1;
+// The engine for a block shape and store type (bf16: 2-byte stores): the
+// same rule in every kernel, so the kernels agree on it; a forced engine
+// must take the shape (else -1).
+inline int pick_engine(int engine, int bm, int bk, int bn, const void* const* ptrs, int nptrs,
+                       bool bf16) {
+  if (engine != ENGINE_RULE)
+    return engine_takes(engine, bm, bk, bn, ptrs, nptrs, bf16) ? engine : -1;
+  if (use_tiletc(bm, bk, bn, ptrs, nptrs, bf16)) return ENGINE_TILETC;
   if (use_tile128(bm, bk, bn, ptrs, nptrs)) return ENGINE_TILE128;
   if (bm > 0 && bm <= TILEROWS_MAX_BM) return ENGINE_TILEROWS;
   return ENGINE_TILE64;
@@ -700,6 +754,191 @@ struct TileRows {
       for (int j = 0; j < 8; ++j) {
         const int col = n0 + (j < 4 ? tx * 4 + j : TN / 2 + tx * 4 + j - 4);
         if (col < bn) dst[col] = acc[i][j];
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------- TileTC
+
+// The operand stacks of a TileTC launch as 3-D tensor maps over [blocks,
+// rows, cols] (cols innermost): two stacks an operand at most (block_spmm.cu
+// one; fused_block_spmm.cu the store and the receive stack), picked per task.
+struct TcMaps {
+  CUtensorMap a[2];
+  CUtensorMap b[2];
+};
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// link against libcuda); null where the driver does not offer it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 stack [blocks, rows, cols] as a tensor map whose box is box_rows
+// rows of 64 columns (128-byte rows, the 128-byte swizzle) in one block;
+// loads past any edge read zeros.  False where the driver refuses it.
+inline bool encode_stack(CUtensorMap* map, const void* base, long long blocks, int rows, int cols,
+                         int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || base == nullptr || blocks <= 0) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(blocks)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The consumer warpgroups of a TileTC tile for blocks of bm rows: the whole
+// block up to 256 rows, four (several row tiles) past it
+inline int tiletc_warpgroups(int bm) { return bm >= 256 ? 4 : (bm + 63) / 64; }
+
+// The maps of one launch: A stacks [n, bm, bk] with a box of the tile's
+// rows, B stacks [n, bk, bn] with a box of 64 k.  A stack of no blocks (an
+// unused receive stack) is mapped as one block at `any`, a device address
+// that no task names (the output), so that every map is valid.
+inline bool tc_maps(TcMaps& maps, const void* const* a, const long long* na, const void* const* b,
+                    const long long* nb, int bm, int bk, int bn, const void* any) {
+  const int rows = 64 * tiletc_warpgroups(bm);
+  for (int i = 0; i < 2; ++i) {
+    const bool a_ok = a[i] != nullptr && na[i] > 0, b_ok = b[i] != nullptr && nb[i] > 0;
+    if (!encode_stack(&maps.a[i], a_ok ? a[i] : any, a_ok ? na[i] : 1, bm, bk, rows) ||
+        !encode_stack(&maps.b[i], b_ok ? b[i] : any, b_ok ? nb[i] : 1, bk, bn, 64))
+      return false;
+  }
+  return true;
+}
+
+// The TileTC task cursor (TcRunCursor in block_spmm.cu, the fused kernel's
+// FusedCursor): next(am, ab, bmap, bb) names the next task's stacks (0 or
+// 1: TcMaps' a / b) and its blocks in them, in ascending t.
+
+template <int WG>
+struct TileTC {
+  static constexpr int TM = 64 * WG, TN = 128, KT = 64, STAGES = 4;
+  static constexpr int THREADS = 128 * WG + 32, MIN_BLOCKS = 1;  // WG warpgroups, the producer warp
+  static constexpr int A_BYTES = TM * 128;                  // TM rows x 64 k (128-byte rows)
+  static constexpr int B_BYTES = 2 * wgmma::ATOM_BYTES;     // 64 k x 128 n: two 64-column atoms
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // 1024 to align the ring's atoms; then per stage a full and an empty
+  // barrier (8 bytes each) and a flag
+  static constexpr size_t smem_bytes = 1024 + STAGES * STAGE_BYTES + STAGES * (16 + 4);
+  static_assert(smem_bytes <= 232448, "a block takes at most 227 KB of shared memory");
+
+  __host__ __device__ static int tiles_m(int bm) { return (bm + TM - 1) / TM; }
+  __host__ __device__ static int tiles_n(int bn) { return (bn + TN - 1) / TN; }
+
+  // Walk the cursor's tasks and write the TM x TN tile at (m0, n0) of the
+  // row-major output block Cb [bm, bn].  The producer fills stage it % STAGES
+  // with step it (a task's 64 k) once every warp has released its previous
+  // use, arming the stage's full barrier with the bytes of the three boxes
+  // and a flag (1: a step; 0: no more), which the consumers read after the
+  // barrier completes.  Each consumer warpgroup multiplies its 64 rows of A
+  // by the stage's B in four 16-deep wgmma steps, ascending.
+  template <typename Cursor>
+  __device__ __forceinline__ static void run(Cursor cur, const TcMaps& maps, float* __restrict__ Cb,
+                                             int m0, int n0, int bm, int bk, int bn,
+                                             unsigned char* smem) {
+    using namespace wgmma;
+    const uint32_t raw = smem_u32(smem);
+    const uint32_t ring = (raw + 1023) & ~1023u;
+    const uint32_t full = ring + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
+    volatile int* flags = reinterpret_cast<volatile int*>(smem + (empty + 8 * STAGES - raw));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full + 8 * s, 1);
+        mbar_init(empty + 8 * s, 4 * WG);  // one arrival a consumer warp
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (warp == 4 * WG) {  // the producer warp: one thread walks the tasks
+      if (lane != 0) return;
+      const int ksteps = (bk + KT - 1) / KT;
+      int it = 0, am, ab, bmap, bb;
+      auto claim = [&](int s) {  // the stage is free once its previous use is released
+        if (it >= STAGES) mbar_wait(empty + 8 * s, (it / STAGES - 1) & 1);
+      };
+      while (cur.next(am, ab, bmap, bb)) {
+        for (int k = 0; k < ksteps; ++k, ++it) {
+          const int s = it % STAGES;
+          claim(s);
+          flags[s] = 1;
+          const uint32_t st = ring + s * STAGE_BYTES, bar = full + 8 * s;
+          mbar_arrive_expect_tx(bar, STAGE_BYTES);
+          tma_load_3d(st, &maps.a[am], k * KT, m0, ab, bar);
+          tma_load_3d(st + A_BYTES, &maps.b[bmap], n0, k * KT, bb, bar);
+          tma_load_3d(st + A_BYTES + ATOM_BYTES, &maps.b[bmap], n0 + 64, k * KT, bb, bar);
+        }
+      }
+      const int s = it % STAGES;
+      claim(s);
+      flags[s] = 0;
+      mbar_arrive(full + 8 * s);
+      return;
+    }
+
+    // a consumer warpgroup: rows 64 wg .. 64 wg + 63 of the tile
+    const int wg = warp / 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int it = 0;; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      if (flags[s] == 0) break;
+      // A: this warpgroup's 64 rows, K-major, 32 bytes a 16-k step; B: N-major,
+      // 16 k rows (2048 bytes) a step, its two 64-column atoms ATOM_BYTES apart
+      const uint32_t a = ring + s * STAGE_BYTES + wg * ATOM_BYTES;
+      const uint32_t b = ring + s * STAGE_BYTES + A_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        mma_m64n128k16_ss_tb(acc, desc(a + kk * 32, 16, 1024), desc(b + kk * 2048, ATOM_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // acc[4j + e] is (row r0, column 8j + cq + e), acc[4j + 2 + e] row r0 + 8;
+    // bn % 8 == 0, so a column pair is wholly inside or outside the block
+    const int r0 = m0 + 64 * wg + 16 * (warp % 4) + lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int col = n0 + 8 * j + cq;
+      if (col >= bn) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row < bm)
+          *reinterpret_cast<float2*>(Cb + static_cast<int64_t>(row) * bn + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   }

@@ -40,11 +40,12 @@ def tile_cache(tmp_path, monkeypatch):
     ref.clear_memo()
 
 
-def _stack(shape, offset=0):
-    """A contiguous CPU stack whose data starts ``offset`` floats past an aligned base."""
-    base = torch.empty(int(np.prod(shape)) + 4, dtype=torch.float32)
-    lead = (-base.data_ptr() % 16) // 4 + offset
-    return base[lead:lead + int(np.prod(shape))].view(shape)
+def _stack(shape, offset=0, dtype=torch.float32):
+    """A contiguous CPU stack whose data starts ``offset`` elements past an aligned base."""
+    n = int(np.prod(shape))
+    base = torch.empty(n + 16, dtype=dtype)
+    lead = (-base.data_ptr() % 16) // base.element_size() + offset
+    return base[lead:lead + n].view(shape)
 
 
 # --- the key, the file, the round trip: the JAX package's contracts ---------
@@ -309,6 +310,63 @@ def test_candidate_tiles_of_the_grouped_gemm_and_a_ragged_pack():
     assert at.candidate_tiles(24, 24, 200) == [("tile64", 1)] + [("tilerows", p) for p in (1, 2, 4, 5)]
     base = _stack((2, 128, 128), 1)
     assert at.candidate_tiles(128, 128, 128, (base, base)) == [("tile64", 1)]
+
+
+@pytest.mark.parametrize("bm,bk,bn", [(64, 64, 64), (107, 448, 128), (128, 128, 128),
+                                      (150, 40, 200), (256, 64, 64), (300, 64, 64)])
+def test_candidate_tiles_at_a_bf16_tiletc_shape_is_tiletc_only(bm, bk, bn):
+    """Where TileTC takes bf16 stores its pair is the only candidate (an FFMA
+    engine rounds in another order); the same shape in fp32 offers the FFMA
+    engines and never TileTC, and bf16 off a 16-byte boundary falls back to them."""
+    bf = (_stack((1, bm, bk), 0, torch.bfloat16), _stack((1, bk, bn), 0, torch.bfloat16))
+    f32 = (_stack((1, bm, bk)), _stack((1, bk, bn)))
+    assert at.candidate_tiles(bm, bk, bn, bf) == [("tiletc", 1)] == [at.heuristic_tiles(bm, bk, bn, bf)]
+    assert at.tiles_take(("tiletc", 1), bm, bk, bn, bf)
+    cands = at.candidate_tiles(bm, bk, bn, f32)
+    assert cands and all(e != "tiletc" for e, _ in cands) and at.heuristic_tiles(bm, bk, bn, f32) in cands
+    assert cands == at.candidate_tiles(bm, bk, bn)  # no stacks: the fp32 rule
+    odd = (_stack((1, bm, bk), 1, torch.bfloat16), bf[1])
+    assert all(e != "tiletc" for e, _ in at.candidate_tiles(bm, bk, bn, odd))
+
+
+@pytest.mark.parametrize("entry", [("tile64", 1), ("tile128", 1), ("tilerows", 1)])
+def test_a_cached_ffma_pair_at_a_tiletc_shape_is_stale(tile_cache, entry):
+    """A bf16 entry of an FFMA pair where TileTC takes the shape falls to the
+    rule (TileTC), though a forced ``engine=`` still takes it; a TileTC entry
+    under the fp32 key is stale too; where TileTC does not take the stacks
+    (off a 16-byte boundary) the FFMA entry stands where its engine takes the shape."""
+    bm = 64 if entry[0] == "tilerows" else 128
+    bf = (_stack((2, bm, bm), 0, torch.bfloat16), _stack((2, bm, bm), 0, torch.bfloat16))
+    at.save_tile_entry(at.tile_key("cpu", bm, bm, bm, "bfloat16"), entry, path=tile_cache)
+    assert at.pick_tiles(bm, bm, bm, "bfloat16", platform="cpu", path=tile_cache, tensors=bf) == \
+        ("tiletc", 1)
+    assert not at.tiles_take(entry, bm, bm, bm, bf)
+    assert bsp.launch_tiles(entry[0], None, bm, bm, bm, torch.bfloat16, bf, torch.device("cpu")) == entry
+    odd = (_stack((2, bm, bm), 1, torch.bfloat16), bf[1])
+    want = entry if entry[0] != "tile128" else ("tile64", 1)
+    assert at.pick_tiles(bm, bm, bm, "bfloat16", platform="cpu", path=tile_cache, tensors=odd) == want
+    f32 = (_stack((2, bm, bm)), _stack((2, bm, bm)))
+    at.save_tile_entry(at.tile_key("cpu", bm, bm, bm, "float32"), ("tiletc", 1), path=tile_cache)
+    assert at.pick_tiles(bm, bm, bm, "float32", platform="cpu", path=tile_cache, tensors=f32) == \
+        at.heuristic_tiles(bm, bm, bm, f32) != ("tiletc", 1)
+
+
+def test_engine_id_and_pack_id_refuse_tiletc_on_fp32():
+    f32 = (_stack((2, 128, 128)), _stack((2, 128, 128)))
+    bf = tuple(t.to(torch.bfloat16) for t in f32)
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="tiletc"):
+        bsp.engine_id("tiletc", 128, 128, 128, f32)
+    with pytest.raises(ValueError, match="tiletc"):
+        bsp.launch_tiles("tiletc", None, 128, 128, 128, torch.float32, f32, cpu)
+    assert bsp.engine_id("tiletc", 128, 128, 128, bf) == bsp.ENGINES["tiletc"] == 4
+    assert bsp.full_pack("tiletc", 128, 128) == 1
+    assert [bsp.pack_id("tiletc", p, 128, 128) for p in (None, 1)] == [0, 1]
+    for pack in (0, 2):
+        with pytest.raises(ValueError, match="tiletc"):
+            bsp.pack_id("tiletc", pack, 128, 128)
+    assert bsp.launch_tiles("tiletc", None, 128, 128, 128, torch.bfloat16, bf, cpu) == ("tiletc", 1)
+    assert not at.tiles_take(("tiletc", 1), 128, 128, 128, f32)
 
 
 def test_heuristic_tiles_is_the_kernels_rule_over_a_grid():

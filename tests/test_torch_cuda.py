@@ -343,24 +343,26 @@ def test_cuda_memory_stats_reads_the_allocator(cuda):
                                              (130, 130, 130, 0), (128, 256, 128, 0),
                                              (256, 256, 256, 0), (128, 128, 128, 1),
                                              (8, 256, 384, 0), (24, 24, 24, 1), (32, 10, 32, 0)])
-def test_tile_engine_mirror_matches_the_kernel(cuda, bm, bk, bn, offset):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_tile_engine_mirror_matches_the_kernel(cuda, bm, bk, bn, offset, dtype):
     """The host mirror of ``tile_gemm::pick_engine`` names the engine the
     kernel launched, read from the kernel's name in a ``torch.profiler``
-    trace (``Tile128`` / ``TileRows`` / ``Tile64`` template arguments);
-    ``offset`` shifts A by one float so its stack is no longer 16-byte aligned."""
+    trace (``Tile128`` / ``TileRows`` / ``Tile64`` template arguments, or
+    TileTC's own kernel); ``offset`` shifts A by one element so its stack is
+    no longer 16-byte aligned."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(10)
-    base = torch.randn(8 * bm * bk + offset, device=cuda)
+    base = torch.randn(8 * bm * bk + offset, device=cuda).to(dtype)
     A = base[offset:].view(8, bm, bk)
-    B = torch.randn((8, bk, bn), device=cuda)
+    B = torch.randn((8, bk, bn), device=cuda).to(dtype)
     a, b, c = _tasks(rng, 8, 8, 16, 40)
     args = (A, B, *ops.task_arrays(a, b, c, 16, cuda), 16)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         bsp.block_spmm_cuda(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "block_spmm" in e.name]
-    tags = {"Tile128": "tile128", "TileRows": "tilerows", "Tile64": "tile64"}
+    tags = {"Tile128": "tile128", "TileRows": "tilerows", "Tile64": "tile64", "_tc_kernel": "tiletc"}
     launched = {e for tag, e in tags.items() for nm in names if tag in nm}
     assert launched == {bsp.tile_engine(bm, bk, bn, (A, B))}, names
 
@@ -370,18 +372,37 @@ def _valid_engines(bm, bk, bn, tensors):
 
 
 def _engines_agree(A, B, a, b, c, nc):
-    """Every engine that takes the shape, forced on the same inputs: the
-    same bits, each within the plain version's limit and equal on repeat."""
+    """Every engine that takes the shape, forced on the same inputs: the FFMA
+    engines the same bits (one fmaf chain per element), TileTC (bf16 stores
+    on the tensor cores, summed in their order) its own; each equal on
+    repeat and within the plain version's limit, the rule's launch equal to
+    its engine's."""
     args = (A, B, *ops.task_arrays(a, b, c, nc, A.device), nc)
-    engines = _valid_engines(A.shape[1], A.shape[2], B.shape[2], (A, B))
+    bm, bk, bn = A.shape[1], A.shape[2], B.shape[2]
+    engines = _valid_engines(bm, bk, bn, (A, B))
     outs = {}
     for e in engines:
         outs[e] = bsp.block_spmm_cuda(*args, engine=e)
         assert torch.equal(outs[e], bsp.block_spmm_cuda(*args, engine=e)), e
     got = _check(A, B, a, b, c, nc)  # the rule's engine, against the plain version
+    assert torch.equal(outs[bsp.tile_engine(bm, bk, bn, (A, B))], got)
+    ffma = [e for e in engines if e != "tiletc"]
+    for e in ffma:
+        assert torch.equal(outs[e], outs[ffma[0]]), (e, float((outs[e] - outs[ffma[0]]).abs().max()))
+    want = bsp.block_spmm_ref(*args)
+    tol = torch.from_numpy(_tolerance(A, B, a, b, c, nc)).to(A.device)
     for e, out in outs.items():
-        assert torch.equal(out, got), (e, float((out - got).abs().max()))
+        assert ((out - want).abs().flatten(1).amax(1).double() <= tol).all(), e
     return engines, got
+
+
+def _tolerance(A, B, a, b, c, nc):
+    """REL * sum over each output block's tasks of ||A_t||_F ||B_t||_F (host)."""
+    na = torch.linalg.matrix_norm(A.double()).cpu().numpy()
+    nb = torch.linalg.matrix_norm(B.double()).cpu().numpy()
+    tol = np.zeros(nc)
+    np.add.at(tol, c, REL * na[a] * nb[b])
+    return tol
 
 
 @pytest.mark.parametrize("bs", [16, 24, 32, 48, 64, 96])
@@ -389,13 +410,15 @@ def _engines_agree(A, B, a, b, c, nc):
 def test_engines_agree_bit_for_bit_on_small_blocks(cuda, bs, dtype):
     """TileRows (bm <= 64) and Tile64 forced on the same tasks give the same
     bits at every small block size, aligned, off a 16-byte boundary, with a
-    ragged bk and bn, and at bn 200; empty runs are zeros in every engine."""
+    ragged bk and bn, and at bn 200; TileTC (bf16, bm >= 64) its own bits,
+    within the same limit; empty runs are zeros in every engine."""
     rng = np.random.default_rng(bs)
     A = torch.randn(30, bs, bs, device=cuda).to(dtype)
     B = torch.randn(30, bs, bs, device=cuda).to(dtype)
     a, b, c = _tasks(rng, 30, 30, 37, 300, empty=(0, 5, 17, 36))
     engines, got = _engines_agree(A, B, a, b, c, 37)
     assert ("tilerows" in engines) == (bs <= 64) and "tile64" in engines
+    assert ("tiletc" in engines) == (dtype == torch.bfloat16 and bs >= 64)
     assert not got[[0, 5, 17, 36]].any()
     _engines_agree(_misaligned(A), _misaligned(B), a, b, c, 37)
     ragged = torch.randn(30, bs, 10, device=cuda).to(dtype), torch.randn(30, 10, bs + 3, device=cuda).to(dtype)
@@ -446,11 +469,16 @@ def test_fused_engines_agree_bit_for_bit(cuda, bs, mode):
     again = fl.fused_block_spmm_cuda(*args, **kw)
     want = fl.fused_block_spmm_ref(*args, **kw)
     torch.cuda.synchronize()
-    assert engines == ["tile64", "tilerows"]
+    # TileTC takes bf16 stores of 64 rows and more, and sums in its own order
+    assert engines == ["tile64", "tilerows"] + (["tiletc"] if mode == "bf16" and bs >= 64 else [])
+    assert torch.equal(outs[engines.index(bsp.tile_engine(bs, bs, bs, args[:4]))], again)
+    tol = _fused_tolerance(args, kw.get("on"))
     for e, out in zip(engines, outs, strict=True):
-        assert torch.equal(out, again), e
+        if e != "tiletc":
+            assert torch.equal(out, outs[0]), e
+        assert ((out - want).abs().flatten(2).amax(dim=2).double() <= tol).all(), e
     err = (again - want).abs().flatten(2).amax(dim=2).double()
-    assert (err <= _fused_tolerance(args, kw.get("on"))).all()
+    assert (err <= tol).all()
     assert not again[:, [2, 8, 9, 18]].any()
     if mode == "fp32":
         all_on = torch.ones(args[4].shape, dtype=torch.bool, device=cuda)
@@ -482,6 +510,63 @@ def test_empty_runs_write_zeros_in_every_engine(cuda):
         none = ops.task_arrays(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.int64), 9, cuda)
         for e in _valid_engines(bs, bs, bs, (A,)):
             assert not bsp.block_spmm_cuda(A, A, *none, 9, engine=e).any()
+
+
+@pytest.mark.parametrize("bm", [64, 107, 128, 150, 200])
+@pytest.mark.parametrize("bk,bn", [(1024, 2048), (40, 200)])
+def test_tiletc_matches_the_plain_versions(cuda, bm, bk, bn):
+    """TileTC (bf16 stores on the tensor cores) at one to four warpgroups of
+    rows, a ragged last warpgroup, a ragged bk and bn: ``block_spmm`` and the
+    fused kernel (three workers, receive rounds) within the plain versions'
+    limit, both bit-identical on repeat, the fused kernel bit-identical to
+    the staged path (concatenated stacks through ``block_spmm``), empty runs
+    zeros; every launch on TileTC."""
+    rng = np.random.default_rng(bm + bk)
+    A = torch.randn(5, bm, bk, device=cuda).to(torch.bfloat16)
+    B = (torch.randn(4, bk, bn, device=cuda) * bk**-0.5).to(torch.bfloat16)
+    a, b, c = _tasks(rng, 5, 4, 7, 16, empty=(2, 6))
+    before = dict(bsp.launches_by_tiles), dict(fl.launches_by_tiles)
+    got = _check(A, B, a, b, c, 7)
+    assert not got[[2, 6]].any()
+    args = _fused_problem(cuda, rng, 3, 12, bm, bk, bn, torch.bfloat16, cap=3, cap_u=2, num_out=5,
+                          empty=(1, 4))
+    fused = fl.fused_block_spmm_cuda(*args)
+    again = fl.fused_block_spmm_cuda(*args)
+    want = fl.fused_block_spmm_ref(*args)
+    a_all, b_all, sa, sb, sc, snc = _staged_operands(args)
+    staged = ops.block_spmm(a_all, b_all, sa, sb, sc, snc, impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(fused, again)
+    assert torch.equal(fused.reshape(staged.shape), staged)
+    err = (fused - want).abs().flatten(2).amax(dim=2).double()
+    assert (err <= _fused_tolerance(args)).all(), float(err.max())
+    assert not fused[:, [1, 4]].any()
+    tc = ("tiletc", 1)
+    assert bsp.launches_by_tiles[tc] - before[0].get(tc, 0) == 3
+    assert fl.launches_by_tiles[tc] - before[1].get(tc, 0) == 2
+
+
+def test_tiletc_empty_runs_and_no_tasks_write_zeros(cuda):
+    """Whole tiles with no task, a kernel with no task, and a fused launch
+    whose receive stacks hold no block: zeros where no task writes (the
+    output is allocated with torch.empty)."""
+    A = torch.randn(4, 128, 64, device=cuda).to(torch.bfloat16)
+    B = torch.randn(4, 64, 256, device=cuda).to(torch.bfloat16)
+    c = np.array([0, 0, 19])
+    args = (A, B, *ops.task_arrays(np.array([0, 1, 2]), np.array([3, 2, 1]), c, 20, cuda), 20)
+    out = bsp.block_spmm_cuda(*args)
+    assert bsp.tile_engine(128, 64, 256, (A, B)) == "tiletc"
+    assert not out[1:19].any() and out[0].any() and out[19].any()
+    none = ops.task_arrays(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.int64), 9, cuda)
+    assert not bsp.block_spmm_cuda(A, B, *none, 9).any()
+    rng = np.random.default_rng(6)
+    args = _fused_problem(cuda, rng, 2, 10, 128, 64, 256, torch.bfloat16, rounds=0)  # own stores only
+    empty_recv = (args[0], args[1][:, :0], args[2], args[3][:, :0]) + args[4:]
+    assert not empty_recv[1].numel() and not empty_recv[3].numel()
+    got = fl.fused_block_spmm_cuda(*empty_recv)
+    err = (got - fl.fused_block_spmm_ref(*args)).abs().flatten(2).amax(dim=2).double()
+    assert (err <= _fused_tolerance(args)).all()
+    assert not got[:, [2, 8]].any()
 
 
 def test_forced_engine_that_does_not_take_the_shape_raises(cuda):
@@ -547,7 +632,8 @@ def _tiles_case(dev, case, dtype):
 def test_every_tiles_candidate_is_bit_for_bit_the_rule(cuda, case, dtype):
     """Every ``(engine, pack)`` the tuner may pick, forced in both kernels on
     the same tasks: the rule's bits (the rule's launch within the plain
-    version's limit), the fused kernel's equal to ``block_spmm``'s."""
+    version's limit), the fused kernel's equal to ``block_spmm``'s; at a
+    TileTC shape (bf16, bs 64) the only candidate is TileTC's own."""
     A, B, a, b, c, nc = _tiles_case(cuda, case, dtype)
     bm, bk, bn = A.shape[1], A.shape[2], B.shape[2]
     want = _check(A, B, a, b, c, nc)  # engine=None with an empty cache: the rule
@@ -555,7 +641,10 @@ def test_every_tiles_candidate_is_bit_for_bit_the_rule(cuda, case, dtype):
     fargs = _one_worker(A, B, a, b, c, nc)
     cands = autotune.candidate_tiles(bm, bk, bn, (A, B))
     assert autotune.heuristic_tiles(bm, bk, bn, (A, B)) in cands
-    assert ("tilerows", bsp.rows_pack(bm, bn)) in cands and ("tilerows", 1) in cands
+    if bsp.engine_takes("tiletc", bm, bk, bn, (A, B)):  # bf16 at bm 64: TileTC's bits alone
+        assert cands == [("tiletc", 1)]
+    else:
+        assert ("tilerows", bsp.rows_pack(bm, bn)) in cands and ("tilerows", 1) in cands
     for e, p in cands:
         assert torch.equal(bsp.block_spmm_cuda(*args, engine=e, pack=p), want), (e, p)
         assert torch.equal(fl.fused_block_spmm_cuda(*fargs, engine=e, pack=p)[0], want), (e, p)
@@ -929,6 +1018,29 @@ def test_moe_block_spmm_route_matches_the_cpu_and_repeats(cuda, capacity_factor)
     assert bsp.launches == before + 6
     assert torch.equal(got, again)
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_moe_block_spmm_route_in_bf16_runs_on_tiletc(cuda):
+    """The MoE route in bf16 at Ce 160 (TileTC, two warpgroups and a ragged
+    third): three TileTC launches a call, bit-identical on repeat, within
+    1e-2 * max|out| of the CPU's plain route on the same bf16 inputs (the
+    expert GEMMs' fp32 sums differ in order, then round to bf16)."""
+    from repro_torch.models import moe
+
+    D, F, E, K = 128, 256, 8, 2
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v.to(torch.bfloat16) for k, v in moe.moe_init(gen, D, F, E, "silu").items()}
+    x = torch.randn((2, 256, D), generator=gen).to(torch.bfloat16)
+    kw = dict(num_experts=E, top_k=K, act="silu", capacity_factor=1.25, gemm_impl="block_spmm")
+    want = moe.moe_apply(p, x, **kw)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    before = bsp.launches_by_tiles.get(("tiletc", 1), 0)
+    got = moe.moe_apply(pc, x.to(cuda), **kw)
+    again = moe.moe_apply(pc, x.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert bsp.launches_by_tiles.get(("tiletc", 1), 0) == before + 6
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 1e-2 * float(want.float().abs().max())
 
 
 def test_grouped_gemm_varsize_on_the_card_matches_its_plain_version(cuda):

@@ -22,11 +22,12 @@ from repro_torch.kernels import ops
 REL = 1e-5
 
 
-def _stack(shape, offset=0):
-    """A contiguous CPU stack whose data starts ``offset`` floats past an aligned base."""
-    base = torch.empty(int(np.prod(shape)) + 4, dtype=torch.float32)
-    lead = (-base.data_ptr() % 16) // 4 + offset
-    return base[lead:lead + int(np.prod(shape))].view(shape)
+def _stack(shape, offset=0, dtype=torch.float32):
+    """A contiguous CPU stack whose data starts ``offset`` elements past an aligned base."""
+    n = int(np.prod(shape))
+    base = torch.empty(n + 16, dtype=dtype)
+    lead = (-base.data_ptr() % 16) // base.element_size() + offset
+    return base[lead:lead + n].view(shape)
 
 
 @pytest.mark.parametrize("bm,bk,bn,offset,want", [
@@ -55,24 +56,69 @@ def test_tile_engine_rule(bm, bk, bn, offset, want):
     assert bsp.engine_id(want, bm, bk, bn, (A, B)) == bsp.ENGINES[want]
 
 
-def test_engine_rule_over_a_grid_of_shapes_and_alignments():
+@pytest.mark.parametrize("bm,bk,bn,offset,want", [
+    (32, 32, 32, 0, "tilerows"),      # below one warpgroup's 64 rows
+    (63, 64, 64, 0, "tilerows"),
+    (64, 64, 64, 0, "tiletc"),
+    (107, 7168, 2048, 0, "tiletc"),   # kimi-k2's expert GEMMs at capacity 107 and 150
+    (107, 2048, 7168, 0, "tiletc"),
+    (128, 128, 128, 0, "tiletc"),     # the band's bs 128 leaf
+    (150, 7168, 2048, 0, "tiletc"),
+    (256, 256, 256, 0, "tiletc"),
+    (300, 64, 64, 0, "tiletc"),       # two row tiles
+    (128, 40, 200, 0, "tiletc"),      # ragged bk and bn, whole 16-byte chunks
+    (128, 124, 128, 0, "tile64"),     # bk not a multiple of 8
+    (128, 128, 130, 0, "tile64"),     # bn not a multiple of 8
+    (128, 128, 128, 1, "tile64"),     # A off a 16-byte boundary
+    (107, 64, 64, 4, "tile64"),
+    (64, 64, 64, 1, "tilerows"),
+])
+def test_tile_engine_rule_of_bf16_stacks(bm, bk, bn, offset, want):
+    """TileTC takes bf16 stores only: the same shapes with fp32 stacks keep
+    the FFMA engines' rule, and the kernels' C rule reads the store type as
+    the host mirror reads it, from the stacks."""
+    bf = (_stack((2, bm, bk), offset, torch.bfloat16), _stack((2, bk, bn), 0, torch.bfloat16))
+    f32 = (_stack((2, bm, bk), offset), _stack((2, bk, bn)))
+    assert bsp.tile_engine(bm, bk, bn, bf) == want
+    assert bsp.engine_takes("tiletc", bm, bk, bn, bf) == (want == "tiletc")
+    assert not bsp.engine_takes("tiletc", bm, bk, bn, f32)
+    assert bsp.tile_engine(bm, bk, bn, f32) != "tiletc"
+    assert bsp.tile_engine(bm, bk, bn, f32) == (
+        "tile128" if bsp.engine_takes("tile128", bm, bk, bn, f32) else
+        "tilerows" if bm <= 64 else "tile64")
+    assert not bsp.engine_takes("tiletc", bm, bk, bn)  # no stacks: no store type
+    # a forced FFMA engine still takes bf16 stores; TileTC is refused on fp32 ones
+    assert bsp.engine_id("tile64", bm, bk, bn, bf) == bsp.ENGINES["tile64"]
+    with pytest.raises(ValueError, match="tiletc"):
+        bsp.engine_id("tiletc", bm, bk, bn, f32)
+    mixed = (bf[0], f32[1])
+    assert not bsp.engine_takes("tiletc", bm, bk, bn, mixed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_engine_rule_over_a_grid_of_shapes_and_alignments(dtype):
     """Tile64 takes every shape, TileRows exactly bm <= 64, Tile128 exactly
-    the aligned multiples of 128; the rule picks Tile128 where it can, else
-    TileRows where it can, else Tile64."""
+    the aligned multiples of 128, TileTC exactly the aligned bf16 stacks of
+    bm >= 64 with bk and bn multiples of 8; the rule picks TileTC where it
+    can, else Tile128, else TileRows, else Tile64."""
     seen = set()
-    for bm in (1, 7, 8, 9, 16, 24, 40, 56, 63, 64, 65, 96, 127, 128, 130, 256):
-        for bk in (1, 8, 10, 16, 100, 128, 256):
-            for bn in (1, 8, 33, 64, 128, 130, 256):
+    bf16 = dtype == torch.bfloat16
+    for bm in (1, 7, 8, 9, 16, 24, 32, 40, 56, 63, 64, 65, 96, 107, 127, 128, 130, 150, 256):
+        for bk in (1, 8, 10, 16, 40, 100, 128, 256):
+            for bn in (1, 8, 33, 64, 128, 130, 200, 256):
                 for offset in (0, 1, 2):
-                    A, B = _stack((2, bm, bk), offset), _stack((2, bk, bn))
+                    A, B = _stack((2, bm, bk), offset, dtype), _stack((2, bk, bn), 0, dtype)
                     takes = {e for e in bsp.ENGINES if bsp.engine_takes(e, bm, bk, bn, (A, B))}
                     aligned = offset == 0
                     assert "tile64" in takes
                     assert ("tilerows" in takes) == (bm <= 64)
                     assert ("tile128" in takes) == (
                         aligned and bm % 128 == 0 and bn % 128 == 0 and bk % 8 == 0)
+                    assert ("tiletc" in takes) == (
+                        bf16 and aligned and bm >= 64 and bk % 8 == 0 and bn % 8 == 0)
                     pick = bsp.tile_engine(bm, bk, bn, (A, B))
-                    want = ("tile128" if "tile128" in takes else
+                    want = ("tiletc" if "tiletc" in takes else
+                            "tile128" if "tile128" in takes else
                             "tilerows" if "tilerows" in takes else "tile64")
                     assert pick == want
                     seen.add(pick)
@@ -82,7 +128,7 @@ def test_engine_rule_over_a_grid_of_shapes_and_alignments():
                         else:
                             with pytest.raises(ValueError, match=e):
                                 bsp.engine_id(e, bm, bk, bn, (A, B))
-    assert seen == set(bsp.ENGINES)
+    assert seen == set(bsp.ENGINES) - ({"tile128"} if bf16 else {"tiletc"})
     with pytest.raises(ValueError):
         bsp.engine_id("tile32", 8, 8, 8)
     assert not bsp.engine_takes("tile64", 0, 8, 8)
