@@ -16,11 +16,15 @@ and run through the same Python wrappers on the same inputs:
   experts, 8-row tiles of [8, 4096] @ [4096, 1536]), and ``fused_block_spmm``
   on its fused timing case (the bs-128 band planned for 8 workers): the two
   versions' outputs must be bit-identical;
-- ``flash_attention`` on qwen2-0.5b's layer in fp32 and bf16, and on
-  ``chip_smoke.py``'s D 128 and D 256 cases in fp32: each version's output is
-  held against the plain version with ``chip_smoke.py``'s limit.
+- ``flash_attention`` on qwen2-0.5b's layer in fp32 and bf16, on
+  ``chip_smoke.py``'s D 128 and D 256 cases in both types and on its kimi-k2
+  rank layer (D 112) in bf16: each version's output is held against the
+  plain version with ``chip_smoke.py``'s limit.
 
-Each kernel is timed with CUDA events in turns old, new, new, old, and the
+``--only flash`` (or ``gemm``) runs one half.
+
+Each kernel is timed with CUDA events in turns old, new, new, old (the flash
+kernels in device time, queued behind a spinning kernel), and the
 current version is run back to back for about a second while ``nvidia-smi``
 samples the SM clock and the power draw.  The result is one JSON object on
 the last line of standard output (and in ``--out``); it names the card and
@@ -45,14 +49,14 @@ sys.path.insert(0, str(ROOT))
 NAMES = ("block_spmm", "fused_block_spmm", "flash_attention")
 
 
-def build_old(old_dir: Path) -> dict[str, ctypes.CDLL]:
+def build_old(old_dir: Path, names=NAMES) -> dict[str, ctypes.CDLL]:
     """Compile the older sources, one ``nvcc`` each, all at once."""
     from repro_torch.kernels import build
 
     out_dir = ROOT / "build" / "kernel_compare"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in NAMES:
+    for name in names:
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}-old.so"),
                str(old_dir / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -72,19 +76,21 @@ class Versions:
         from repro_torch.kernels import build
 
         self.build = build
-        self.new = {name: build.load_library(name) for name in NAMES}
+        self.new = {name: build.load_library(name) for name in old}
         self.old = old
 
     def use(self, which: str) -> None:
         self.build._libraries.update(self.old if which == "old" else self.new)
 
 
-def turns(ctx, versions, fn, reps: int) -> dict:
-    """ms of ``fn`` for each version, timed in turns old, new, new, old."""
+def turns(ctx, versions, fn, reps: int, device: bool = False) -> dict:
+    """ms of ``fn`` for each version, timed in turns old, new, new, old
+    (``device``: the card's time alone, ``chip_smoke.Context.device_ms``)."""
     times = {"old": [], "new": []}
+    timer = ctx.device_ms if device else ctx.time_ms
     for which in ("old", "new", "new", "old"):
         versions.use(which)
-        times[which].append(ctx.time_ms(fn, reps=reps))
+        times[which].append(timer(fn, reps=reps))
     versions.use("new")
     return dict(old_ms=times["old"], new_ms=times["new"],
                 speedup=sum(times["old"]) / sum(times["new"]))
@@ -131,7 +137,7 @@ def flash_turns(ctx, versions, result, case, q32, k32, v32, dtype, kw) -> None:
         row[f"{which}_err_over_limit"] = cs.flash_excess(got, q, k, v, **kw)[1]
     versions.use("new")
     call = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
-    row.update(turns(ctx, versions, call, 20), new_under_load=clocks_during(call))
+    row.update(turns(ctx, versions, call, 20, device=True), new_under_load=clocks_during(call))
     name = f"flash_attention_{str(dtype).replace('torch.', '')}"
     result[name if case == "qwen2_0_5b_layer" else f"{name}_{case}"] = dict(case=case, **row)
 
@@ -191,6 +197,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--old", type=Path, required=True, help="directory of the older csrc sources")
     p.add_argument("--out", type=Path, default=None, help="also write the JSON result here")
+    p.add_argument("--only", choices=("gemm", "flash"), default=None, help="run one half")
     args = p.parse_args(argv)
 
     import torch
@@ -206,15 +213,18 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     ctx = cs.Context(torch, rehearse=False)
-    versions = Versions(build_old(args.old))
+    names = {"gemm": NAMES[:2], "flash": NAMES[2:]}.get(args.only, NAMES)
+    versions = Versions(build_old(args.old, names))
     result = dict(card=card, old_sources=str(args.old))
 
-    bsp_args, fused_args, T = gemm_cases(ctx)
-    small = small_gemm_cases(ctx)
-    gemms = [("block_spmm", lambda: bsp.block_spmm_cuda(*bsp_args), "band_bs128_f32", T),
-             ("fused_block_spmm", lambda: fl.fused_block_spmm_cuda(*fused_args), "band_p8_bs128_f32", T)]
-    gemms += [(f"block_spmm_{case}", lambda a=a: bsp.block_spmm_cuda(*a), case, n)
-              for case, (a, n) in small.items()]
+    gemms = []
+    if args.only != "flash":
+        bsp_args, fused_args, T = gemm_cases(ctx)
+        small = small_gemm_cases(ctx)
+        gemms = [("block_spmm", lambda: bsp.block_spmm_cuda(*bsp_args), "band_bs128_f32", T),
+                 ("fused_block_spmm", lambda: fl.fused_block_spmm_cuda(*fused_args), "band_p8_bs128_f32", T)]
+        gemms += [(f"block_spmm_{case}", lambda a=a: bsp.block_spmm_cuda(*a), case, n)
+                  for case, (a, n) in small.items()]
     for name, fn, case, T in gemms:
         versions.use("old")
         old = fn()
@@ -228,11 +238,12 @@ def main(argv=None) -> int:
                             **turns(ctx, versions, fn, 3 if "grouped" in case else 10),
                             new_under_load=clocks_during(fn))
         del old, new
-    del small
+    gemms = small = None
 
-    flash_cases = (("qwen2_0_5b_layer", (torch.float32, torch.bfloat16)),
-                   ("d128_hk1", (torch.float32,)), ("d256_hk1", (torch.float32,)))
-    for case, dtypes in flash_cases:
+    both = (torch.float32, torch.bfloat16)
+    flash_cases = (("qwen2_0_5b_layer", both), ("d128_hk1", both), ("d256_hk1", both),
+                   ("kimi_k2_rank", (torch.bfloat16,)))
+    for case, dtypes in flash_cases if args.only != "gemm" else ():
         B, H, HK, Sq, Sk, D, causal, window = cs.FLASH_FULL[case]
         gen = torch.Generator(device=ctx.dev).manual_seed(13)
         q32, k32, v32 = (torch.randn(sh, generator=gen, device=ctx.dev)

@@ -342,6 +342,8 @@ sys.path.insert(0, str(ROOT / "src"))
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+SMS, EX2_PER_SM_CLOCK = 132, 16  # the H100's SMs, and ex2 an SM's special function units give a clock
+BF16_FLASH_BUCKETS = (64, 112, 128, 256)  # the bf16 flash kernel's instantiations
 # per output block: |dC|_max <= REL * sum over its tasks of ||A_t||_F ||B_t||_F,
 # because the kernel and the plain version sum each element in another order
 REL = 1e-5
@@ -589,23 +591,42 @@ def phase_build(ctx) -> dict:
         f32 = {f: r for f, r in flash.items() if f.startswith("flash_attention_f32_kernel")}
         check(len(f32) == 3, f"build: ptxas reported {sorted(f32)} for the fp32 flash kernel, "
                              "expected D 64, 128 and 256")
-        for f, r in f32.items():
+        bf16 = {f: r for f, r in flash.items() if f.startswith("flash_attention_bf16_kernel")}
+        check(sorted(bf16) == sorted(f"flash_attention_bf16_kernel<{d}>" for d in BF16_FLASH_BUCKETS),
+              f"build: ptxas reported {sorted(bf16)} for the bf16 flash kernel, "
+              f"expected D {BF16_FLASH_BUCKETS}")
+        for f, r in {**f32, **bf16}.items():
             check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"build: {f} spills registers: {r}")
+        for f, r in bf16.items():
+            check(not r["wgmma_serialized"], f"build: ptxas serialises {f}'s wgmma: {r}")
     return out
 
 
 def ptxas_by_function(log: str) -> dict:
-    """``{kernel<DMAX>: {registers, spill_stores, spill_loads}}`` from the flash
-    library's ``nvcc -Xptxas -v`` output (mangled names shortened)."""
+    """``{kernel<DMAX>: {registers, spill_stores, spill_loads, wgmma_serialized}}``
+    from the flash library's ``nvcc -Xptxas -v`` output (mangled names
+    shortened; ``wgmma_serialized``: ptxas noted that it serialises the
+    kernel's wgmma, C7510-C7519).  ``registers`` is ptxas' count for the
+    whole kernel, the launch bound's share; the bf16 kernel's warpgroups then
+    take 24 (producer) and 240 (consumers) by ``setmaxnreg``."""
     import re
+
+    def short(mangled):
+        m = re.search(r"(flash_attention_(?:f32|bf16)_kernel)ILi(\d+)E", mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
 
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            short = re.search(r"(flash_attention_(?:f32|bf16)_kernel)ILi(\d+)E", entry.group(1))
-            name = f"{short.group(1)}<{short.group(2)}>" if short else entry.group(1)
-            out[name] = dict(registers=None, spill_stores=None, spill_loads=None)
+            name = short(entry.group(1))
+            out.setdefault(name, dict(registers=None, spill_stores=None, spill_loads=None,
+                                      wgmma_serialized=False))
+            continue
+        serial = re.search(r"wgmma\.mma_async instructions are serialized.*function '(\w+)'", line)
+        if serial:
+            out.setdefault(short(serial.group(1)), dict(registers=None, spill_stores=None, spill_loads=None,
+                                                       wgmma_serialized=False))["wgmma_serialized"] = True
             continue
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills and name:
@@ -2493,7 +2514,18 @@ def phase_dist_pipeline_profile(ctx, sizes) -> dict:
     return out
 
 
-def flash_bound(q, k, live_pairs: int) -> dict:
+def card_sm_clock_hz():
+    """The SM clock the card reports as its most (``nvidia-smi``'s
+    ``clocks.max.sm``), in Hz; None where there is no card."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True)
+        return float(smi.stdout.split()[0]) * 1e6
+    except (OSError, subprocess.CalledProcessError, ValueError, IndexError):
+        return None
+
+
+def flash_bound(q, k, live_pairs: int, sm_clock_hz=None) -> dict:
     """Least time for one flash-attention call on an H100: operations or bytes.
 
     Operations: 2 * D per live (query, key) pair for each product.
@@ -2506,6 +2538,9 @@ def flash_bound(q, k, live_pairs: int) -> dict:
     PV in fp32 FFMA beside QK^T on the tensor cores (the two units run at
     once, so the larger time bounds): no kernel that runs PV on FFMA beats it.
     Bytes: q, k, v read once and o written once in the input type.
+    ``softmax_exp2_ms`` is the softmax's exponential term, beside the bound
+    and not part of it: one ex2 per live pair at 16 an SM a clock on 132 SMs
+    at the SM clock the card reports (``sm_clock_hz``; None off the card).
     """
     B, H, Sq, D = q.shape
     half = 2.0 * D * live_pairs  # the operations of one product
@@ -2514,7 +2549,11 @@ def flash_bound(q, k, live_pairs: int) -> dict:
     out = dict(live_pairs=live_pairs, bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                bound_arithmetic=(f"max(4*{D}*{live_pairs} op / 67e12 op/s = {t_ops * 1e3:.4f} ms, "
-                                 f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"))
+                                 f"{nbytes} B / 3.35e12 B/s = {t_bytes * 1e3:.4f} ms)"),
+               softmax_exp2_ms=(live_pairs / (SMS * EX2_PER_SM_CLOCK * sm_clock_hz) * 1e3
+                                if sm_clock_hz else None),
+               softmax_exp2_arithmetic=(f"{live_pairs} ex2 / ({SMS} SMs * {EX2_PER_SM_CLOCK} a clock * "
+                                        f"{sm_clock_hz:.4g} Hz)" if sm_clock_hz else "no card"))
     if str(q.dtype) == "torch.bfloat16":
         t_tc, t_qk, t_pv = 3 * half / BF16_FLOPS, half / BF16_FLOPS, half / FP32_FLOPS
         out.update(bf16_bound_ms=max(t_tc, t_bytes) * 1e3,
@@ -2579,6 +2618,25 @@ def flash_excess(got, q, k, v, **kw) -> tuple[float, float]:
     return err, excess
 
 
+def flash_host_us(ctx, kernel, calls: int = 200) -> dict:
+    """Host microseconds a launch takes, by type: ``calls`` launches of a
+    one-tile case back to back (each a few microseconds on the card, so the
+    host sets the pace), then one synchronise.  The bf16 launch encodes three
+    tensor maps that the fp32 one does not; the difference is their cost."""
+    torch = ctx.torch
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 1, 128, 64), device=ctx.dev).to(dtype)
+        kernel(q, q, q)
+        ctx.sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            kernel(q, q, q)
+        ctx.sync()
+        out[str(dtype).replace("torch.", "")] = (time.perf_counter() - t0) * 1e6 / calls
+    return out
+
+
 def phase_flash_kernel(ctx, sizes) -> dict:
     torch = ctx.torch
     from repro_torch.kernels import flash_attention as fa
@@ -2587,6 +2645,7 @@ def phase_flash_kernel(ctx, sizes) -> dict:
     gen = torch.Generator(device=ctx.dev).manual_seed(13)
     results, timing = [], {}
     cases = sizes["flash"]
+    sm_clock_hz = None if ctx.rehearse else card_sm_clock_hz()
     for name, (B, H, HK, Sq, Sk, D, causal, window) in cases.items():
         kw = dict(causal=causal, window=window)
         q32, k32, v32 = (torch.randn(sh, generator=gen, device=ctx.dev)
@@ -2618,12 +2677,14 @@ def phase_flash_kernel(ctx, sizes) -> dict:
                       f"{name}: the bf16 check passes a version that rounds p to bf16")
             if name in FLASH_TIMED:
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                ms = ctx.time_ms(lambda: kernel(q, k, v, **kw), reps=20)
+                # device time: a bf16 launch at D 128 takes about as long on the card
+                # as on the host, so the host's pace would set a wall-clock time
+                ms = ctx.device_ms(lambda: kernel(q, k, v, **kw), reps=20)
                 plain_ms = ctx.time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), reps=3)
-                sdpa_ms = ctx.time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True), reps=20)
-                bound = flash_bound(q, k, live)
+                sdpa_ms = ctx.device_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True), reps=20)
+                bound = flash_bound(q, k, live, sm_clock_hz)
                 t = timing.setdefault(name, {})[row["dtype"]] = dict(
-                    case=name, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                    case=name, D=D, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                     sdpa=f"torch.nn.functional.scaled_dot_product_attention(is_causal={causal}, "
                          "enable_gqa=True), yardstick only",
                     tflops=4.0 * D * live / (ms * 1e-3) / 1e12, bound_share=bound["bound_ms"] / ms, **bound)
@@ -2631,7 +2692,8 @@ def phase_flash_kernel(ctx, sizes) -> dict:
                     t.update(bf16_bound_share=bound["bf16_bound_ms"] / ms,
                              bf16_tflops=3 * 2.0 * D * live / (ms * 1e-3) / 1e12)
             results.append(row)
-    out = dict(phase="flash_kernel", cases=results, timing=timing)
+    out = dict(phase="flash_kernel", cases=results, timing=timing,
+               host_us_per_launch=flash_host_us(ctx, kernel), sm_clock_hz=sm_clock_hz)
     emit(out)
     return out
 
@@ -5777,7 +5839,7 @@ def run_phases(torch, args, card) -> int:
         print(f"chip_smoke: {fn.__name__} {walls[fn.__name__]:.1f} s", file=sys.stderr, flush=True)
         return out
 
-    phase(phase_build, ctx)
+    built = phase(phase_build, ctx)
     sweep = start_dryrun_sweep(sizes)  # host only: beside the card phases up to dryrun
     try:
         phase(phase_analysis, ctx)
@@ -5831,7 +5893,14 @@ def run_phases(torch, args, card) -> int:
                         max_abs_err=max(c["max_abs_err"] for c in flash["cases"] if c["dtype"] == dtype),
                         ms=t["ms"], plain_ms=t["plain_ms"],
                         bound_ms=t["bf16_bound_ms"] if bf16 else t["bound_ms"],
-                        bound_by=t["bf16_bound_by"] if bf16 else t["bound_by"], library_ms=t["sdpa_ms"])
+                        bound_by=t["bf16_bound_by"] if bf16 else t["bound_by"], library_ms=t["sdpa_ms"],
+                        host_us_per_launch=flash["host_us_per_launch"][dtype],
+                        ptxas={f: r for f, r in built.get("flash_ptxas", {}).items()
+                               if f.startswith(f"flash_attention_{'bf16' if bf16 else 'f32'}_kernel")},
+                        cases=[{k: flash["timing"][c][dtype].get(k) for k in (
+                            "case", "D", "ms", "plain_ms", "sdpa_ms", "bound_ms", "bound_share",
+                            "bf16_bound_ms", "bf16_bound_share", "softmax_exp2_ms")}
+                               for c in FLASH_TIMED if dtype in flash["timing"].get(c, {})])
 
         emit({"kernels": [
             dict(name="block_spmm", route="cuda", source="src/repro_torch/kernels/csrc/block_spmm.cu",

@@ -16,23 +16,23 @@
 // Design shared by both kernels.  The TPU kernel walks kv tiles along a
 // sequential grid axis with (m, l, acc) in VMEM scratch.  Hopper blocks run
 // in no order, so one thread block owns one (batch, q head, q tile) and
-// walks its kv tiles (64 keys each) in ascending order in a loop inside the
-// block; m and l stay in registers, the accumulator stays in fp32
-// registers, and the output is stored once.  No atomics: the result is
-// bit-identical from launch to launch.  A kv tile is skipped only when none
-// of its (row, column) pairs is live: the live keys of a q tile form the
-// contiguous range (q_first - window, q_last], so the loop runs over exactly
-// the tiles that meet it.  Ragged Sq and Sk are masked at the edges; strides
-// are taken for the batch, head and sequence axes (the head dim is
+// walks its kv tiles (64 keys; 128 in bf16 up to D 128) in ascending order
+// in a loop inside the block; m and l stay in registers, the accumulator
+// stays in fp32 registers, and the output is stored once.  No atomics: the
+// result is bit-identical from launch to launch.  A kv tile is skipped only
+// when none of its (row, column) pairs is live: the live keys of a q tile
+// form the contiguous range (q_first - window, q_last], so the loop runs over
+// exactly the tiles that meet it.  Ragged Sq and Sk are masked at the edges;
+// strides are taken for the batch, head and sequence axes (the head dim is
 // contiguous), so `[B, S, H, D]` activations are read and written without a
 // transposed copy; offsets are 64-bit.  Blocks are issued last q tile first,
-// so the longest causal rows start first.  The head dim selects one of three
-// instantiations (D <= 64, 128, 256) that size the shared tiles.  Both
-// kernels build the mask only on a tile that crosses an edge (the ragged
-// ends, the diagonal, the window's edge; the softmax is compiled for full
-// and partial tiles), fold the scale into the one FFMA before ex2.approx in
-// log2 units (relative error ~2^-22), and rescale the accumulator only
-// where a row max moved.
+// so the longest causal rows start first.  The head dim selects an
+// instantiation that sizes the shared tiles (fp32: D <= 64, 128, 256; bf16:
+// also 112).  Both kernels build the mask only on a tile that crosses an
+// edge (the ragged ends, the diagonal, the window's edge; the softmax is
+// compiled for full and partial tiles), fold the scale into the one FFMA
+// before ex2.approx in log2 units (relative error ~2^-22), and rescale the
+// accumulator only where a row max moved.
 //
 // fp32 (flash_attention_f32, namespace ffma): plain fp32 FFMA, as the Pallas
 // kernel's fp32 dots; no TF32 and no tensor cores.  Bound: 4 * D operations
@@ -67,40 +67,62 @@
 // tiles (a decode-style suffix) leaves most SMs idle.
 //
 // bf16 (flash_attention_bf16, namespace tc): both products on the bf16
-// tensor cores with fp32 accumulation, at the Pallas kernel's precision.
+// tensor cores with fp32 accumulation, at the Pallas kernel's precision, in
+// the shape of a Hopper kernel: TMA, a producer and two consumer warpgroups.
 // - S = Q K^T: the products of bf16 values are exact in fp32, as in the
-//   Pallas kernel's fp32 dot of upcast bf16.  One warpgroup (128 threads)
-//   per block issues wgmma.m64n64k16 with Q and K in shared memory.
+//   Pallas kernel's fp32 dot of upcast bf16.  wgmma with Q and K in shared
+//   memory, m64n128k16 over 128-key tiles (m64n64k16 over 64-key tiles at D
+//   256, where the accumulator and a wider score tile would not fit).
 // - The mask, scale and online softmax run in fp32 registers on the
-//   accumulator fragment (the finite -1e30 sentinel, p = 0 on masked pairs,
-//   the safe divide), in log2 units for exp2.
+//   accumulator fragment (-inf on pairs that are not live, so the finite
+//   -1e30 start of m never meets exp(-inf + inf); the safe divide), in log2
+//   units for exp2.
 // - P V with P split in two: p_hi = bf16(p), p_lo = bf16(p - p_hi), and
 //   acc += p_hi V + p_lo V, two wgmma products with P taken from registers
 //   (the accumulator fragment repacked as the A operand: no shared-memory
 //   round trip) and V in shared memory as the transposed B operand.  Each
 //   product of bf16 values is exact, and |p - p_hi - p_lo| <= 2^-16 p, so the
 //   output moves by at most 2^-16 max|v|.  A single bf16 P would not do: it
-//   moves the output by up to 2^-8 max|v|.
-// - Q, K and V stay bf16 in shared memory in the 128-byte swizzled layout
-//   wgmma reads (64-column atoms of 64 rows x 128 bytes; the contraction is
-//   zero-padded to DMAX); Q is loaded once, and the K/V tiles are
-//   double-buffered and copied by cp.async, so the next tile's copy runs
-//   while this tile's products and softmax do.  One barrier per tile.
-// - The issue slots are the scarce resource, so each thread's copy
-//   addresses are worked out once per block, the mask is built only on a
-//   tile that crosses an edge, the diagonal or the window's edge (the
-//   softmax is compiled for full and partial tiles), the scale is folded
-//   into the one FFMA before ex2, and the accumulator is rescaled only when
-//   a row max moved.
+//   moves the output by up to 2^-8 max|v|.  One wgmma spans the bucket's
+//   output columns across 64-column atoms (the atom stride is the leading
+//   offset), so D 112 computes 112 columns, not 128.
+// - A work item is 128 query rows of one (batch, head).  A persistent block
+//   (one an SM) walks items, dealt round by round in alternating directions
+//   so that long and short causal items even out; at D 256 a block takes one
+//   item (the loop's state would spill).  In a block: a producer warpgroup
+//   whose first thread loads each item's Q, once the previous Q is read, and
+//   the K and V tiles of its live range by TMA (tensor maps over (D, S,
+//   head, batch) built at each launch from the strides; the 128-byte swizzle
+//   wgmma reads; zeros past Sk and D) into a ring of 2-4 stages that runs
+//   across items, each stage with a full barrier armed with its bytes and an
+//   empty one the consumers release; and two consumer warpgroups of 64 rows
+//   that share every stage.  So an item's loads run under the previous
+//   item's tail and store.  setmaxnreg moves registers to the consumers (24
+//   for the producer, 240 each).  They ping-pong on two named barriers: one
+//   issues its products while the other runs its softmax.  Within a
+//   consumer, S(j) is issued with P(j - 1) V, and the softmax of tile j runs
+//   while that product does (wgmma.wait_group 1).
+// - Head-dim buckets 64, 112 (D 72-112: 7 k16 steps of QK^T, N 112 in P V),
+//   128 and 256.  The bucket's k16 steps run whatever D (the columns past D
+//   are TMA's zeros): a step count known only at run time makes ptxas
+//   serialise every wgmma of the kernel (C7515).
+// - Kept from the earlier design: only the kv tiles of the live range, the
+//   last q tile first (the items' order), the mask only on tiles that cross
+//   an edge (the softmax compiled for full and partial tiles), the scale
+//   folded into one FFMA before ex2, the accumulator rescaled only where a
+//   row max moved, one bf16 store (acc times 1 / l).
 // Bound: three products of 2 * D operations per live score at 989 TFLOP/s
 // (QK^T, p_hi V, p_lo V); the bytes of q, k, v and o at 3.35 TB/s are far
-// below it.  What still holds it back: one warpgroup does the softmax
-// between its own products (no ping-pong of two warpgroups, no producer
-// warp, no TMA), so the tensor cores idle during the softmax and the waits
-// unless another block on the SM fills them.
+// below it.  What holds it back (PERF.md, a clock64 profile of the kv loop,
+// benchmarks/torch_flash_profile.py): each consumer's softmax and split of P
+// take longer than the other consumer's products, so the tensor cores wait
+// on them, most at D 64; and the issue of an iteration's wgmma stalls behind
+// the other consumer's products.  At D 256 two 64 KB stages wait on L2.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
@@ -108,8 +130,7 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block of the bf16 kernel
-constexpr int BKV = 64;        // keys per kv tile (both kernels)
+constexpr int BKV = 64;        // keys per kv tile of the fp32 kernel
 constexpr float NEG = -1e30f;  // the finite mask sentinel of the Pallas kernel
 
 struct Params {
@@ -124,12 +145,11 @@ struct Params {
 
 namespace tc {
 
-constexpr int NT = 128;               // one warpgroup per block: BQ = 64 query rows
-constexpr int TILE_BYTES = 64 * 128;  // one 64-row x 64-column bf16 atom (128-byte rows)
-
-// the descriptor, fence / commit / wait, the register fence and the swizzled
-// TileCopy (wgmma.cuh), shared with the GEMM engines' TileTC
+// the descriptor, fence / commit, the register fence, mbarriers and TMA
+// (wgmma.cuh), shared with the GEMM engines' TileTC
 using namespace wgmma;
+
+constexpr int PRODUCER_REGS = 24;  // setmaxnreg of the producer warpgroup
 
 // 2^x by the special function unit (relative error ~2^-22; results below
 // 2^-126 flush to 0, far below the fp32 sums they join)
@@ -139,13 +159,29 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// d (+)= A @ B, m64n64k16, both operands in shared memory (K-major), fp32 accumulate
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                         int accumulate) {
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barriers 1 and 2 (0 is __syncthreads'), 256 threads: the two consumers
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// d (+)= A @ B, m64n64k16: A [64, 16] and B [64, 16] both K-major in shared
+// memory (S = Q K^T: q rows and k rows along d), fp32 accumulate; d is
+// zeroed first where `accumulate` is 0
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                       int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -157,13 +193,43 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d += A @ B, m64n64k16, A from registers (the fragment of mma.m16n8k16 per
-// warp), B in shared memory N-major (transposed), fp32 accumulate
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+// d (+)= A @ B, m64n128k16: A [64, 16] and B [128, 16] both K-major in shared
+// memory (S = Q K^T: q rows and k rows along d), fp32 accumulate; d is
+// zeroed first where `accumulate` is 0
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A @ B, m64n64k16: A from registers (the m16n8k16 A fragment per
+// warp), B [16, 64] N-major in shared memory (imm-trans-b 1), fp32 accumulate
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -175,232 +241,538 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <int DMAX>
-constexpr size_t smem_bytes() {
-  // q, then two stages of (k, v); 1024 more to align the atoms to 1024 bytes
-  return static_cast<size_t>(5) * (DMAX / 64) * TILE_BYTES + 1024;
+// d += A @ B, m64n112k16: A from registers (the m16n8k16 A fragment per
+// warp), B [16, 112] N-major in shared memory (imm-trans-b 1), fp32 accumulate
+__device__ __forceinline__ void mma_rs(float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The online-softmax step on one 64 x 64 score tile, held as the wgmma
+// d += A @ B, m64n128k16: A from registers (the m16n8k16 A fragment per
+// warp), B [16, 128] N-major in shared memory (imm-trans-b 1), fp32 accumulate
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A @ B, m64n256k16: A from registers (the m16n8k16 A fragment per
+// warp), B [16, 256] N-major in shared memory (imm-trans-b 1), fp32 accumulate
+__device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+// One head-dim bucket: DN output columns (the N of the P V wgmma: no column
+// past the bucket is computed), NA 64-column atoms a row of Q, K and V
+// occupies in shared memory (TMA zero-fills the columns past D), BKV keys a
+// kv tile (the N of QK^T), STAGES K/V stages in the ring.
+template <int DMAX> struct Bucket;
+template <> struct Bucket<64> { static constexpr int DN = 64, NA = 1, BKV = 128; };
+template <> struct Bucket<112> { static constexpr int DN = 112, NA = 2, BKV = 128; };
+template <> struct Bucket<128> { static constexpr int DN = 128, NA = 2, BKV = 128; };
+template <> struct Bucket<256> { static constexpr int DN = 256, NA = 4, BKV = 64; };
+
+template <int DMAX>
+struct Layout {
+  using B = Bucket<DMAX>;
+  static constexpr int DN = B::DN, NA = B::NA, BKV = B::BKV;
+  static constexpr int NC = 2;              // consumer warpgroups
+  // a block walks items until they run out (one block an SM), except at D
+  // 256: the accumulator leaves no registers for the state such a loop
+  // carries (ptxas spilled 40 bytes), so a block takes one item there
+  static constexpr bool PERSISTENT = DMAX != 256;
+  static constexpr int BQ = 64 * NC;        // query rows per block: 64 per consumer
+  static constexpr int NT = 128 * (NC + 1);  // the producer warpgroup, then the consumers
+  // setmaxnreg of a consumer: all the registers the producer leaves
+  static constexpr int CONSUMER_REGS = (65536 / 128 - PRODUCER_REGS) / NC / 8 * 8;
+  static constexpr int QK_STEPS = (DMAX + 15) / 16;  // k16 steps of QK^T at D = DMAX
+  static constexpr int Q_BYTES = NC * NA * ATOM_BYTES;  // each consumer's 64 rows
+  static constexpr int KV_ATOM = BKV * 128;            // one 64-column box of a kv tile
+  static constexpr int STAGE_BYTES = 2 * NA * KV_ATOM; // K, then V
+  // as many stages as shared memory holds, at most 4
+  static constexpr int STAGES = (232448 - 1024 - 256 - Q_BYTES) / STAGE_BYTES < 4
+                                    ? (232448 - 1024 - 256 - Q_BYTES) / STAGE_BYTES : 4;
+  // Q, the ring, then the barriers: Q's full and empty, a full and an empty one a stage
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr size_t smem_bytes = 1024 + BAR_OFF + 8 * (2 + 2 * STAGES);
+  static_assert(smem_bytes <= 232448, "a block takes at most 227 KB of shared memory");
+  static_assert(BKV % 16 == 0 && DN % 8 == 0 && DN <= 64 * NA, "wgmma shapes");
+};
+
+// The online-softmax step on one 64-row score tile held as the wgmma
 // accumulator fragment s: s[4j + e] is (row r0, key 8j + cq + e) and
-// s[4j + 2 + e] is (row r0 + 8, the same key).  Scores are scaled by sl2
-// (the softmax scale in log2 units, so that exp2 serves), masked pairs (a
-// clear bit of `live`; FULL: none) count as -1e30 in the max and give p = 0,
-// m and l take the rescale alpha, and p is split into bf16 A fragments
-// p_hi = bf16(p), p_lo = bf16(p - p_hi) for the two PV products: keys
-// 16kk .. 16kk + 15 are s[8kk .. 8kk + 7], as a0 (r0, low keys), a1 (r0 + 8,
-// low keys), a2 (r0, keys + 8), a3 (r0 + 8, keys + 8).
-template <bool FULL>
-__device__ __forceinline__ void softmax_tile(const float (&s)[32], uint32_t live, float sl2,
-                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
-                                             uint32_t (&phi)[4][4], uint32_t (&plo)[4][4]) {
-  float mx[2] = {NEG, NEG};  // the row max of the raw scores
+// s[4j + 2 + e] is (row r0 + 8, the same key).  Masked pairs hold -inf, so
+// they leave the row max alone and give p = 0.  Scores are scaled by sl2
+// (the softmax scale in log2 units) in the one FMA before ex2; m and this
+// thread's share of l take the rescale alpha, and s is overwritten by p.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float sl2, float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};  // the row max of the raw scores
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int hr = (i / 2) % 2;  // 0: row r0, 1: row r0 + 8
-    mx[hr] = fmaxf(mx[hr], FULL || (live >> i) & 1u ? s[i] : NEG);
-  }
+  for (int i = 0; i < NS; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
   float neg_m[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
     mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
     // sl2 > 0, so the max of the scaled scores is the scaled max; a row with
-    // no live pair in this tile keeps the sentinel
-    const float m_new = fmaxf(m[hr], mx[hr] == NEG ? NEG : mx[hr] * sl2);
+    // no live pair in this tile (mx = -inf) keeps m, and m starts at the
+    // finite sentinel, so alpha is never exp(-inf + inf)
+    const float m_new = fmaxf(m[hr], mx[hr] * sl2);
     alpha[hr] = exp2_approx(m[hr] - m_new);
     m[hr] = m_new;
     l[hr] *= alpha[hr];
     neg_m[hr] = -m_new;
   }
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int hr = (i / 2) % 2;
-    float pv[2];
+  for (int i = 0; i < NS; ++i) {
+    s[i] = exp2_approx(fmaf(s[i], sl2, neg_m[(i / 2) % 2]));
+    l[(i / 2) % 2] += s[i];
+  }
+}
+
+// p split into bf16 A fragments for the two P V products, p_hi = bf16(p) and
+// p_lo = bf16(p - p_hi), straight from the accumulator fragment: keys 16kk
+// .. 16kk + 15 are s[8kk .. 8kk + 7], as a0 (r0, low keys), a1 (r0 + 8, low
+// keys), a2 (r0, keys + 8), a3 (r0 + 8, keys + 8)
+template <int NS>
+__device__ __forceinline__ void split_p(const float (&s)[NS], uint32_t (&phi)[NS / 8][4],
+                                        uint32_t (&plo)[NS / 8][4]) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float x = exp2_approx(fmaf(s[i + e], sl2, neg_m[hr]));
-      pv[e] = FULL || (live >> (i + e)) & 1u ? x : 0.f;
-      l[hr] += pv[e];
-    }
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[0], pv[1]);
-    const float2 hf = __bfloat1622float2(hi);
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(pv[0] - hf.x, pv[1] - hf.y);
-    phi[i / 8][(i % 8) / 2] = *reinterpret_cast<const uint32_t*>(&hi);
+  for (int i = 0; i < NS; i += 2) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(s[i], s[i + 1]);
+    const uint32_t h = *reinterpret_cast<const uint32_t*>(&hi);
+    // hi back in fp32: a bf16 is the upper half of its fp32 (one op each)
+    const float2 hf = make_float2(__uint_as_float(h << 16), __uint_as_float(h & 0xffff0000u));
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(s[i] - hf.x, s[i + 1] - hf.y);
+    phi[i / 8][(i % 8) / 2] = h;
     plo[i / 8][(i % 8) / 2] = *reinterpret_cast<const uint32_t*>(&lo);
   }
 }
 
+// S = Q K^T of one kv tile into s: A = the consumer's q rows at qa, B = the
+// k tile at kb, both K-major; the kk-th 16 columns of d lie 32 bytes into
+// atom kk / 4.  The bucket's QK_STEPS k16 steps, whatever D (columns past D
+// are zeros): a step count known only at run time makes ptxas serialise
+// every wgmma of the kernel (C7515).
 template <int DMAX>
-__global__ void __launch_bounds__(NT)
-flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            Params p) {
-  constexpr int NA = DMAX / 64;  // 64-column atoms (and output slices)
-  constexpr int KSTEPS = DMAX / 16;
+__device__ __forceinline__ void issue_qk(float (&s)[Layout<DMAX>::BKV / 2], uint32_t qa, uint32_t kb) {
+  using L = Layout<DMAX>;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::QK_STEPS; ++kk)
+    mma_ss(s, desc(qa + (kk / 4) * ATOM_BYTES + (kk % 4) * 32, 16, 1024),
+           desc(kb + (kk / 4) * L::KV_ATOM + (kk % 4) * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+}
+
+// acc += p_hi V + p_lo V of one kv tile: V at vb is the N-major B operand,
+// keys 16kk .. 16kk + 15 2048 bytes (two 8-row groups) apart; one wgmma
+// spans the DN columns' atoms, their stride the leading offset
+template <int DMAX>
+__device__ __forceinline__ void issue_pv(float (&acc)[Layout<DMAX>::DN / 2],
+                                         uint32_t (&phi)[Layout<DMAX>::BKV / 16][4],
+                                         uint32_t (&plo)[Layout<DMAX>::BKV / 16][4], uint32_t vb) {
+  using L = Layout<DMAX>;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::BKV / 16; ++kk) {
+    const uint64_t dv = desc(vb + kk * 2048, L::KV_ATOM, 1024);
+    mma_rs(acc, phi[kk], dv);
+    mma_rs(acc, plo[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// rescale the accumulator where a row max moved (alpha == 1 elsewhere; once
+// the maxima settle this is skipped)
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&alpha)[2]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] *= alpha[(i / 2) % 2];
+  }
+}
+
+// -inf on the pairs of a score tile that are not live: rows past `rows`,
+// keys past kv_rows, and where causal or the window excludes them (qpos -
+// kpos = rel + row - col)
+template <int NS>
+__device__ __forceinline__ void mask_tile(float (&s)[NS], int r0, int cq, int rows, int kv_rows,
+                                          long long rel, int causal, int window) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int row = r0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + cq + (i % 2);
+    const long long diff = rel + row - col;
+    bool ok = row < rows && col < kv_rows;
+    if (causal) ok = ok && diff >= 0;
+    if (window > 0) ok = ok && diff < window;
+    if (!ok) s[i] = -INFINITY;
+  }
+}
+
+// The softmax of kv tile kt for one consumer's rows (w_first: the position
+// of its row 0), after the mask where the tile crosses an edge (the ragged
+// ends, the diagonal, the window's edge; uniform across the warpgroup, so the
+// softmax is compiled for full and partial tiles)
+template <int DMAX>
+__device__ __forceinline__ void softmax_kv(float (&s)[Layout<DMAX>::BKV / 2], int kt, const Params& p,
+                                           int r0, int cq, int rows, long long w_first, float sl2,
+                                           float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+  constexpr int BKV = Layout<DMAX>::BKV;
+  const int k0 = kt * BKV;
+  const int kv_rows = min(BKV, p.sk - k0);
+  const bool full = rows == 64 && kv_rows == BKV && (!p.causal || k0 + BKV - 1 <= w_first) &&
+                    (p.window <= 0 || k0 > w_first + 63 - p.window);
+  if (!full) mask_tile(s, r0, cq, rows, kv_rows, w_first - k0, p.causal, p.window);
+  softmax_tile(s, sl2, m, l, alpha);
+}
+
+#ifdef FLASH_PROFILE
+// A build with -DFLASH_PROFILE=<block> records, in block <block>, the SM
+// clock at eight points of each kv-loop iteration (the first 64) of the first
+// warp of each consumer (benchmarks/torch_flash_profile.py reads it).
+__device__ long long flash_profile[2][64][8];
+#define PROFILE_MARK(k) \
+  if (profiled && lane == 0 && warp == 0 && j < 64) flash_profile[c][j][k] = clock64();
+#else
+#define PROFILE_MARK(k)
+#endif
+
+// One work item: a q tile of BQ rows of one (batch, q head), and the kv
+// tiles [kt_begin, kt_begin + n) of its live range.  Items are numbered with
+// the q tile slowest and the last q tile first, so that every head's longest
+// causal rows come before any shorter ones and the q heads of one kv head sit
+// side by side.
+template <int DMAX>
+struct Item {
+  int q0, h, b, hk, kt_begin, n;
+
+  __device__ __forceinline__ Item(int t, int tiles, const Params& p) {
+    using L = Layout<DMAX>;
+    const int nq = (p.sq + L::BQ - 1) / L::BQ;
+    const int per_tile = tiles / nq;  // heads x batch
+    q0 = (nq - 1 - t / per_tile) * L::BQ;
+    h = t % per_tile % p.heads;
+    b = t % per_tile / p.heads;
+    hk = h / p.rep;
+    // the kv tiles that hold a live (row, key) pair of the tile's rows
+    const long long q_first = static_cast<long long>(q0) + p.sk - p.sq;
+    const long long q_last = q_first + min(L::BQ, p.sq - q0) - 1;
+    const int nkv = (p.sk + L::BKV - 1) / L::BKV;
+    int end = nkv;
+    kt_begin = 0;
+    if (p.causal) end = q_last < 0 ? 0 : static_cast<int>(min(static_cast<long long>(nkv), q_last / L::BKV + 1));
+    if (p.window > 0) {
+      const long long lowest = q_first - p.window + 1;
+      if (lowest > 0) kt_begin = static_cast<int>(min(static_cast<long long>(nkv), lowest / L::BKV));
+    }
+    n = max(end - kt_begin, 0);
+  }
+};
+
+// The item of round r for block g of G: rounds of G items in order, dealt
+// to the blocks in alternating directions (g, then G - 1 - g), so that the
+// long and the short causal tiles even out over the rounds; -1 past the end.
+__device__ __forceinline__ int item_of(int r, int g, int G, int tiles) {
+  const int t = r * G + ((r & 1) ? G - 1 - g : g);
+  return t < tiles ? t : -1;
+}
+
+// A persistent block (one an SM): a producer warpgroup, whose first thread
+// loads each item's Q once its previous Q is read and the kv tiles of its
+// live range by TMA into a ring of STAGES stages that runs across items (a
+// full barrier armed with the stage's bytes, an empty one the 8 consumer
+// warps release), and two consumer warpgroups, each owning 64 query rows of
+// the item's 128 and sharing every stage.  The next item's Q and first kv
+// tiles load while this item's last products, softmax and store run.
+template <int DMAX>
+__global__ void __launch_bounds__(Layout<DMAX>::NT, 1)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                            Params p, int tiles) {
+  using L = Layout<DMAX>;
+  constexpr int NA = L::NA, NC = L::NC, BKV = L::BKV, STAGES = L::STAGES, DN = L::DN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sq = base;  // q tile, then two stages of (k, v)
-  const uint32_t sk[2] = {base + NA * TILE_BYTES, base + 3 * NA * TILE_BYTES};
-  const uint32_t sv[2] = {base + 2 * NA * TILE_BYTES, base + 4 * NA * TILE_BYTES};
+  const uint32_t sq = base, ring = base + L::Q_BYTES;
+  const uint32_t q_full = base + L::BAR_OFF, q_empty = q_full + 8, full = q_empty + 8,
+                 empty = full + 8 * STAGES;
+  const int g = blockIdx.x, G = gridDim.x;
 
-  const int iq = gridDim.x - 1 - blockIdx.x;  // last q tile first: longest causal rows
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.rep;
-  const int q0 = iq * BQ;
-  const int rows = min(BQ, p.sq - q0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = 16 * warp + lane / 4;  // this thread's rows r0 and r0 + 8
-  const int cq = 2 * (lane % 4);        // and keys / columns 8j + cq, 8j + cq + 1
-
-  const __nv_bfloat16* qb = q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const __nv_bfloat16* kb = k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vb = v + b * p.v_sb + hk * p.v_sh;
-  __nv_bfloat16* ob = o + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
-
-  // the kv tiles that hold a live (row, key) pair, as in the fp32 kernel
-  const long long q_first = static_cast<long long>(q0) + p.sk - p.sq;
-  const long long q_last = q_first + rows - 1;
-  const int nkv = (p.sk + BKV - 1) / BKV;
-  int kt_begin = 0, kt_end = nkv;
-  if (p.causal) kt_end = q_last < 0 ? 0 : static_cast<int>(min(static_cast<long long>(nkv), q_last / BKV + 1));
-  if (p.window > 0) {
-    const long long lowest = q_first - p.window + 1;
-    if (lowest > 0) kt_begin = static_cast<int>(min(static_cast<long long>(nkv), lowest / BKV));
-  }
-
-  const float sl2 = p.scale * 1.4426950408889634f;  // the scale in log2 units
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sums
-  float acc[NA][32];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * NC);  // one arrival a consumer warp
 #pragma unroll
-  for (int n = 0; n < NA; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
-
-  const TileCopy<DMAX> tiles(p.d);
-  if (kt_begin < kt_end) {
-    tiles.copy(qb, p.q_ss, rows, sq);
-    tiles.copy(kb + kt_begin * BKV * p.k_ss, p.k_ss, p.sk - kt_begin * BKV, sk[0]);
-    tiles.copy(vb + kt_begin * BKV * p.v_ss, p.v_ss, p.sk - kt_begin * BKV, sv[0]);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int st = (kt - kt_begin) & 1;
-    const int k0 = kt * BKV;
-    // this tile has landed (own copies) and is visible to wgmma (the async
-    // proxy); the barrier covers everyone's copies, and the other stage was
-    // last read in the previous iteration, which every thread has finished
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (kt + 1 < kt_end) {  // the next tile's copy overlaps this tile's math
-      const int k1 = k0 + BKV;
-      tiles.copy(kb + k1 * p.k_ss, p.k_ss, p.sk - k1, sk[st ^ 1]);
-      tiles.copy(vb + k1 * p.v_ss, p.v_ss, p.sk - k1, sv[st ^ 1]);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NC);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T: A = q tile, B = k tile, both K-major; the kk-th 16 columns
-    // of d lie 32 bytes into atom kk / 4
-    float s[32];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- the producer: its first thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    int it = 0, qi = 0;  // kv tiles and Q tiles loaded so far
+    for (int r = 0, t; (t = item_of(r, g, G, tiles)) >= 0; ++r) {
+      const Item<DMAX> w(t, tiles, p);
+      if (w.n == 0) continue;
+      // Q's buffer is free once the previous item's last S = Q K^T is done
+      if (qi > 0) mbar_wait(q_empty, (qi - 1) & 1);
+      ++qi;
+      mbar_arrive_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wgmma_fence();
+      for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const uint32_t off = (kk / 4) * TILE_BYTES + (kk % 4) * 32;
-      wgmma_ss(s, desc(sq + off, 16, 1024), desc(sk[st] + off, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(s);
-
-    // the mask is needed only on a tile that crosses an edge, the diagonal
-    // or the window's edge (uniform across the block)
-    const int kv_rows = min(BKV, p.sk - k0);
-    const bool full = rows == BQ && kv_rows == BKV && (!p.causal || k0 + BKV - 1 <= q_first) &&
-                      (p.window <= 0 || k0 > q_last - p.window);
-    float alpha[2];
-    uint32_t phi[4][4], plo[4][4];
-    if (full) {
-      softmax_tile<true>(s, 0u, sl2, m, l, alpha, phi, plo);
-    } else {
-      uint32_t live = 0;  // bit i: s[i] is a live pair
+        for (int a = 0; a < NA; ++a)
+          tma_load_4d(sq + (c * NA + a) * ATOM_BYTES, &tq, 64 * a, w.q0 + 64 * c, w.h, w.b, q_full);
+      for (int j = 0; j < w.n; ++j, ++it) {
+        const int s = it % STAGES;
+        // the stage is free once its previous tile is released
+        if (it >= STAGES) mbar_wait(empty + 8 * s, (it / STAGES - 1) & 1);
+        const uint32_t st = ring + s * L::STAGE_BYTES, bar = full + 8 * s;
+        const int k0 = (w.kt_begin + j) * BKV;
+        // the full boxes' bytes, the zero-filled parts past Sk and D included
+        mbar_arrive_expect_tx(bar, L::STAGE_BYTES);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int row = r0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + cq + (i % 2);
-        const long long qpos = q_first + row, kpos = k0 + col;
-        bool ok = row < rows && col < kv_rows;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        live |= static_cast<uint32_t>(ok) << i;
+        for (int a = 0; a < NA; ++a) tma_load_4d(st + a * L::KV_ATOM, &tk, 64 * a, k0, w.hk, w.b, bar);
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          tma_load_4d(st + (NA + a) * L::KV_ATOM, &tv, 64 * a, k0, w.hk, w.b, bar);
       }
-      softmax_tile<false>(s, live, sl2, m, l, alpha, phi, plo);
+      if (!L::PERSISTENT) break;
     }
-    // rescale the accumulator where a row max moved (alpha == 1 elsewhere;
-    // once the max settles this is skipped)
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+  } else {
+    // ---- a consumer: rows 64 c .. 64 c + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int r0 = 16 * warp + lane / 4;  // this thread's rows r0 and r0 + 8
+    const int cq = 2 * (lane % 4);        // and keys / columns 8j + cq, 8j + cq + 1
+    const uint32_t qa = sq + c * NA * ATOM_BYTES;
+    const float sl2 = p.scale * 1.4426950408889634f;  // the scale in log2 units
+    float s[BKV / 2];
 #pragma unroll
-      for (int n = 0; n < NA; ++n)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[n][i] *= alpha[(i / 2) % 2];
-    }
+    for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+    uint32_t phi[BKV / 16][4], plo[BKV / 16][4];
+    float acc[DN / 2];
+    int it = 0, qi = 0;  // kv tiles and Q tiles consumed so far
 
-    // acc += p_hi V + p_lo V: V is the N-major B operand; keys 16kk .. lie
-    // 2048 bytes (two 8-row groups of 1024 bytes) apart, output slice n in
-    // atom n.  An N of 64 is one swizzle atom wide, so the offset between
-    // atoms along N is never used: both offsets name the 8-row group stride.
+    for (int r = 0, t; (t = item_of(r, g, G, tiles)) >= 0; ++r) {
+      const Item<DMAX> w(t, tiles, p);
+      const int row0 = w.q0 + 64 * c;
+      const int rows = min(64, p.sq - row0);  // <= 0: a ragged tile's empty half
+      const long long w_first = static_cast<long long>(row0) + p.sk - p.sq;  // position of row 0
+      const int n = w.n;
+      float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
 #pragma unroll
-    for (int n = 0; n < NA; ++n) fence_regs(acc[n]);
-    wgmma_fence();
-#pragma unroll
-    for (int n = 0; n < NA; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dv = desc(sv[st] + n * TILE_BYTES + kk * 2048, 1024, 1024);
-        wgmma_rs(acc[n], phi[kk], dv);
-        wgmma_rs(acc[n], plo[kk], dv);
-      }
-    wgmma_commit();
-    wgmma_wait0();
-#pragma unroll
-    for (int n = 0; n < NA; ++n) fence_regs(acc[n]);
-  }
+      for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
 
-  // one store: acc / l, with l == 0 (no live key) dividing by 1
-  float den[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    den[hr] = l[hr] == 0.f ? 1.f : l[hr];
-  }
-#pragma unroll
-  for (int n = 0; n < NA; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int hr = (i / 2) % 2;
-      const int row = r0 + 8 * hr, col = n * 64 + 8 * (i / 4) + cq;
-      if (row < rows && col < p.d) {
-        const __nv_bfloat162 x = __floats2bfloat162_rn(acc[n][i] / den[hr], acc[n][i + 1] / den[hr]);
-        *reinterpret_cast<__nv_bfloat162*>(ob + row * p.o_ss + col) = x;
+      // Ping-pong: consumer c issues its products between bar_sync(1 + c)
+      // and bar_arrive on the next consumer's barrier, so the two take turns
+      // on the tensor cores and one's softmax runs while the other's products
+      // do.  Consumer 0 goes first.  Each issues n + 1 times an item and syncs
+      // as often; the last consumer leaves out the arrival after its last
+      // issue, which no sync would consume.
+      if (n > 0) {
+        if (c == NC - 1) bar_arrive(1);
+        mbar_wait(q_full, qi & 1);
+        ++qi;
+        mbar_wait(full + 8 * (it % STAGES), (it / STAGES) & 1);
+        bar_sync(1 + c);
+        issue_qk<DMAX>(s, qa, ring + it % STAGES * L::STAGE_BYTES);
+        bar_arrive(1 + (c + 1) % NC);
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (n == 1 && lane == 0) mbar_arrive(q_empty);  // Q is read
+        softmax_kv<DMAX>(s, w.kt_begin, p, r0, cq, rows, w_first, sl2, m, l, alpha);
+        rescale(acc, alpha);
+        split_p(s, phi, plo);
+        // Within the warpgroup: S(j) is issued with P(j - 1) V, and the
+        // softmax of tile j runs while that product does (wait_group 1)
+#ifdef FLASH_PROFILE
+        const bool profiled = g == FLASH_PROFILE && r == 0;
+#endif
+        for (int j = 1; j < n; ++j) {
+          const int st = (it + j) % STAGES, prev = (it + j - 1) % STAGES;
+          PROFILE_MARK(0)
+          mbar_wait(full + 8 * st, ((it + j) / STAGES) & 1);
+          PROFILE_MARK(1)
+          bar_sync(1 + c);
+          PROFILE_MARK(2)
+          issue_qk<DMAX>(s, qa, ring + st * L::STAGE_BYTES);
+          issue_pv<DMAX>(acc, phi, plo, ring + prev * L::STAGE_BYTES + NA * L::KV_ATOM);
+          bar_arrive(1 + (c + 1) % NC);
+          PROFILE_MARK(3)
+          wgmma_wait<1>();
+          fence_regs(s);
+          if (j == n - 1 && lane == 0) mbar_arrive(q_empty);  // Q is read
+          PROFILE_MARK(4)
+          softmax_kv<DMAX>(s, w.kt_begin + j, p, r0, cq, rows, w_first, sl2, m, l, alpha);
+          PROFILE_MARK(5)
+          wgmma_wait<0>();
+          fence_regs(acc);
+          PROFILE_MARK(6)
+          if (lane == 0) mbar_arrive(empty + 8 * prev);  // tile j - 1 is read
+          rescale(acc, alpha);  // by tile j's alpha, before P(j) V joins
+          split_p(s, phi, plo);
+          PROFILE_MARK(7)
+        }
+        const int last = (it + n - 1) % STAGES;
+        bar_sync(1 + c);
+        issue_pv<DMAX>(acc, phi, plo, ring + last * L::STAGE_BYTES + NA * L::KV_ATOM);
+        if (c < NC - 1) bar_arrive(2 + c);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(empty + 8 * last);
+        it += n;
       }
+
+      // one store: acc / l as acc * (1 / l), with l == 0 (no live key) giving 1
+      float den[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+        den[hr] = 1.f / (l[hr] == 0.f ? 1.f : l[hr]);
+      }
+      __nv_bfloat16* ob = o + w.b * p.o_sb + w.h * p.o_sh + static_cast<long long>(row0) * p.o_ss;
+#pragma unroll
+      for (int i = 0; i < DN / 2; i += 2) {
+        const int hr = (i / 2) % 2;
+        const int row = r0 + 8 * hr, col = 8 * (i / 4) + cq;
+        if (row < rows && col < p.d) {
+          const __nv_bfloat162 x = __floats2bfloat162_rn(acc[i] * den[hr], acc[i + 1] * den[hr]);
+          *reinterpret_cast<__nv_bfloat162*>(ob + row * p.o_ss + col) = x;
+        }
+      }
+      if (!L::PERSISTENT) break;
     }
+  }
+}
+
+// q [B, H, S, D] (or k, v with HK heads) as a 4-D tensor map over (D, S,
+// head, batch) from its element strides (batch, head, sequence), whose box
+// is box_rows rows of 64 columns
+inline bool encode_bhsd(CUtensorMap* map, const void* base, int batch, int heads, int seq, int d,
+                        const long long* strides, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  return encode_bf16(map, base, 4, dims, bytes, box_rows);
 }
 
 template <int DMAX>
-int launch_dmax(const void* q, const void* k, const void* v, void* o, int batch,
-                const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX>();
+int launch_dmax(const void* q, const void* k, const void* v, void* o, int batch, int kv_heads,
+                const long long* strides, const Params& p, cudaStream_t stream) {
+  using L = Layout<DMAX>;
+  CUtensorMap tq, tk, tv;
+  // an empty kv axis has no tile to load: its maps are q's, never read
+  const bool kv = p.sk > 0;
+  if (!encode_bhsd(&tq, q, batch, p.heads, p.sq, p.d, strides, 64) ||
+      !encode_bhsd(&tk, kv ? k : q, batch, kv ? kv_heads : p.heads, kv ? p.sk : p.sq, p.d,
+                   kv ? strides + 3 : strides, L::BKV) ||
+      !encode_bhsd(&tv, kv ? v : q, batch, kv ? kv_heads : p.heads, kv ? p.sk : p.sq, p.d,
+                   kv ? strides + 6 : strides, L::BKV))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<DMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(L::smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, batch);
-  flash_attention_bf16_kernel<DMAX><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), p);
+  // one persistent block an SM, at most one an item (one an item at D 256)
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long tiles = static_cast<long long>((p.sq + L::BQ - 1) / L::BQ) * p.heads * batch;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(tiles < sms || !L::PERSISTENT ? tiles : sms);
+  flash_attention_bf16_kernel<DMAX><<<grid, L::NT, L::smem_bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), p, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -796,9 +1168,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
     if (d <= 128) return ffma::launch_dmax<128>(qf, kf, vf, of, batch, p, stream);
     return ffma::launch_dmax<256>(qf, kf, vf, of, batch, p, stream);
   } else {
-    if (d <= 64) return tc::launch_dmax<64>(q, k, v, o, batch, p, stream);
-    if (d <= 128) return tc::launch_dmax<128>(q, k, v, o, batch, p, stream);
-    return tc::launch_dmax<256>(q, k, v, o, batch, p, stream);
+    if (d <= 64) return tc::launch_dmax<64>(q, k, v, o, batch, kv_heads, strides, p, stream);
+    if (d <= 112) return tc::launch_dmax<112>(q, k, v, o, batch, kv_heads, strides, p, stream);
+    if (d <= 128) return tc::launch_dmax<128>(q, k, v, o, batch, kv_heads, strides, p, stream);
+    return tc::launch_dmax<256>(q, k, v, o, batch, kv_heads, strides, p, stream);
   }
 }
 
@@ -807,8 +1180,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 // Plain C entry points, loaded with ctypes.  `strides` holds 12 element
 // strides: (batch, head, sequence) of q, k, v and o; the head dim is
 // contiguous.  The caller has checked 8 <= d <= 256, d % 8 == 0, 16-byte
-// aligned rows, heads % kv_heads == 0, heads and batch <= 65535.  Each returns
-// cudaGetLastError() after the launch: 0 when the launch was accepted.
+// aligned rows, heads % kv_heads == 0, heads and batch <= 65535, and for bf16
+// the strides TMA takes (16-byte multiples below 2^40; an axis of size 1
+// given any such stride).  Each returns cudaGetLastError() after the launch:
+// 0 when the launch was accepted; the bf16 one returns cudaErrorInvalidValue,
+// and launches nothing, where the driver refuses a tensor map.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                    int batch, int heads, int kv_heads, int sq, int sk, int d,
                                    const long long* strides, int causal, int window,
@@ -824,6 +1200,12 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   return launch<__nv_bfloat16>(q, k, v, o, batch, heads, kv_heads, sq, sk, d, strides, causal,
                                window, scale, stream);
 }
+
+#ifdef FLASH_PROFILE
+extern "C" int flash_attention_profile_read(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, tc::flash_profile, sizeof(tc::flash_profile)));
+}
+#endif
 
 extern "C" const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -769,45 +769,17 @@ struct TcMaps {
   CUtensorMap b[2];
 };
 
-// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
-// link against libcuda); null where the driver does not offer it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                  : nullptr;
-  }();
-  return fn;
-}
-
 // A bf16 stack [blocks, rows, cols] as a tensor map whose box is box_rows
 // rows of 64 columns (128-byte rows, the 128-byte swizzle) in one block;
 // loads past any edge read zeros.  False where the driver refuses it.
 inline bool encode_stack(CUtensorMap* map, const void* base, long long blocks, int rows, int cols,
                          int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || base == nullptr || blocks <= 0) return false;
+  if (blocks <= 0) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(blocks)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
                                  static_cast<cuuint64_t>(rows) * cols * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return wgmma::encode_bf16(map, base, 3, dims, strides, box_rows);
 }
 
 // The consumer warpgroups of a TileTC tile for blocks of bm rows: the whole

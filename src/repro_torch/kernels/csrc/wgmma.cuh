@@ -7,15 +7,15 @@
 //   fence that keeps the compiler from moving accumulator accesses across
 //   one, and m64n128k16 with both operands in shared memory (A K-major, B
 //   N-major: a row-major [k, n] tile).
-// - The swizzled layout: 64-row x 128-byte atoms (64 bf16 columns), 16-byte
-//   chunk c of row r at chunk c ^ (r % 8), atoms 1024-byte aligned.  wgmma
-//   reads it, TileCopy writes it by cp.async and TMA writes it with
-//   CU_TENSOR_MAP_SWIZZLE_128B.
+// - The swizzled layout: 64-column atoms of 128-byte rows, 16-byte chunk c
+//   of row r at chunk c ^ (r % 8), atoms 1024-byte aligned.  wgmma reads
+//   it, and TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B.
 // - mbarriers and TMA: a transaction barrier in shared memory that a
-//   producer arms with the bytes it expects, and a 3-D tensor-map load that
-//   completes those bytes on it.
+//   producer arms with the bytes it expects, 3-D and 4-D tensor-map loads
+//   that complete those bytes on it, and the host's tensor-map encoder.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -92,51 +92,6 @@ __device__ __forceinline__ void mma_m64n128k16_ss_tb(float (&d)[64], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// One thread's share of copying a [64, DMAX] bf16 tile (rows [0, rows),
-// columns [0, D); zeros past the edges) into shared memory as DMAX / 64
-// atoms of 64 rows x 128 bytes, with 16-byte chunk c of row r at chunk
-// c ^ (r % 8): the 128-byte swizzle wgmma reads.  Thread t of one
-// warpgroup copies chunk cc = t % CH of rows r_t + RSTEP j, so eight
-// consecutive threads copy one row's 128 contiguous bytes, and its
-// addresses are worked out once per block: a tile costs each thread JN
-// copies and a few adds.
-template <int DMAX>
-struct TileCopy {
-  static constexpr int NT = 128;          // the copying threads: one warpgroup
-  static constexpr int CH = DMAX / 8;     // 16-byte chunks per row
-  static constexpr int RSTEP = NT / CH;   // rows between one thread's chunks
-  static constexpr int JN = 64 / RSTEP;   // chunks per thread and tile
-  static_assert(RSTEP % 4 == 0, "the swizzle of row r_t + RSTEP j takes two values at most");
-  int r_t;
-  bool col_ok;
-  uint32_t soff[2];  // byte offset in the tile of chunk j = 0 and j = 1
-
-  __device__ __forceinline__ TileCopy(int D) {
-    const int cc = threadIdx.x % CH;
-    r_t = threadIdx.x / CH;
-    col_ok = cc * 8 < D;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = r_t + RSTEP * j;
-      soff[j] = (cc / 8) * ATOM_BYTES + r * 128 + (((cc % 8) ^ (r % 8)) << 4);
-    }
-  }
-
-  // src: row 0, column 0 of the tile in global memory
-  __device__ __forceinline__ void copy(const __nv_bfloat16* src, long long row_stride, int rows,
-                                       uint32_t dst) const {
-    const __nv_bfloat16* g = src + r_t * row_stride + (threadIdx.x % CH) * 8;
-    const long long step = RSTEP * row_stride;
-#pragma unroll
-    for (int j = 0; j < JN; ++j) {
-      const bool ok = col_ok && r_t + RSTEP * j < rows;
-      // chunk j sits RSTEP j rows below chunk j % 2 (a multiple of 8 rows when j is even)
-      cp_async16(dst + soff[j % 2] + (j - j % 2) * RSTEP * 128, ok ? g : src, ok);
-      g += step;
-    }
-  }
-};
-
 // ---- mbarriers (shared-memory addresses of 8-byte barriers)
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -178,6 +133,59 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap, int 
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The same for a 4-D tensor map (coordinates innermost first)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, int c0, int c1, int c2,
+                                            int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- tensor maps (host)
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// link against libcuda); null where the driver does not offer it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` axes (dims innermost first, the innermost
+// contiguous; strides in bytes of the outer rank - 1 axes) as a tensor map
+// whose box is 64 columns (128-byte rows, the 128-byte swizzle) by
+// box_rows rows of axis 1 and 1 along the others; loads past any edge read
+// zeros.  False where the driver refuses it (TMA: a 16-byte aligned base,
+// strides multiples of 16 bytes below 2^40).
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || base == nullptr || rank < 2 || rank > 5) return false;
+  cuuint32_t box[5] = {64, static_cast<cuuint32_t>(box_rows), 1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wgmma

@@ -118,6 +118,15 @@ def _error_string(code: int) -> str:
     return fn(code).decode()
 
 
+def _outer_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, head, sequence) element strides the kernel takes: as the
+    tensor has them, except on an axis of size 1, whose stride PyTorch leaves
+    free and no address uses; there it is the extent of the tensor, a valid
+    stride for the bf16 kernel's tensor maps."""
+    extent = max([t.shape[3]] + [s * n for s, n in zip(t.stride(), t.shape) if n > 1])
+    return tuple(s if n > 1 else extent for s, n in zip(t.stride()[:3], t.shape[:3]))
+
+
 def flash_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -133,8 +142,9 @@ def flash_attention_cuda(
     has q's strides when q is dense.  Runs on PyTorch's current stream and
     does not synchronise.  Raises on what the kernel does not take: a tensor
     off the card, another dtype, a head dim that is not a multiple of 8 in
-    [8, 256], mismatched shapes, unaligned or non-unit-stride rows, or a
-    launch the CUDA runtime refuses.
+    [8, 256], mismatched shapes, unaligned or non-unit-stride rows (for
+    bf16 also the tensor maps' rules: strides below 2^40 bytes), or a launch
+    the CUDA runtime refuses.
     """
     global launches
     _check_window(window)
@@ -157,13 +167,19 @@ def flash_attention_cuda(
     if H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
         raise ValueError(f"at most {_MAX_GRID_YZ} heads and batch rows, got H={H}, B={B}")
     out = torch.empty_like(q)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+    tensors = (("q", q), ("k", k), ("v", v), ("out", out))
+    strides = [_outer_strides(t) for _, t in tensors]
+    for (name, t), st in zip(tensors, strides):
+        if t.stride(3) != 1 or any(s % 8 for s in st) or t.data_ptr() % 16:
             raise ValueError(f"{name}: the head dim must be contiguous and the rows 16-byte "
                              f"aligned (strides {t.stride()})")
+        # the bf16 kernel reads q, k and v by TMA: a 16-byte aligned base and
+        # strides of a multiple of 16 bytes (above), below 2^40 bytes
+        if q.dtype == torch.bfloat16 and any(s * 2 >= 2**40 for s in st):
+            raise ValueError(f"{name}: a stride TMA cannot take (strides {t.stride()})")
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 12)(*(s for st in strides for s in st))
     fn = _kernel_function(q.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

@@ -121,6 +121,7 @@ SPLIT_P_CASES = {
     "qwen2_layer_s256": (1, 14, 2, 256, 256, 64, True, None),
     "window_suffix": (1, 14, 2, 64, 256, 64, True, 32),
     "noncausal_d80": (1, 4, 4, 128, 128, 80, False, None),
+    "kimi_k2_d112_rep8": (1, 16, 2, 256, 256, 112, True, None),
 }
 
 
@@ -246,6 +247,128 @@ def test_ffma_kernel_arithmetic_meets_the_fp32_limit(case):
     assert np.abs(got.numpy()[:, :, dead:] - pallas[:, :, dead:]).max() <= limit
 
 
+def _tc_bucket(D):
+    """The bf16 kernel's head-dim bucket: (output columns P V computes, keys a kv tile)."""
+    dn = 64 if D <= 64 else 112 if D <= 112 else 128 if D <= 128 else 256
+    return dn, 128 if D <= 128 else 64
+
+
+def _tc_kernel_attention(q, k, v, *, causal, window):
+    """The bf16 CUDA kernel's arithmetic in plain torch, tile by tile, on bf16
+    q, k, v: blocks of 128 query rows run as two 64-row halves (the two
+    consumer warpgroups) over the kv tiles of the block's live range (128
+    keys at D <= 128, 64 at D 256); per half and tile the fp32 scores
+    (products of bf16 values are exact), -inf on the pairs that are not live
+    where the half's tile crosses an edge (the ragged ends, the diagonal, the
+    window's edge) and no mask elsewhere, m_new = max(m, max(s) * sl2),
+    alpha = exp2(m - m_new), p = exp2(fma(s, sl2, -m_new)) (the fma taken in
+    float64 and rounded once), the accumulator rescaled only where a row max
+    moved, then acc += p_hi V + p_lo V with p_hi = bf16(p) and p_lo = bf16(p -
+    p_hi).  Returns the bf16 output, the fp32 one before that rounding, and
+    the counts of full and masked half-tiles, of rows whose rescale was
+    skipped and of kv tiles the live range skipped."""
+    B, H, Sq, D = q.shape
+    HK, Sk = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(H // HK, dim=1)
+    v = v.float().repeat_interleave(H // HK, dim=1)
+    q = q.float()
+    BQ, HALF = 128, 64
+    _, BKV = _tc_bucket(D)
+    sl2 = torch.tensor(D**-0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    out = torch.zeros(B, H, Sq, D)
+    counts = dict(full=0, masked=0, rescale_skipped=0, tiles_skipped=0)
+    nkv = -(-Sk // BKV)
+    for q0 in range(0, Sq, BQ):
+        q_first = q0 + Sk - Sq
+        q_last = q_first + min(BQ, Sq - q0) - 1
+        kt_begin, kt_end = 0, nkv
+        if causal:
+            kt_end = 0 if q_last < 0 else min(nkv, q_last // BKV + 1)
+        if window is not None and q_first - window + 1 > 0:
+            kt_begin = min(nkv, (q_first - window + 1) // BKV)
+        counts["tiles_skipped"] += nkv - max(kt_end - kt_begin, 0)
+        for row0 in (q0, q0 + HALF):
+            rows = min(HALF, Sq - row0)
+            if rows <= 0:  # a ragged block's empty half: its rows are never stored
+                continue
+            w_first = row0 + Sk - Sq
+            m = torch.full((B, H, rows), fa.NEG_INF)
+            l = torch.zeros(B, H, rows)
+            acc = torch.zeros(B, H, rows, D)
+            for kt in range(kt_begin, kt_end):
+                k0 = kt * BKV
+                kv_rows = min(BKV, Sk - k0)
+                s = torch.matmul(q[:, :, row0:row0 + rows], k[:, :, k0:k0 + kv_rows].transpose(-1, -2))
+                full = (rows == HALF and kv_rows == BKV and (not causal or k0 + BKV - 1 <= w_first)
+                        and (window is None or k0 > w_first + HALF - 1 - window))
+                if full:
+                    counts["full"] += 1
+                else:
+                    live = fa.attention_mask(torch.arange(rows) + w_first, torch.arange(kv_rows) + k0,
+                                             causal=causal, window=window)
+                    s = torch.where(live, s, -torch.inf)
+                    counts["masked"] += 1
+                m_new = torch.maximum(m, s.amax(-1) * sl2)
+                alpha = torch.exp2(m - m_new)
+                m = m_new
+                p = torch.exp2((s.double() * sl2.double() - m_new.double()[..., None]).float())
+                l = l * alpha + p.sum(-1)
+                moved = alpha != 1.0
+                acc = torch.where(moved[..., None], acc * alpha[..., None], acc)
+                counts["rescale_skipped"] += int((~moved).sum())
+                p_hi = p.to(torch.bfloat16).float()
+                p_lo = (p - p_hi).to(torch.bfloat16).float()
+                vt = v[:, :, k0:k0 + kv_rows]
+                acc = acc + torch.matmul(p_hi, vt) + torch.matmul(p_lo, vt)
+            out[:, :, row0:row0 + rows] = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.to(torch.bfloat16), out, counts
+
+
+# (B, H, HK, Sq, Sk, D, causal, window, Pallas bq / bkv): a ragged last q
+# tile on the causal diagonal (320 rows: the last block's second half is
+# empty), kimi-k2's GQA at D 112 (rep 8), D 96 in the 112 bucket on a
+# suffix, a window suffix ending mid-tile, and a non-causal D 256 ragged on
+# both axes (the last block 72 rows, the last kv tile 56 keys)
+TC_CASES = {
+    "d64_causal_ragged_q_tile": (1, 4, 2, 320, 320, 64, True, None, 64),
+    "d112_kimi_k2_rep8": (1, 16, 2, 192, 192, 112, True, None, 64),
+    "d96_bucket112_suffix": (1, 4, 2, 256, 384, 96, True, None, 64),
+    "window_suffix_mid_tile": (1, 4, 2, 128, 512, 64, True, 200, 64),
+    "d256_noncausal_ragged": (1, 2, 1, 200, 120, 256, False, None, 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tc_kernel_arithmetic_meets_the_bf16_limit(case):
+    """Pins the bf16 kernel's tiling before it reaches the card: 128-row
+    blocks as two 64-row halves, 128-key tiles (64 at D 256) over the live
+    range, the mask only on tiles that cross an edge, the rescale only where
+    a row max moved and the split P keep the bf16 result within the bf16
+    limit (2^-8 |want| + 1e-4 max|v|) of the plain version's fp32 result on
+    the same inputs, and the fp32 sums before the rounding within the same
+    limit of the Pallas kernel run in interpret mode on the same bf16 values."""
+    B, H, HK, Sq, Sk, D, causal, window, blk = TC_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = _to_torch(*_arrays(rng, (B, H, Sq, D), (B, HK, Sk, D), (B, HK, Sk, D)),
+                        dtype=torch.bfloat16)
+    got, got32, counts = _tc_kernel_attention(q, k, v, causal=causal, window=window)
+    want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                    window=window).numpy()
+    vmax = v.float().numpy()
+    assert (np.abs(got.float().numpy() - want32) <= _bf16_limit(want32, vmax)).all()
+    pallas = np.asarray(flash_attention_call(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                                             causal=causal, window=window, bq=blk, bkv=blk,
+                                             interpret=True))
+    assert (np.abs(got32.numpy() - pallas) <= _bf16_limit(pallas, vmax)).all()
+    assert counts["masked"] > 0 and counts["full"] > 0
+    assert counts["rescale_skipped"] > 0
+    if causal or window is not None:
+        assert counts["tiles_skipped"] > 0
+    dn, _ = _tc_bucket(D)
+    if D == 112:
+        assert dn == D  # kimi-k2's head dim: P V computes no zero column
+
+
 def test_flash_fully_masked_rows_are_zero():
     """Causal with Sq > Sk: the first Sq - Sk rows see no key.  The kernel (and
     the Pallas kernel) give zeros; the JAX package's -inf reference gives NaN."""
@@ -270,6 +393,25 @@ def test_flash_dispatch_rules_on_the_cpu():
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, window=0)
     assert torch.equal(ops.flash_attention(q, k, v, impl="ref"), ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "bshd_view", "one_head_free_stride", "one_row"])
+def test_flash_outer_strides_name_a_valid_stride_for_size_one_axes(layout):
+    """The (batch, head, sequence) strides the wrapper hands the kernels: as
+    the tensor has them on every axis of several entries, and on an axis of
+    size 1 (whose stride PyTorch leaves free) the tensor's extent, a multiple
+    of 16 bytes in bf16 that the tensor maps take."""
+    base = torch.zeros((2, 24, 4, 112), dtype=torch.bfloat16)
+    t = {"contiguous": base.transpose(1, 2).contiguous(),
+         "bshd_view": base.transpose(1, 2),
+         "one_head_free_stride": torch.as_strided(base[:, :, :1].contiguous(), (2, 1, 24, 112),
+                                                  (24 * 112, 1, 112, 1)),
+         "one_row": base[:, :1].transpose(1, 2)}[layout]
+    got = fa._outer_strides(t)
+    for s, n, own in zip(got, t.shape[:3], t.stride()[:3]):
+        assert s == own if n > 1 else (s * 2 % 16 == 0 and s >= t.shape[3])
+    if layout == "one_head_free_stride":
+        assert t.stride(1) == 1 and got[1] == 2 * 24 * 112
 
 
 # --- models/attention.attention ---------------------------------------------
