@@ -21,7 +21,7 @@ from typing import Any, Callable, Hashable
 from ..analysis.errors import PlanError
 from ..obs.log import NULL_LOG
 from ..obs.timing import timed_into
-from ..obs.tracer import NULL_TRACER
+from ..obs.tracer import NULL_TRACER, profiler_recording, profiler_tracer
 
 __all__ = ["SymbolicCache"]
 
@@ -79,10 +79,15 @@ class SymbolicCache:
         self.verify_violations = 0
         self.verify_s = 0.0
 
-    # the tracer rides on the cache; assigning None disables tracing
+    # the tracer rides on the cache; assigning None disables tracing, and a
+    # cache with none of its own hands out the profiler tracer while a
+    # torch.profiler session records (repro_torch.obs.tracer)
     @property
     def tracer(self):
-        return self._tracer
+        tr = self._tracer
+        if tr is NULL_TRACER and profiler_recording():
+            return profiler_tracer()
+        return tr
 
     @tracer.setter
     def tracer(self, tracer) -> None:

@@ -34,7 +34,10 @@ Two numeric engines:
 
 Both sum each output block's tasks in the plan's order, so they agree bit
 for bit in fp32.  The executables upload a plan's index arrays once; a call
-then uploads at most its per-task masks.
+then uploads at most its per-task masks.  A call takes its caller's tracer
+(``tracer=``, the ``dispatch`` span's) and records two spans in it:
+``exchange`` (the receive buffers and operand casts) and ``launch`` (the
+tile pick, the kernel's checks, its output and the launch itself).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..kernels import ops as kops
 from ..kernels.block_spmm import launch_tiles
 from ..kernels.fused_leaf import fused_task_runs
 from ..kernels.precision import FP32, Precision
+from ..obs.tracer import NULL_TRACER
 from .matrix import BSMatrix, resolve_device
 from .schedule import SpgemmPlan
 
@@ -230,17 +234,20 @@ class SpgemmExecutable:
         flat = lambda x: x.reshape(-1, *x.shape[2:]).contiguous()  # noqa: E731
         return flat(a_all), flat(b_all)
 
-    def _run(self, a_store, b_store, tasks) -> torch.Tensor:
-        a_all, b_all = self._operands(a_store, b_store)
-        self.last_tiles = _executable_tiles(self._tiles, (a_all, b_all))
-        c = kops.block_spmm_tensors(a_all, b_all, *tasks, self._num_out, impl=self.impl,
-                                    tiles=self.last_tiles)
+    def _run(self, a_store, b_store, tasks, tracer=NULL_TRACER) -> torch.Tensor:
+        with tracer.span("exchange", cat="exchange"):
+            a_all, b_all = self._operands(a_store, b_store)
+        with tracer.span("launch", cat="kernel"):
+            self.last_tiles = _executable_tiles(self._tiles, (a_all, b_all))
+            c = kops.block_spmm_tensors(a_all, b_all, *tasks, self._num_out, impl=self.impl,
+                                        tiles=self.last_tiles)
         return c.reshape(self.plan.nparts, self.plan.c_cap, *c.shape[1:])
 
-    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
+    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor, *,
+                 tracer=NULL_TRACER) -> torch.Tensor:
         """Run on per-worker padded stores ``[P, cap, bs, bs]``; returns C stores
         ``[P, c_cap, bs, bs]`` in fp32."""
-        return self._run(a_store, b_store, self._tasks)
+        return self._run(a_store, b_store, self._tasks, tracer)
 
 
 class MaskedSpgemmExecutable(SpgemmExecutable):
@@ -254,12 +261,13 @@ class MaskedSpgemmExecutable(SpgemmExecutable):
     instead; the sums are the same.)
     """
 
-    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor, task_on) -> torch.Tensor:
+    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor, task_on, *,
+                 tracer=NULL_TRACER) -> torch.Tensor:
         p, t = self._flat[3]
         keep = np.asarray(task_on, dtype=bool)[p, t]
         a, b, c = (x[keep] for x in self._flat[:3])
         tasks = kops.task_arrays(a, b, c, self._num_out, self.mesh.device)
-        return self._run(a_store, b_store, tasks)
+        return self._run(a_store, b_store, tasks, tracer)
 
 
 class FusedSpgemmExecutable:
@@ -318,17 +326,21 @@ class FusedSpgemmExecutable:
         return (a_store.contiguous(), a_recv, b_store.contiguous(), b_recv, *self._idx,
                 self._run_ptr, plan.c_cap)
 
-    def _run(self, a_store, b_store, *, keeps=None, live=(None, None), on=None, low=None):
-        args = self.kernel_args(a_store, b_store, keeps, live)
-        self.last_tiles = _executable_tiles(self._tiles, args[:4])
-        return kops.fused_block_spmm(*args, on=on, low=low,
-                                     adaptive=self.precision.mode == "adaptive",
-                                     tiles=self.last_tiles)
+    def _run(self, a_store, b_store, *, keeps=None, live=(None, None), on=None, low=None,
+             tracer=NULL_TRACER):
+        with tracer.span("exchange", cat="exchange"):
+            args = self.kernel_args(a_store, b_store, keeps, live)
+        with tracer.span("launch", cat="kernel"):
+            self.last_tiles = _executable_tiles(self._tiles, args[:4])
+            return kops.fused_block_spmm(*args, on=on, low=low,
+                                         adaptive=self.precision.mode == "adaptive",
+                                         tiles=self.last_tiles)
 
-    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor) -> torch.Tensor:
+    def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor, *,
+                 tracer=NULL_TRACER) -> torch.Tensor:
         """Run on per-worker padded stores ``[P, cap, bs, bs]``; returns C stores
         ``[P, c_cap, bs, bs]`` in fp32."""
-        return self._run(a_store, b_store)
+        return self._run(a_store, b_store, tracer=tracer)
 
 
 def _send_task_spans(plan: SpgemmPlan):
@@ -439,7 +451,7 @@ class MaskedFusedSpgemmExecutable(FusedSpgemmExecutable):
         return keep_task
 
     def __call__(self, a_store: torch.Tensor, b_store: torch.Tensor, task_on,
-                 task_low=None) -> torch.Tensor:
+                 task_low=None, *, tracer=NULL_TRACER) -> torch.Tensor:
         plan = self.plan
         dev = self.mesh.device
         task_on = np.asarray(task_on, dtype=bool)
@@ -457,7 +469,7 @@ class MaskedFusedSpgemmExecutable(FusedSpgemmExecutable):
             low_host = np.zeros(task_on.shape, bool) if task_low is None else np.asarray(task_low) != 0
             low = _upload(low_host, dev, bool)
         return self._run(a_store, b_store, keeps=keeps, live=live,
-                         on=_upload(task_on, dev, bool), low=low)
+                         on=_upload(task_on, dev, bool), low=low, tracer=tracer)
 
 
 def dist_spgemm(

@@ -219,7 +219,7 @@ def dist_add(
         with tr.span("dispatch", cat="kernel", op="add") as sp:
             store = tr.sync(exe(a.store, b.store, alpha, beta).to(
                 torch.promote_types(a.dtype, b.dtype)))
-            if tr.enabled:
+            if tr.annotates:
                 sp.worker_costs = np.bincount(exe.c_owner, minlength=a.nparts).astype(np.float64)
     return DistBSMatrix(
         shape=tuple(a.shape), bs=a.bs, coords=exe.c_coords, owner=exe.c_owner,
@@ -539,7 +539,7 @@ def dist_transpose(
         exe = cache.get_or_build(key, build) if cache is not None else build()
         with tr.span("dispatch", cat="kernel", op="transpose") as sp:
             store = tr.sync(exe(a.store))
-            if tr.enabled:
+            if tr.annotates:
                 blk = a.bs * a.bs * a.store.element_size()
                 shipped = int(exe.sent_blocks.sum())
                 sp.args.update(sent_blocks=shipped)
@@ -628,7 +628,7 @@ def dist_repartition(
             stats["sent_blocks_per_worker"] = exe.sent_blocks.copy()
         with tr.span("dispatch", cat="kernel", op="repartition") as sp:
             store = tr.sync(exe(x.store))
-            if tr.enabled:
+            if tr.annotates:
                 msp.args.update(migrated_blocks=exe.migrated_blocks)
                 tr.counter("migrated_bytes").add(exe.migrated_blocks * blk)
                 # cost share: blocks each source ships, plus the local gather

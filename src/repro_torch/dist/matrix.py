@@ -187,7 +187,7 @@ def resident_block_norms(x: DistBSMatrix, cache=None) -> np.ndarray:
         return np.zeros((0,), dtype=np.float64)
     tr = tracer_of(cache)
     with tr.span("norm_fetch", cat="collective", nnzb=x.nnzb):
-        if tr.enabled:
+        if tr.annotates:
             tr.counter("norm_fetch_bytes").add(x.nnzb * 4)
         mm = getattr(cache, "memory_meter", None) if cache is not None else None
         if mm is not None:

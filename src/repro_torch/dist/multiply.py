@@ -139,7 +139,7 @@ def _plan_obs_static(plan) -> dict:
 def _annotate_spgemm_dispatch(tr, sp, plan, task_count, precision: Precision | None = None,
                               exe=None) -> None:
     """Per-worker attribution + byte/task counters on an executed multiply
-    dispatch span.  Callers guard on ``tr.enabled``: this does real work
+    dispatch span.  Callers guard on ``tr.annotates``: this does real work
     (plan byte accounting, cost-model evaluation) that must cost nothing
     with tracing off.
 
@@ -229,8 +229,8 @@ def _note_dispatch_locality(cache, tr, plan, precision, a, b, *, task_on=None, e
     installed): static local/shipped residency split, wire bytes with
     delta-mask pruning (``exe.last_keeps``) and the wire itemsize applied,
     and per-block movement lineage keyed by the operands' Morton codes.
-    Independent of the tracer, but feeds the locality counters when one
-    listens."""
+    Independent of the tracer, but feeds the locality counters when an
+    annotating one listens."""
     lld = getattr(cache, "locality_ledger", None) if cache is not None else None
     if lld is None:
         return
@@ -238,7 +238,7 @@ def _note_dispatch_locality(cache, tr, plan, precision, a, b, *, task_on=None, e
     out = lld.note_dispatch(plan, wire_itemsize=wire, task_on=task_on,
                             keeps=getattr(exe, "last_keeps", None),
                             a_codes=a.codes(), b_codes=b.codes())
-    if tr.enabled:
+    if tr.annotates:
         tr.counter("local_bytes").add(out["local_bytes"])
         tr.counter("shipped_bytes").add(out["shipped_bytes"])
         tr.counter("wire_recv_bytes").add(out["wire_recv_bytes"])
@@ -377,13 +377,14 @@ def dist_multiply(
                 exe = SpgemmExecutable(plan, a.mesh, impl=_staged_impl(impl))
             return plan, exe
 
-        key = multiply_plan_key(a, b, exchange=exchange, impl=impl, precision=precision)
-        if cache is None:
-            plan, exe = build()
-        else:
-            plan, exe = cache.get_or_build(key, build)
-            cache.last_plan_key = key
-            cache.last_task_count = plan.task_count
+        with tr.span("plan_lookup", cat="plan"):
+            key = multiply_plan_key(a, b, exchange=exchange, impl=impl, precision=precision)
+            if cache is None:
+                plan, exe = build()
+            else:
+                plan, exe = cache.get_or_build(key, build)
+                cache.last_plan_key = key
+                cache.last_task_count = plan.task_count
         if adaptive:
             a_norms = resident_block_norms(a, cache)
             b_norms = a_norms if b is a else resident_block_norms(b, cache)
@@ -394,10 +395,10 @@ def dist_multiply(
             task_low = _adaptive_low_table(plan, low_task)
         with tr.span("dispatch", cat="kernel", op="spgemm") as sp:
             if adaptive:
-                c_store = tr.sync(exe(a.store, b.store, task_on, task_low))
+                c_store = tr.sync(exe(a.store, b.store, task_on, task_low, tracer=tr))
             else:
-                c_store = tr.sync(exe(a.store, b.store))
-            if tr.enabled:
+                c_store = tr.sync(exe(a.store, b.store, tracer=tr))
+            if tr.annotates:
                 _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe)
     c = _result(a, b, plan, c_store)
     _note_dispatch_memory(cache, plan, precision, c)
@@ -516,8 +517,6 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
         tasks, err = _spamm_pruned_tasks(a, b, tau, a_norms, b_norms)
 
     if method == "delta":
-        key = spamm_delta_plan_key(a, b, exchange=exchange, impl=impl, precision=precision)
-
         def build():
             # the delta plan IS the exact-multiply plan; reuse one already
             # cached for dist_multiply on this structure (only the
@@ -536,11 +535,13 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
                 exe = MaskedSpgemmExecutable(plan, a.mesh, impl=_staged_impl(impl))
             return plan, exe
 
-        if cache is None:
-            plan, exe = build()
-        else:
-            plan, exe = cache.get_or_build(key, build)
-            cache.last_plan_key = key
+        with tr.span("plan_lookup", cat="plan"):
+            key = spamm_delta_plan_key(a, b, exchange=exchange, impl=impl, precision=precision)
+            if cache is None:
+                plan, exe = build()
+            else:
+                plan, exe = cache.get_or_build(key, build)
+                cache.last_plan_key = key
         with timed_into(cache, "symbolic_s", tr, "delta_mask", cat="symbolic"):
             task_on = _delta_task_mask(plan, tasks, b.nnzb)
         # adaptive mixed precision: spend the rounding budget on the kept
@@ -564,10 +565,10 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
             cache.last_task_count = masked_count
         with tr.span("dispatch", cat="kernel", op="spamm-delta") as sp:
             if fused:
-                c_store = tr.sync(exe(a.store, b.store, task_on, task_low))
+                c_store = tr.sync(exe(a.store, b.store, task_on, task_low, tracer=tr))
             else:
-                c_store = tr.sync(exe(a.store, b.store, task_on))
-            if tr.enabled:
+                c_store = tr.sync(exe(a.store, b.store, task_on, tracer=tr))
+            if tr.annotates:
                 _annotate_spgemm_dispatch(tr, sp, plan, masked_count, precision, exe)
         c = _result(a, b, plan, c_store)
         _note_dispatch_memory(cache, plan, precision, c)
@@ -579,9 +580,6 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
             cache.last_plan_key = None  # no plan ran; nothing to peek
             cache.last_task_count = None
         return _empty_dist_result(a, b), err
-
-    key = _plan_key("spamm", a, b, exchange, impl, precision,
-                    tasks.a_idx, tasks.b_idx, tasks.c_idx)
 
     def build():
         plan = make_spgemm_plan(
@@ -595,15 +593,18 @@ def _dist_spamm_impl(a, b, tau, cache, tr, *, exchange, impl, method, precision,
             exe = SpgemmExecutable(plan, a.mesh, impl=_staged_impl(impl))
         return plan, exe
 
-    if cache is None:
-        plan, exe = build()
-    else:
-        plan, exe = cache.get_or_build(key, build)
-        cache.last_plan_key = key
-        cache.last_task_count = plan.task_count
+    with tr.span("plan_lookup", cat="plan"):
+        key = _plan_key("spamm", a, b, exchange, impl, precision,
+                        tasks.a_idx, tasks.b_idx, tasks.c_idx)
+        if cache is None:
+            plan, exe = build()
+        else:
+            plan, exe = cache.get_or_build(key, build)
+            cache.last_plan_key = key
+            cache.last_task_count = plan.task_count
     with tr.span("dispatch", cat="kernel", op="spamm-replan") as sp:
-        c_store = tr.sync(exe(a.store, b.store))
-        if tr.enabled:
+        c_store = tr.sync(exe(a.store, b.store, tracer=tr))
+        if tr.annotates:
             _annotate_spgemm_dispatch(tr, sp, plan, plan.task_count, precision, exe)
     c = _result(a, b, plan, c_store)
     _note_dispatch_memory(cache, plan, precision, c)

@@ -6,6 +6,16 @@ Chrome-trace export, reports, and the health observatory.
   registered once; the disabled tracer is an allocation-free no-op.  The
   tracer rides on the plan cache (``PlanCache(tracer=...)``), which is
   already threaded through every resident collective and driver.
+* :func:`profiler_tracer` — the port's spans in a ``torch.profiler`` trace:
+  run any profiler session, and a cache with no tracer of its own records
+  into this one, each span a ``record_function`` scope beside the device's
+  kernels.  On the resident multiply: ``dist_multiply`` (the call),
+  ``plan_lookup`` (the plan key's structure fingerprint and the cache
+  lookup; ``plan_build`` and ``plan_verify`` inside on a miss),
+  ``dispatch`` (the executable), and in it ``exchange`` (the receive
+  buffers) and ``launch`` (the tile pick, the kernel's checks and the
+  launch).  :meth:`Tracer.self_seconds` gives a span's time outside its
+  children.  It holds the latest session's spans until the next starts.
 * :mod:`repro_torch.obs.timing` — the shared timing idioms (``timed_into``,
   ``IterationScope``) that give both iterative drivers one per-iteration
   row schema.
@@ -39,7 +49,8 @@ Chrome-trace export, reports, and the health observatory.
   :func:`whatif_rebalanced`, :func:`project_seconds`).
 
 The JAX package's ``repro.obs`` with the same public names, except that
-``jax_memory_stats`` is :func:`cuda_memory_stats` here.
+``jax_memory_stats`` is :func:`cuda_memory_stats` here, and
+:func:`profiler_tracer` is the port's own.
 """
 
 from .export import chrome_trace_events, validate_chrome_trace, write_chrome_trace
@@ -73,7 +84,17 @@ from .report import (
 )
 from .taskgraph import TaskGraphAnalysis, analyze_plan, project_seconds, whatif_rebalanced
 from .timing import SHARED_ITER_KEYS, IterationScope, Stopwatch, timed_into, wall_clock
-from .tracer import NULL_TRACER, Counter, Gauge, NullTracer, Span, Tracer, run_metrics, tracer_of
+from .tracer import (
+    NULL_TRACER,
+    Counter,
+    Gauge,
+    NullTracer,
+    Span,
+    Tracer,
+    profiler_tracer,
+    run_metrics,
+    tracer_of,
+)
 
 __all__ = [
     "Tracer",
@@ -83,6 +104,7 @@ __all__ = [
     "Counter",
     "Gauge",
     "tracer_of",
+    "profiler_tracer",
     "run_metrics",
     "timed_into",
     "IterationScope",

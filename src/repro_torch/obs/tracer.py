@@ -38,10 +38,24 @@ already threaded through every resident collective and driver — enable
 tracing by constructing ``PlanCache(tracer=Tracer())`` or by passing
 ``tracer=`` to a driver, and read it back anywhere via :func:`tracer_of`.
 
-A copy of the JAX package's ``repro/obs/tracer.py`` with two changes:
-:meth:`Tracer.sync` waits for the card with ``torch.cuda.synchronize``, and
+**The profiler tracer.**  While a ``torch.profiler`` session records, a
+cache with no tracer of its own (and :func:`tracer_of` of no cache) hands
+out the process's :func:`profiler_tracer` instead of :data:`NULL_TRACER`:
+``Tracer(sync=False, profiler_scopes=True)``, so each span is a
+``record_function`` scope in the profiler's own trace, beside the device's
+kernels, and the host never waits for the card inside one.  It records the
+spans and the cache's counters and no dispatch annotation
+(:attr:`Tracer.annotates` is False: no span args, worker costs, byte
+counters or instants, which only the exporters read).  Each session starts
+a fresh one, which keeps its spans after the session stops, until the next
+starts.  Outside a session the switch costs one C call
+(``torch._C._autograd._profiler_enabled``).
+
+A copy of the JAX package's ``repro/obs/tracer.py`` with these changes:
+:meth:`Tracer.sync` waits for the card with ``torch.cuda.synchronize``,
 ``profiler_scopes`` (the JAX package's ``jax_scopes``) opens a
-``torch.profiler.record_function`` scope per span.
+``torch.profiler.record_function`` scope per span, and the profiler tracer
+above, with :attr:`Tracer.annotates` and :meth:`Tracer.self_seconds`.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ __all__ = [
     "NullTracer",
     "NULL_TRACER",
     "tracer_of",
+    "profiler_tracer",
     "run_metrics",
 ]
 
@@ -153,6 +168,9 @@ class Tracer:
     """
 
     enabled = True
+    #: dispatch sites annotate their spans (args, worker costs, byte counters,
+    #: instants) for the exporters; False on the profiler tracer
+    annotates = True
 
     def __init__(
         self,
@@ -214,6 +232,18 @@ class Tracer:
         out.update({name: g.value for name, g in sorted(self._gauges.items())})
         out["spans_recorded"] = len(self.spans)
         return out
+
+    def self_seconds(self, name: str) -> float:
+        """Seconds in the spans called ``name`` outside their direct children:
+        each such span's duration less those of the spans it opened."""
+        spans = self.spans
+        total = 0.0
+        for sp in spans:
+            if sp.name == name:
+                total += sp.dur
+            if sp.parent >= 0 and spans[sp.parent].name == name:
+                total -= sp.dur
+        return total
 
     # -- device sync ---------------------------------------------------------
     def sync(self, x: Any) -> Any:
@@ -282,6 +312,7 @@ class NullTracer:
     """The disabled tracer: falsy, allocation-free, records nothing."""
 
     enabled = False
+    annotates = False
     spans: tuple = ()
     instants: tuple = ()
 
@@ -306,17 +337,59 @@ class NullTracer:
     def metrics_flat(self) -> dict:
         return {}
 
+    def self_seconds(self, name: str) -> float:
+        return 0.0
+
     def sync(self, x: Any) -> Any:
         return x
 
 
 NULL_TRACER = NullTracer()
 
+#: whether a torch.profiler session records now: one C call
+profiler_recording = torch._C._autograd._profiler_enabled
+
+
+def _new_profiler_tracer() -> Tracer:
+    tr = Tracer(sync=False, profiler_scopes=True)
+    tr.annotates = False
+    return tr
+
+
+_profiler_tracer = _new_profiler_tracer()
+
+
+def profiler_tracer() -> Tracer:
+    """The process's profiler tracer: the spans and cache counters of the
+    latest ``torch.profiler`` session, held until the next one starts."""
+    return _profiler_tracer
+
+
+def _start_profiler_tracer(torch_start):
+    """``torch.autograd.profiler``'s hook run as each session starts, wrapped
+    so that the session also starts a fresh profiler tracer.  A span still
+    open on the previous one closes on it."""
+
+    def run_on_profiler_start():
+        global _profiler_tracer
+        _profiler_tracer = _new_profiler_tracer()
+        torch_start()
+
+    run_on_profiler_start.starts_profiler_tracer = True
+    return run_on_profiler_start
+
+
+_torch_start = getattr(torch.autograd.profiler, "_run_on_profiler_start", None)
+if _torch_start is not None and not getattr(_torch_start, "starts_profiler_tracer", False):
+    torch.autograd.profiler._run_on_profiler_start = _start_profiler_tracer(_torch_start)
+
 
 def tracer_of(cache) -> Tracer | NullTracer:
-    """The tracer threaded through the runtime rides on the plan cache."""
+    """The tracer threaded through the runtime rides on the plan cache; a
+    call with no cache gets :func:`profiler_tracer` while a profiler session
+    records, else :data:`NULL_TRACER`."""
     if cache is None:
-        return NULL_TRACER
+        return _profiler_tracer if profiler_recording() else NULL_TRACER
     tr = getattr(cache, "tracer", None)
     return tr if tr is not None else NULL_TRACER
 
@@ -331,6 +404,8 @@ def run_metrics(cache=None, tracer=None) -> dict:
     pre-tracer behaviour — so existing consumers keep working unchanged.
     """
     tr = tracer if tracer is not None else tracer_of(cache)
+    if tracer is None and tr is _profiler_tracer:
+        tr = NULL_TRACER  # its counters are the whole session's, not this run's
     out: dict = dict(cache.stats()) if cache is not None else {}
     out.update(tr.metrics_flat())
     return out
